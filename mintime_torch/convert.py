@@ -1,0 +1,143 @@
+"""Carry the JAX package's weights into the port.
+
+The JAX package's variables are ``{"params": ..., "batch_stats": ...}``
+nested dicts of arrays (anything ``numpy.asarray`` takes). These functions
+return the port's ``state_dict`` under the reference's key names:
+
+* Dense kernels ``(in, out)`` → Linear weights ``(out, in)``;
+* conv kernels ``(kh, kw, in, out)`` → ``(out, in, kh, kw)``;
+* the TimeSformer's head-major qkv columns ``(H, [q|k|v], dh)`` → the
+  ``[q|k|v]``-major ``to_qkv`` the port's attention kernel reads — the
+  permutation happens here, once, never per call;
+* embedding tables stay at the rows that are indexed.
+
+The keys and values are the ones ``mintime_tpu.utils.torch_convert.
+timesformer_params_to_torch`` / ``efficientnet_params_to_torch`` emit, apart
+from those exporters' zero rows below the embedding tables.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from mintime_torch.config import ModelConfig
+from mintime_torch.models.efficientnet import expand_blocks
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def timesformer_state_dict(params: Mapping, config: ModelConfig) -> dict[str, torch.Tensor]:
+    """``SizeInvariantTimeSformer`` params → the port's TimeSformer state_dict."""
+    H, dh = config.heads, config.dim_head
+    sd: dict[str, torch.Tensor] = {}
+
+    def linear(prefix, leaf):
+        sd[f"{prefix}.weight"] = _t(leaf["kernel"]).T.contiguous()
+        sd[f"{prefix}.bias"] = _t(leaf["bias"])
+
+    def layernorm(prefix, leaf):
+        sd[f"{prefix}.weight"] = _t(leaf["scale"])
+        sd[f"{prefix}.bias"] = _t(leaf["bias"])
+
+    sd["cls_token"] = _t(params["cls_token"])
+    sd["pos_emb.weight"] = _t(params["pos_emb"]["embedding"])
+    linear("to_patch_embedding", params["to_patch_embedding"])
+    layernorm("to_out.0", params["out_norm"])
+    linear("to_out.1", params["out_proj"])
+    if config.enable_size_emb:
+        sd["size_emb.weight"] = _t(params["size_emb"]["embedding"])
+    for i in range(config.depth):
+        for j, kind in ((0, "time"), (1, "space")):
+            base = f"layers.{i}.{j}"
+            attn = params[f"{kind}_attn_{i}"]
+            wq = np.asarray(attn["qkv_kernel"], np.float32)  # (D, H*3*dh) head-major
+            wq = wq.reshape(wq.shape[0], H, 3, dh).transpose(0, 2, 1, 3).reshape(wq.shape[0], -1)
+            sd[f"{base}.fn.to_qkv.weight"] = _t(wq).T.contiguous()
+            sd[f"{base}.fn.to_out.0.weight"] = _t(attn["proj_kernel"]).T.contiguous()
+            sd[f"{base}.fn.to_out.0.bias"] = _t(attn["proj_bias"])
+            layernorm(f"{base}.norm", params[f"{kind}_norm_{i}"])
+        base = f"layers.{i}.2"
+        layernorm(f"{base}.norm", params[f"ff_norm_{i}"])
+        linear(f"{base}.fn.net.0", params[f"ff_{i}"]["Dense_0"])
+        linear(f"{base}.fn.net.3", params[f"ff_{i}"]["Dense_1"])
+    return sd
+
+
+def efficientnet_state_dict(variables: Mapping, variant: str = "efficientnet-b0") -> dict[str, torch.Tensor]:
+    """``EfficientNet`` variables → the port's EfficientNet state_dict."""
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def conv(prefix, leaf):
+        sd[f"{prefix}.weight"] = _t(leaf["kernel"]).permute(3, 2, 0, 1).contiguous()
+        if "bias" in leaf:
+            sd[f"{prefix}.bias"] = _t(leaf["bias"])
+
+    def bn(prefix, pleaf, sleaf):
+        sd[f"{prefix}.weight"] = _t(pleaf["scale"])
+        sd[f"{prefix}.bias"] = _t(pleaf["bias"])
+        sd[f"{prefix}.running_mean"] = _t(sleaf["mean"])
+        sd[f"{prefix}.running_var"] = _t(sleaf["var"])
+
+    conv("_conv_stem", params["conv_stem"])
+    bn("_bn0", params["bn_stem"], stats["bn_stem"])
+    for i, ba in enumerate(expand_blocks(variant)):
+        blk, bst = params[f"block_{i}"], stats[f"block_{i}"]
+        p = f"_blocks.{i}"
+        if ba.expand != 1:
+            conv(f"{p}._expand_conv", blk["expand_conv"])
+            bn(f"{p}._bn0", blk["bn0"], bst["bn0"])
+        conv(f"{p}._depthwise_conv", blk["depthwise_conv"])
+        bn(f"{p}._bn1", blk["bn1"], bst["bn1"])
+        conv(f"{p}._se_reduce", blk["se_reduce"])
+        conv(f"{p}._se_expand", blk["se_expand"])
+        conv(f"{p}._project_conv", blk["project_conv"])
+        bn(f"{p}._bn2", blk["bn2"], bst["bn2"])
+    conv("_conv_head", params["conv_head"])
+    bn("_bn1", params["bn_head"], stats["bn_head"])
+    return sd
+
+
+def baseline_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """``Baseline`` params → the port's ``mlp_head`` state_dict."""
+    return {
+        "mlp_head.0.weight": _t(params["mlp_0"]["kernel"]).T.contiguous(),
+        "mlp_head.0.bias": _t(params["mlp_0"]["bias"]),
+        "mlp_head.1.weight": _t(params["mlp_1"]["kernel"]).T.contiguous(),
+        "mlp_head.1.bias": _t(params["mlp_1"]["bias"]),
+    }
+
+
+def classifier_state_dict(variables: Mapping, config: ModelConfig,
+                          backbone: str = "efficientnet-b0",
+                          head: str = "timesformer") -> dict[str, torch.Tensor]:
+    """``MintimeVideoClassifier`` variables → the port's classifier state_dict."""
+    params = variables["params"]
+    sd: dict[str, torch.Tensor] = {}
+    if backbone == "efficientnet-b0":
+        ext = efficientnet_state_dict(
+            {"params": params["extractor"], "batch_stats": variables["batch_stats"]["extractor"]}
+        )
+        sd.update({f"extractor.{k}": v for k, v in ext.items()})
+    elif backbone != "none":
+        raise ValueError(f"backbone {backbone!r} is not ported")
+    if head == "timesformer":
+        hd = timesformer_state_dict(params["head"], config)
+    else:
+        hd = baseline_state_dict(params["head"])
+    sd.update({f"head.{k}": v for k, v in hd.items()})
+    return sd
+
+
+def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
+    """Load JAX classifier variables into a port classifier, in its device
+    and dtype (strict: every key must match)."""
+    sd = classifier_state_dict(variables, model.config, model.backbone, model.head_kind)
+    model.load_state_dict(sd, strict=True)
+    return model

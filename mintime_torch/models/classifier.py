@@ -1,0 +1,119 @@
+"""End-to-end video classifier: CNN backbone + video head (counterpart of
+``mintime_tpu/models/classifier.py:31-100``).
+
+Frames ``(B, F, H, W, 3)`` (uint8 or float, NHWC) → logits ``(B, 1)`` fp32,
+plus the last layer's CLS-row attention maps with ``require_attention``.
+``backbone="none"`` takes pre-extracted feature maps ``(B, F, h, w, C)``.
+The Xception backbone is not ported yet.
+
+The model is built on ``device`` (default ``"cuda"``, which raises when
+there is no card) in ``dtype`` (default bf16 on the card, fp32 on the CPU),
+with weights drawn from ``torch.Generator().manual_seed(seed)``: the same
+seed gives the same weights on every machine.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from mintime_torch.config import ModelConfig
+from mintime_torch.device import default_dtype, resolve_device
+from mintime_torch.models.baseline import Baseline, video_logits
+from mintime_torch.models.efficientnet import EfficientNet
+from mintime_torch.models.timesformer import SizeInvariantTimeSformer
+
+BACKBONES = ("efficientnet-b0", "none")
+HEADS = ("timesformer", "baseline")
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init in the spirit of the JAX package's: truncated normal
+    (std 0.02, cut at ±2σ) for Linear, Embedding and the CLS token, LeCun
+    normal for convolutions, zero biases, unit norms."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)):
+            nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        if isinstance(m, SizeInvariantTimeSformer):
+            nn.init.trunc_normal_(m.cls_token, std=0.02, a=-0.04, b=0.04, generator=generator)
+
+
+class MintimeVideoClassifier(nn.Module):
+    """Flagship model: EfficientNet-B0 per face, then the Size-Invariant
+    TimeSformer (or the baseline MLP head) per video.
+
+    ``use_kernels`` routes the TimeSformer's FFNs and divided attentions
+    through the CUDA kernels on the card (their plain versions on the CPU).
+    ``freeze_backbone`` detaches the feature maps.
+    """
+
+    def __init__(self, config: ModelConfig, backbone: str = "efficientnet-b0",
+                 head: str = "timesformer", require_attention: bool = False,
+                 freeze_backbone: bool = False, use_kernels: bool = False,
+                 device: str | torch.device = "cuda", dtype: torch.dtype | None = None,
+                 seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        if backbone not in BACKBONES:
+            raise ValueError(f"backbone {backbone!r} is not ported; choose from {BACKBONES}")
+        if head not in HEADS:
+            raise ValueError(f"unknown head {head!r}; choose from {HEADS}")
+        self.config = config
+        self.backbone, self.head_kind = backbone, head
+        self.require_attention = require_attention and head == "timesformer"
+        self.freeze_backbone = freeze_backbone
+        if backbone == "efficientnet-b0":
+            self.extractor = EfficientNet("efficientnet-b0")
+        if head == "timesformer":
+            self.head = SizeInvariantTimeSformer(config, require_attention, use_kernels)
+        else:
+            self.head = Baseline(config)
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.eval()
+        self.to(device=dev, dtype=dtype or default_dtype(dev))
+        if dev.type == "cuda":
+            self.to(memory_format=torch.channels_last)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(self.parameters()).dtype
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def forward(self, frames, mask=None, identities_mask=None, size_embedding=None,
+                positions=None):
+        B, F_ = frames.shape[:2]
+        if self.backbone == "none":
+            feats = frames.to(self.dtype)
+        else:
+            x = frames.reshape((B * F_,) + frames.shape[2:]).to(self.dtype)
+            feats = self.extractor(x)
+            if self.freeze_backbone:
+                feats = feats.detach()
+            feats = feats.reshape((B, F_) + feats.shape[1:])
+
+        if self.head_kind == "baseline":
+            face_logits = self.head(feats.reshape((B * F_,) + feats.shape[2:]))
+            return video_logits(face_logits, B, F_).float()
+
+        out = self.head(feats, mask=mask, identities_mask=identities_mask,
+                        size_embedding=size_embedding, positions=positions)
+        if self.require_attention:
+            logits, attns = out
+            return logits.float(), attns
+        return out.float()

@@ -1,0 +1,184 @@
+"""EfficientNet feature-map forward, inference only (counterpart of
+``mintime_tpu/models/efficientnet.py:36-226``).
+
+Stem → 16 MBConv blocks with squeeze-excite (B0) → head conv + BN + swish,
+no pooling: a 224 input gives ``(N, 7, 7, 1280)``. The public boundary is
+NHWC like the JAX package; inside, the NHWC input is viewed as NCHW, which
+leaves it in PyTorch's channels-last memory format, and the convolutions run
+through ``torch.nn.functional.conv2d`` (the JAX package has no kernel of its
+own here). BatchNorm uses running statistics with eps 1e-3. Module and key
+names are the reference's (``_conv_stem``, ``_blocks.{i}._depthwise_conv``,
+…), so ``mintime_tpu.utils.torch_convert.efficientnet_params_to_torch`` and
+:func:`mintime_torch.convert.efficientnet_state_dict` give the same dict.
+
+TF-SAME padding: for stride 2 XLA pads more at the bottom and right than at
+the top and left; :func:`same_pad` computes those pads for each input size.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclass(frozen=True)
+class BlockArgs:
+    repeats: int
+    kernel: int
+    stride: int
+    expand: int
+    in_filters: int
+    out_filters: int
+    se_ratio: float = 0.25
+
+
+B0_BLOCKS: tuple[BlockArgs, ...] = (
+    BlockArgs(1, 3, 1, 1, 32, 16),
+    BlockArgs(2, 3, 2, 6, 16, 24),
+    BlockArgs(2, 5, 2, 6, 24, 40),
+    BlockArgs(3, 3, 2, 6, 40, 80),
+    BlockArgs(3, 5, 1, 6, 80, 112),
+    BlockArgs(4, 5, 2, 6, 112, 192),
+    BlockArgs(1, 3, 1, 6, 192, 320),
+)
+
+# (width_coefficient, depth_coefficient, resolution, dropout)
+SCALING = {
+    "efficientnet-b0": (1.0, 1.0, 224, 0.2),
+    "efficientnet-b1": (1.0, 1.1, 240, 0.2),
+    "efficientnet-b2": (1.1, 1.2, 260, 0.3),
+    "efficientnet-b3": (1.2, 1.4, 300, 0.3),
+    "efficientnet-b4": (1.4, 1.8, 380, 0.4),
+    "efficientnet-b5": (1.6, 2.2, 456, 0.4),
+    "efficientnet-b6": (1.8, 2.6, 528, 0.5),
+    "efficientnet-b7": (2.0, 3.1, 600, 0.5),
+}
+
+
+def round_filters(filters: int, width: float, divisor: int = 8) -> int:
+    """TF channel rounding."""
+    filters *= width
+    new = max(divisor, int(filters + divisor / 2) // divisor * divisor)
+    if new < 0.9 * filters:
+        new += divisor
+    return int(new)
+
+
+def round_repeats(repeats: int, depth: float) -> int:
+    return int(math.ceil(depth * repeats))
+
+
+def expand_blocks(variant: str) -> list[BlockArgs]:
+    """Apply width/depth scaling; one entry per physical block."""
+    width, depth, _, _ = SCALING[variant]
+    out = []
+    for ba in B0_BLOCKS:
+        infilt = round_filters(ba.in_filters, width)
+        outfilt = round_filters(ba.out_filters, width)
+        for r in range(round_repeats(ba.repeats, depth)):
+            out.append(BlockArgs(
+                repeats=1, kernel=ba.kernel, stride=ba.stride if r == 0 else 1,
+                expand=ba.expand, in_filters=infilt if r == 0 else outfilt,
+                out_filters=outfilt, se_ratio=ba.se_ratio,
+            ))
+    return out
+
+
+def same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """(before, after) padding of XLA's ``padding="SAME"`` along one axis."""
+    total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """Conv2d with TF-SAME padding (asymmetric where XLA's is)."""
+
+    def forward(self, x):
+        k, s = self.kernel_size[0], self.stride[0]
+        if k == 1 and s == 1:
+            return F.conv2d(x, self.weight, self.bias, 1, 0, 1, self.groups)
+        top, bottom = same_pad(x.shape[2], k, s)
+        left, right = same_pad(x.shape[3], k, s)
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, s, (top, left), 1, self.groups)
+        x = F.pad(x, (left, right, top, bottom))
+        return F.conv2d(x, self.weight, self.bias, s, 0, 1, self.groups)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm with the reference's parameter names (no
+    ``num_batches_tracked``: the port never updates the statistics)."""
+
+    def __init__(self, channels: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            False, 0.0, self.eps)
+
+
+class MBConvBlock(nn.Module):
+    """Mobile inverted bottleneck with squeeze-excite."""
+
+    def __init__(self, a: BlockArgs):
+        super().__init__()
+        self.args = a
+        expanded = a.in_filters * a.expand
+        if a.expand != 1:
+            self._expand_conv = SameConv2d(a.in_filters, expanded, 1, bias=False)
+            self._bn0 = BatchNorm(expanded)
+        self._depthwise_conv = SameConv2d(expanded, expanded, a.kernel, stride=a.stride,
+                                          groups=expanded, bias=False)
+        self._bn1 = BatchNorm(expanded)
+        se_ch = max(1, int(a.in_filters * a.se_ratio))
+        self._se_reduce = SameConv2d(expanded, se_ch, 1)
+        self._se_expand = SameConv2d(se_ch, expanded, 1)
+        self._project_conv = SameConv2d(expanded, a.out_filters, 1, bias=False)
+        self._bn2 = BatchNorm(a.out_filters)
+
+    def forward(self, x):
+        a = self.args
+        inputs = x
+        if a.expand != 1:
+            x = F.silu(self._bn0(self._expand_conv(x)))
+        x = F.silu(self._bn1(self._depthwise_conv(x)))
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = self._se_expand(F.silu(self._se_reduce(s)))
+        x = torch.sigmoid(s) * x
+        x = self._bn2(self._project_conv(x))
+        if a.stride == 1 and a.in_filters == a.out_filters:
+            x = x + inputs  # drop-connect is a training-time op
+        return x
+
+
+class EfficientNet(nn.Module):
+    """Feature-map EfficientNet: ``(N, H, W, 3)`` → ``(N, h, w, C)``."""
+
+    def __init__(self, variant: str = "efficientnet-b0"):
+        super().__init__()
+        width = SCALING[variant][0]
+        stem = round_filters(32, width)
+        self.feature_dim = round_filters(1280, width)
+        blocks = expand_blocks(variant)
+        self._conv_stem = SameConv2d(3, stem, 3, stride=2, bias=False)
+        self._bn0 = BatchNorm(stem)
+        self._blocks = nn.ModuleList(MBConvBlock(b) for b in blocks)
+        self._conv_head = SameConv2d(blocks[-1].out_filters, self.feature_dim, 1, bias=False)
+        self._bn1 = BatchNorm(self.feature_dim)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)  # NHWC data seen as NCHW: channels-last memory
+        x = F.silu(self._bn0(self._conv_stem(x)))
+        for block in self._blocks:
+            x = block(x)
+        x = F.silu(self._bn1(self._conv_head(x)))
+        return x.permute(0, 2, 3, 1)

@@ -1,0 +1,297 @@
+"""End-to-end video inference, the product API (counterpart of
+``mintime_tpu/predict.py:50-582``).
+
+decode → detect (injected detector) → square crops (one a second) → embed
+(injected embedder) and cluster into identities → adaptive sequence
+assembly → classifier forward with the last layer's CLS attentions →
+sigmoid probability and per-identity attention.
+
+``model`` is a :class:`mintime_torch.models.classifier.MintimeVideoClassifier`
+built with ``require_attention=True``; ``state`` is an optional mapping of
+parameter and buffer names to tensors on the model's device, used through
+``torch.func.functional_call`` in place of the model's own (the counterpart
+of the JAX package's ``variables``), or None for the model's own weights.
+
+:func:`predict_videos` stages and runs one batch at a time, so at most
+``batch_size`` videos' inputs are held at once; the JAX package stages the
+whole run before the first forward.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from mintime_torch.config import MintimeConfig
+from mintime_torch.data.assembler import IdentityFaces, build_sequence_plan, size_bucket
+from mintime_torch.data.augment import create_val_transform
+from mintime_torch.preprocessing.cluster_faces import connected_components
+from mintime_torch.preprocessing.extract_crops import pick_detection_frame, square_crop
+from mintime_torch.utils.attention_viz import aggregate_attentions
+
+CHANNEL_ORDERS = ("rgb", "bgr")
+_INPUT_KEYS = ("frames", "mask", "identities_mask", "size_embedding", "positions")
+
+
+@dataclass
+class PredictionResult:
+    probability: float  # sigmoid fake-probability
+    identity_attentions: list[float]
+    aggregated_attentions: list[np.ndarray]
+    identities: dict  # identity key → list[(frame_idx, face_idx, crop, bbox)]
+    frames_per_identity: list[int]
+    plan: Any = None
+
+
+def _validate_channel_order(order: str) -> None:
+    if order not in CHANNEL_ORDERS:
+        raise ValueError(f"channel_order must be one of {CHANNEL_ORDERS}, got {order!r}")
+
+
+def decode_for_predict(video_path: str, crop_step: int | None = None,
+                       channel_order: str = "rgb", resize_on_device: bool = False):
+    """One decode pass for both stages: half-res frames for detection (RGB or
+    BGR as the detector declares; full-res BGR with ``resize_on_device``)
+    and the full-res BGR frames one crop step apart.
+
+    Returns ``(det_frames, full_frames: dict[idx → BGR], fps)``.
+    """
+    import cv2
+
+    _validate_channel_order(channel_order)
+    if resize_on_device and channel_order != "bgr":
+        raise ValueError("resize_on_device implies the device-side channel swap too; "
+                         "construct the detector with channel_order='bgr'")
+    cap = cv2.VideoCapture(video_path)
+    fps = int(cap.get(cv2.CAP_PROP_FPS)) or 30
+    step = max(crop_step or fps, 1)
+    half, full = [], {}
+    i = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if i % step == 0:
+            full[i] = frame
+        if resize_on_device:
+            half.append(frame)
+        else:
+            small = cv2.resize(frame, (frame.shape[1] // 2, frame.shape[0] // 2))
+            if channel_order == "rgb":
+                small = cv2.cvtColor(small, cv2.COLOR_BGR2RGB)
+            half.append(small)
+        i += 1
+    cap.release()
+    return half, full, fps
+
+
+def detect_on_frames(frames: Sequence[np.ndarray], detector, every_n: int = 1) -> dict:
+    """Run the detector over every ``every_n``-th frame → boxes dict."""
+    indices = list(range(0, len(frames), every_n))
+    if hasattr(detector, "detect_batch"):
+        per_frame = detector.detect_batch([frames[i] for i in indices])
+    else:
+        per_frame = [detector.detect(frames[i]) for i in indices]
+    return {str(i): det[:, :4].tolist() if len(det) else None
+            for i, det in zip(indices, per_frame)}
+
+
+def crops_from_frames(full_frames: dict, boxes: dict, fps: int):
+    """One square crop a second per face, from pre-decoded full-res frames."""
+    crops = []  # (frame_idx, face_idx, crop_bgr, bbox_half_res)
+    step = max(fps, 1)
+    for i in sorted(full_frames):
+        det = pick_detection_frame(boxes, i, step)
+        if det is None:
+            continue
+        for j, bbox in enumerate(boxes[str(det)] or []):
+            crop = square_crop(full_frames[i], bbox)
+            if crop.size:
+                crops.append((i, j, crop, bbox))
+    return crops
+
+
+def extract_video_crops(video_path: str, boxes: dict, fps: int):
+    """Square crops of a video file given its (half-res) boxes; only the
+    frames one crop step apart are retrieved after decoding."""
+    import cv2
+
+    capture = cv2.VideoCapture(video_path)
+    step = max(fps, 1)
+    full: dict[int, np.ndarray] = {}
+    i = 0
+    while capture.grab():
+        if i % step == 0:
+            ok, frame = capture.retrieve()
+            if ok:
+                full[i] = frame
+        i += 1
+    capture.release()
+    return crops_from_frames(full, boxes, fps)
+
+
+def cluster_crops(crops, embedder, threshold: float = 0.45):
+    """Identity clustering of one video's crops: embeddings → dot-product
+    similarity → connected components over edges above ``threshold``."""
+    if not crops:
+        return {}, []
+    embeddings = embedder([c[2] for c in crops])
+    sims = embeddings @ embeddings.T
+    components = connected_components(sims, threshold)
+    identities = {k: [crops[i] for i in comp] for k, comp in enumerate(components)}
+    clustered = {i for comp in components for i in comp}
+    discarded = [crops[i] for i in range(len(crops)) if i not in clustered]
+    if not identities:  # no clusters: everything becomes identity 0
+        identities = {0: list(crops)}
+        discarded = []
+    return identities, discarded
+
+
+def assemble_inputs(identities: dict, video_dims, cfg: MintimeConfig):
+    """Fixed-shape model inputs (numpy, batch axis 1) from one video's
+    identity crops; frames stay uint8 (the model casts on the device)."""
+    m = cfg.model
+    infos, crop_store = [], {}
+    for key, items in identities.items():
+        items = sorted(items, key=lambda t: (t[0], t[1]))
+        infos.append(IdentityFaces(
+            key=str(key), frames=[t[0] for t in items],
+            mean_side=float(np.mean([t[2].shape[1] for t in items])),  # mean crop width
+        ))
+        crop_store[str(key)] = items
+    plan = build_sequence_plan(infos, num_frames=m.num_frames, num_patches=m.num_patches,
+                               max_identities=m.max_identities, ordering=0, parity=1)
+
+    transform = create_val_transform(m.image_size)
+    frames = []
+    size_embeddings = np.zeros(m.num_frames, np.int32)
+    vw, vh = video_dims
+    for slot in range(m.num_frames):
+        fi = plan.face_index[slot]
+        if fi < 0:
+            frames.append(np.zeros((m.image_size, m.image_size, 3), np.uint8))
+            continue
+        key = plan.identity_keys[plan.identity_index[slot]]
+        crop = crop_store[key][fi][2]
+        # the predict path halves the video area but not the face area
+        size_embeddings[slot] = size_bucket(crop.shape[0], crop.shape[1], vh, vw,
+                                            legacy_predict_double_ratio=True)
+        frames.append(crop)
+    frames = transform(frames)
+    return {
+        "frames": np.asarray(frames)[None],
+        "mask": plan.mask[None],
+        "identities_mask": plan.identities_mask[None],
+        "size_embedding": size_embeddings[None],
+        "positions": plan.positions[None],
+    }, plan, crop_store
+
+
+def _stage_video(video_path: str, detector, embedder, cfg: MintimeConfig,
+                 similarity_threshold: float, every_n: int, boxes: dict | None):
+    """All host stages of one video: decode → detect → crop → cluster → assemble."""
+    if boxes is None:
+        scale = getattr(detector, "input_scale", 1)
+        half, full, fps = decode_for_predict(
+            video_path, channel_order=getattr(detector, "channel_order", "rgb"),
+            resize_on_device=scale > 1,
+        )
+        if not half:
+            raise ValueError(f"could not decode {video_path}")
+        boxes = detect_on_frames(half, detector, every_n)
+        if not any(v for v in boxes.values()):
+            raise ValueError("No faces found.")
+        h = half[0].shape[0] // scale  # detection (half-res) dims
+        w = half[0].shape[1] // scale
+        video_dims = (w * 2, h * 2)
+        crops = crops_from_frames(full, boxes, fps)
+    else:
+        import cv2
+
+        cap = cv2.VideoCapture(video_path)
+        fps = int(cap.get(cv2.CAP_PROP_FPS)) or 30
+        video_dims = (cap.get(cv2.CAP_PROP_FRAME_WIDTH), cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        cap.release()
+        crops = extract_video_crops(video_path, boxes, fps)
+    identities, _ = cluster_crops(crops, embedder, similarity_threshold)
+    return assemble_inputs(identities, video_dims, cfg)
+
+
+@torch.inference_mode()
+def forward_batch(model, state: Mapping[str, torch.Tensor] | None, batch: Mapping[str, np.ndarray]):
+    """Run the classifier on one stacked numpy batch on the model's device;
+    returns ``(logits (B,) numpy, [space, time] maps numpy)``."""
+    dev = model.device
+    args = [torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev, non_blocking=True)
+            for k in _INPUT_KEYS]
+    if state is None:
+        logits, attns = model(*args)
+    else:
+        logits, attns = torch.func.functional_call(model, dict(state), tuple(args))
+    return logits.float().cpu().numpy().reshape(-1), [a.float().cpu().numpy() for a in attns]
+
+
+def _result(logit, attns, heads, cfg, plan, crop_store) -> PredictionResult:
+    fpi = [int(t / cfg.model.num_patches) for _, t in plan.tokens_per_identity]
+    agg, id_attn = aggregate_attentions(attns, heads, cfg.model.num_frames, fpi)
+    return PredictionResult(
+        probability=float(1.0 / (1.0 + np.exp(-float(logit)))),
+        identity_attentions=id_attn,
+        aggregated_attentions=agg,
+        identities={k: crop_store[k] for k in plan.identity_keys},
+        frames_per_identity=fpi,
+        plan=plan,
+    )
+
+
+def predict_assembled(staged: Sequence, model, state, cfg: MintimeConfig,
+                      pad_to: int = 0) -> list[PredictionResult]:
+    """One forward over assembled videos ``[(batch, plan, crop_store), ...]``
+    (as :func:`assemble_inputs` returns them), padded to ``pad_to`` rows by
+    repeating the first; pad outputs are discarded. Attention maps are
+    sliced per video, ``heads`` rows each."""
+    heads = cfg.model.heads
+    pad = max(pad_to - len(staged), 0)
+    stacked = {k: np.concatenate([s[0][k] for s in staged] + [staged[0][0][k]] * pad)
+               for k in _INPUT_KEYS}
+    logits, attns = forward_batch(model, state, stacked)
+    return [
+        _result(logits[b], [a[b * heads:(b + 1) * heads] for a in attns], heads, cfg, plan,
+                crop_store)
+        for b, (_, plan, crop_store) in enumerate(staged)
+    ]
+
+
+def predict_video(video_path: str, model, state, cfg: MintimeConfig, detector, embedder,
+                  similarity_threshold: float = 0.45, every_n: int = 1,
+                  boxes: dict | None = None) -> PredictionResult:
+    """The full pipeline for one video. ``boxes``: optional precomputed
+    half-res detections, which skip the detector."""
+    staged = _stage_video(video_path, detector, embedder, cfg, similarity_threshold, every_n,
+                          boxes)
+    return predict_assembled([staged], model, state, cfg)[0]
+
+
+def predict_videos(video_paths: Sequence[str], model, state, cfg: MintimeConfig, detector,
+                   embedder, similarity_threshold: float = 0.45, every_n: int = 1,
+                   batch_size: int = 8,
+                   boxes_per_video: Sequence[dict | None] | None = None) -> list[PredictionResult]:
+    """Batched serving: the host stages run per video and ``batch_size``
+    assembled videos share one forward, staged one batch at a time. When the
+    run has more videos than ``batch_size``, the last batch is padded to
+    ``batch_size`` by repeating its first row, so every forward has one
+    shape.
+    """
+    pad_to = batch_size if len(video_paths) > batch_size else 0
+    results: list[PredictionResult] = []
+    for start in range(0, len(video_paths), batch_size):
+        staged = [
+            _stage_video(video_paths[i], detector, embedder, cfg, similarity_threshold,
+                         every_n, boxes_per_video[i] if boxes_per_video else None)
+            for i in range(start, min(start + batch_size, len(video_paths)))
+        ]
+        results.extend(predict_assembled(staged, model, state, cfg, pad_to))
+    return results

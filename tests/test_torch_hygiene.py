@@ -1,0 +1,76 @@
+"""Import hygiene and device policy of the PyTorch port.
+
+The port must run where there is no JAX, no Flax, no cv2 and no yaml: it
+never imports JAX, Flax or ``mintime_tpu``, and imports cv2 and yaml only
+inside the functions that need them. Its default device is the card, and
+without one it raises instead of falling back to the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "mintime_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "mintime_tpu")
+LAZY_ONLY = ("cv2", "yaml")
+
+
+def _imports(tree):
+    """(module name, is top level) for every import in the module."""
+    top = set(map(id, tree.body))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module, id(node) in top
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_or_top_level_lazy_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, top_level in _imports(tree):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {name}"
+        assert not (root in LAZY_ONLY and top_level), f"{path.name} imports {name} at top level"
+
+
+def test_import_pulls_in_no_jax_cv2_or_yaml():
+    code = ("import sys, mintime_torch.predict, mintime_torch.models.classifier, "
+            "mintime_torch.convert\n"
+            "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'mintime_tpu') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env, timeout=120)
+
+
+def test_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from mintime_torch.config import ModelConfig
+    from mintime_torch.models.classifier import MintimeVideoClassifier
+
+    cfg = ModelConfig(num_frames=8, num_patches=1, dim=32, depth=1, heads=1, dim_head=32)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        MintimeVideoClassifier(cfg)
+
+
+def test_kernel_wrappers_refuse_cpu_calls_to_the_kernel():
+    """The kernel entry points check their arguments instead of silently
+    computing on the CPU."""
+    from mintime_torch.ops import divided_attention, geglu_ffn
+
+    x = torch.zeros(8, 512)
+    with pytest.raises(ValueError, match="card"):
+        geglu_ffn.geglu_ffn_cuda(x, torch.zeros(4096, 512), torch.zeros(4096),
+                                 torch.zeros(512, 2048), torch.zeros(512))
+    with pytest.raises(ValueError, match="card"):
+        divided_attention.divided_attention_cuda(
+            torch.zeros(1, 2, 3, 192), torch.zeros(1, 1, 192), None, None,
+            heads=1, dim_head=64)
