@@ -7,11 +7,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device and build: the card, its power limit, torch and CUDA versions, the
    seconds ``nvcc`` took for ``mintime_torch/csrc/*.cu``;
-2. kernels: every kernel of the serving path against its plain PyTorch
-   version on the card in bf16 at the flagship shapes (max abs error <= 2e-2),
+2. kernels: every kernel of the serving and training paths against its plain
+   PyTorch version on the card in bf16 at the flagship shapes (forward: max
+   abs error <= 2e-2; backward, with unit-scale cotangents: per gradient
+   <= 2e-2 * max(1, max |plain|), each gradient's error and max printed),
    with its time, the plain version's time and the card's bound for the work;
    the divided attention is also timed as one dense masked
-   ``scaled_dot_product_attention`` call (a yardstick the port never calls);
+   ``scaled_dot_product_attention`` call, forward and backward (a yardstick
+   the port never calls);
 3. slice: the flagship EfficientNet-B0 + Size-Invariant TimeSformer at full
    width (224 px, 1280 channels, dim 512, depth 9, 8 x 64 heads, F = 16,
    n = 49, two identities), seeded random weights, through the port's
@@ -23,8 +26,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    5e-2; throughput at batch 8 and latency at batch 1 are printed;
 4. profile: one forward at batch 8 and at batch 1 under ``torch.profiler``:
    the device's busy and idle share of the host window, device time by
-   layer (cuDNN convolutions, cuBLAS matmuls, the two kernels, copies, the rest)
-   and the top kernels.
+   layer (cuDNN convolutions, cuBLAS matmuls, the kernels, copies, the rest)
+   and the top kernels;
+5. train: the same flagship classifier at full width with fp32 master
+   weights computing in bf16, kernels on, trained for 5 SGD steps (lr 0.01,
+   weight decay 1e-4, cosine) on 8 synthetic videos assembled as in phase 3,
+   half labelled fake. Each step must launch 18 attention and 18 FFN kernels
+   forward, and 18 attention and 17 FFN kernels backward (the last layer's
+   token FFN does not reach the logits, so autograd skips its backward); one
+   step's gradients with kernels must match the plain path's (loss within
+   2e-2; each tensor's max abs gap within 5e-2 of its largest plain gradient
+   beyond the gap of a kernel-free twin run, tensors whose fp32 gradient is
+   zero to rounding aside; every tensor over 5e-2 is named with its
+   readings); every parameter must get a finite, non-zero gradient; the loss
+   after the 5 steps must be below the first; the BatchNorm statistics must
+   move. Steps/s, videos/s, device ms per step, peak memory and a profile of
+   one step are printed.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -215,6 +232,90 @@ def phase_kernels(smi):
             emit({"phase": "kernel", "name": name, "card": smi, **s})
             if not s["max_abs_err"] <= TOL:
                 raise AssertionError(f"{name} {s['shape']}: max abs error {s['max_abs_err']} > {TOL}")
+    rows.update(_backward_kernels(smi, gen))
+    return rows
+
+
+def _grad_err(names, got, want) -> list[dict]:
+    """Per gradient: its max abs error, the plain version's max |value| and
+    the limit 2e-2 * max(1, max |plain|)."""
+    rows = []
+    for n, g, w in zip(names, got, want):
+        top = float(w.float().abs().max())
+        rows.append({"grad": n, "max_abs_err": float((g.float() - w.float()).abs().max()),
+                     "max_plain": top, "limit": TOL * max(1.0, top)})
+    return rows
+
+
+def _backward_kernels(smi, gen):
+    """Each backward kernel vs its plain version at the flagship shapes of a
+    train step at batch 8, with seeded unit-scale cotangents, so that every
+    gradient's largest value exceeds 1 and the limit is 2e-2 of it."""
+    import torch
+    import torch.nn.functional as F
+
+    from mintime_torch.ops import divided_attention as da
+    from mintime_torch.ops import geglu_ffn as ffn
+
+    rows = {"geglu_ffn_bwd": [], "divided_attention_bwd": []}
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    w0, b0, w1 = r(4096, 512, sc=0.044), r(4096, sc=0.02), r(512, 2048, sc=0.022)
+    hidden = 2048
+    # (M, launches per train step): the last layer's token FFN gets no gradient
+    for m, calls in ((8 * 16 * 49, 8), (8, 9)):
+        x, dout = r(m, 512), r(m, 512)
+        args = (x, w0, b0, w1, dout)
+        grads = _grad_err(("dx", "dw0", "db0", "dw1", "db1"), ffn.geglu_ffn_bwd_cuda(*args),
+                          ffn.geglu_ffn_bwd_plain(*args))
+        # read x, W0, b0, W1, dout; write dx (bf16) and the fp32 weight and bias gradients
+        nbytes = (2 * (2 * m * 512 + w0.numel() + b0.numel() + w1.numel() + m * 512)
+                  + 4 * (w0.numel() + b0.numel() + w1.numel() + 512))
+        flops = 2 * m * 512 * 8 * hidden  # h, dprod, dx, dW0 (2H wide) and dW1 (H wide)
+        b_ms, b_by = bound(nbytes, flops)
+        rows["geglu_ffn_bwd"].append({
+            "shape": f"M={m}", "calls": calls,
+            "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
+            "ms": time_ms(lambda: ffn.geglu_ffn_bwd_cuda(*args)),
+            "plain_ms": time_ms(lambda: ffn.geglu_ffn_bwd_plain(*args)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+
+    H, dh = 8, 64
+    for axis, calls in (("time", 9), ("space", 9)):
+        qkv, qkvc, sb, rbias = _attention_inputs(axis, gen)
+        B, G, L, c3 = qkv.shape
+        inner = H * dh
+        d_tok, d_cls = r(B, G, L, inner), r(B, 1, inner)
+        kw = dict(heads=H, dim_head=dh)
+        fwd_args = (qkv, qkvc, sb, rbias, d_tok, d_cls)
+        grads = _grad_err(("d_qkv", "d_qkvc"), da.divided_attention_bwd_cuda(*fwd_args, **kw),
+                          da.divided_attention_bwd_plain(*fwd_args, **kw))
+        nbytes = (2 * (2 * qkv.numel() + 2 * qkvc.numel() + d_tok.numel() + d_cls.numel())
+                  + 4 * ((sb.numel() if sb is not None else 0) + rbias.numel()))
+        T = 1 + L  # token rows: logits, dP, dq over T keys; dk, dv over L; CLS row over G*L keys
+        flops = 2 * B * H * dh * (G * L * (3 * T + 2 * L) + 4 * G * L)
+        b_ms, b_by = bound(nbytes, flops)
+        lq, lk, lv, lmask = (t.requires_grad_() if t.dtype != torch.bool else t
+                             for t in _as_one_attention(qkv, qkvc, sb, rbias, H, dh))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
+        lgrad = torch.randn(lout.shape, generator=gen).cuda().bfloat16()
+        sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
+        rows["divided_attention_bwd"].append({
+            "shape": f"{axis} B={B} G={G} L={L} H={H} dh={dh}", "calls": calls,
+            "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
+            "ms": time_ms(lambda: da.divided_attention_bwd_cuda(*fwd_args, **kw)),
+            "plain_ms": time_ms(lambda: da.divided_attention_bwd_plain(*fwd_args, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa_bwd),
+            "library": "backward of one dense masked scaled_dot_product_attention call",
+        })
+
+    for name, shapes in rows.items():
+        for s in shapes:
+            emit({"phase": "kernel", "name": name, "card": smi, **s})
+            off = [g for g in s["grads"] if not g["max_abs_err"] <= g["limit"]]
+            if off:
+                raise AssertionError(f"{name} {s['shape']}: gradients off by more than"
+                                     f" {TOL} * max(1, max |plain|): {off}")
     return rows
 
 
@@ -375,6 +476,10 @@ def phase_slice(smi):
 def _kind(name: str) -> str:
     """Coarse layer of a CUDA kernel, from its name."""
     low = name.lower()
+    if "ffn_bwd" in low:
+        return "geglu_ffn backward kernel"
+    if "attn_bwd" in low:
+        return "divided_attention backward kernel"
     if "geglu" in low:
         return "geglu_ffn kernel"
     if "token_rows" in low or "cls_row" in low:
@@ -390,44 +495,224 @@ def _kind(name: str) -> str:
     return "elementwise"
 
 
-def phase_profile(smi, model, stacked):
-    """Where the device time of one forward goes, by ``torch.profiler``: the
-    device's busy share of the host window, time by layer and the top
-    kernels, at batch 8 and batch 1."""
+def _profile(fn) -> dict:
+    """Device busy and idle share of the host window of one ``fn()`` under
+    ``torch.profiler``, device time by layer and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of the kernels' intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_kind, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_kind[_kind(e.name)] = by_kind.get(_kind(e.name), 0.0) + us / 1e3
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"host_window_ms": wall_us / 1e3, "kernels": len(kernels),
+            "device_busy_ms": busy / 1e3 if kernels else "not measured",
+            "device_idle_share": 1 - busy / wall_us if kernels else "not measured",
+            "ms_by_layer": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [{"name": k[:90], "launches": n, "ms": t} for k, (n, t) in top]}
+
+
+def phase_profile(smi, model, stacked):
+    """Where the device time of one forward goes, at batch 8 and batch 1."""
     from mintime_torch import predict
 
     for batch in (8, 1):
         rows = {k: v[:batch] for k, v in stacked.items()}
-        predict.forward_batch(model, None, rows)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            predict.forward_batch(model, None, rows)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-        busy, end = 0.0, float("-inf")
-        for a, b in spans:  # union of the kernels' intervals
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        by_kind, by_name = {}, {}
-        for e in kernels:
-            us = e.time_range.end - e.time_range.start
-            by_kind[_kind(e.name)] = by_kind.get(_kind(e.name), 0.0) + us / 1e3
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + us / 1e3)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-        emit({"phase": "profile", "card": smi, "batch": batch, "host_window_ms": wall_us / 1e3,
-              "kernels": len(kernels),
-              "device_busy_ms": busy / 1e3 if kernels else "not measured",
-              "device_idle_share": 1 - busy / wall_us if kernels else "not measured",
-              "ms_by_layer": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-              "top_kernels": [{"name": k[:90], "launches": n, "ms": t} for k, (n, t) in top]})
+        emit({"phase": "profile", "card": smi, "batch": batch,
+              **_profile(lambda: predict.forward_batch(model, None, rows))})
+
+
+def _step_launches(fn) -> tuple:
+    """Kernel launches of the four wrappers during ``fn()``, counted from 0."""
+    import torch
+
+    from mintime_torch.ops import divided_attention as da
+    from mintime_torch.ops import geglu_ffn as ffn
+
+    torch.cuda.synchronize()
+    ffn.reset_launches()
+    da.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"divided_attention": da.launches, "geglu_ffn": ffn.launches,
+                 "divided_attention_bwd": da.bwd_launches, "geglu_ffn_bwd": ffn.bwd_launches}
+
+
+def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bool = False):
+    """Loss and parameter gradients of one train-mode forward and backward
+    with drop-connect seeded as step 0; BatchNorm statistics restored after.
+    ``kernel_free`` keeps the kernel path's autograd Functions but has them
+    run their plain versions on the card: the kernels' rounding points
+    without the kernels."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from mintime_torch import train
+    from mintime_torch.ops import divided_attention as da
+    from mintime_torch.ops import geglu_ffn as ffn
+
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    set_use_kernels(model, use_kernels)
+    model.zero_grad(set_to_none=True)
+    with contextlib.ExitStack() as stack:
+        if kernel_free:
+            for mod, names in ((ffn, ("geglu_ffn", "geglu_ffn_bwd")),
+                               (da, ("divided_attention", "divided_attention_bwd"))):
+                for n in names:
+                    stack.enter_context(mock.patch.object(mod, f"{n}_cuda", getattr(mod, f"{n}_plain")))
+        loss, _ = train.forward_loss(model, batch, pos_weight, train=True,
+                                     generator=train.step_generator(0, 0))
+        loss.backward()
+    grads = {n: None if p.grad is None else p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    with torch.no_grad():
+        for k, v in model.named_buffers():
+            v.copy_(stats[k])
+    set_use_kernels(model, True)
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def phase_train(smi):
+    """The flagship classifier trained for 5 steps at full width, batch 8."""
+    import numpy as np
+    import torch
+
+    from mintime_torch import predict, train
+    from mintime_torch.config import MintimeConfig, ModelConfig, TrainingConfig
+    from mintime_torch.models.classifier import MintimeVideoClassifier
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = ModelConfig(image_size=224, num_frames=16, num_patches=49, channels=1280, dim=512,
+                       depth=9, heads=8, dim_head=64, max_identities=2)
+    cfg = MintimeConfig(model=mcfg, training=TrainingConfig(
+        lr=0.01, weight_decay=1e-4, optimizer="SGD", scheduler="cosinelr", bs=8))
+    staged = []
+    for full, boxes, fps, dims in _synthetic_videos(8, seed=2):
+        crops = predict.crops_from_frames(full, boxes, fps)
+        identities, _ = predict.cluster_crops(crops, stand_in_embedder)
+        staged.append(predict.assemble_inputs(identities, dims, cfg)[0])
+    batch = {k: np.concatenate([s[k] for s in staged]) for k in staged[0]}
+    batch["labels"] = np.array([0.0, 1.0] * 4, np.float32)
+    pos_weight = train.pos_weight_from_labels(batch["labels"])
+
+    t0 = time.perf_counter()
+    model = train.training_model(mcfg, device="cuda", seed=0)
+    build_model_s = time.perf_counter() - t0
+    assert model.dtype == torch.float32 and model.compute_dtype == torch.bfloat16
+
+    # kernels vs plain, one step's gradients (check 2) and their health (check 3)
+    loss_k, gk = _one_step_grads(model, batch, pos_weight, True)
+    loss_p, gp = _one_step_grads(model, batch, pos_weight, False)
+    bad = [n for n, g in gk.items() if g is None or not torch.isfinite(g).all() or not g.abs().max() > 0]
+    if bad:
+        raise AssertionError(f"parameters without a finite non-zero gradient: {bad[:8]}")
+    # Two readings beside the kernel-vs-plain gap. An fp32 run of the same
+    # step (same weights, plain path) tells which tensors have a zero
+    # gradient in exact arithmetic: the biases of the _bn2 layers whose
+    # output a train-mode BatchNorm re-centres. There the bf16 paths hold
+    # nothing but round-off, at least 2^8 times the fp32 value. A kernel-free
+    # twin (the kernel path with its plain versions on the card) shows how far
+    # two correct bf16 runs that round at different places already drift
+    # apart at random init: a few percent of a tensor's largest gradient, up
+    # to about 1e-1 on some tensors. Each tensor's kernel-vs-plain gap must
+    # stay within 5e-2 of its largest plain gradient beyond the twin's gap.
+    _, gt = _one_step_grads(model, batch, pos_weight, True, kernel_free=True)
+    ref = MintimeVideoClassifier(mcfg, use_kernels=False, device="cuda", dtype=torch.float32,
+                                 param_dtype=torch.float32, seed=0)
+    ref.load_state_dict(model.state_dict())
+    loss_32, g32 = _one_step_grads(ref, batch, pos_weight, False)
+    del ref
+    torch.cuda.empty_cache()
+    rows = {}
+    for n in gk:
+        top = float(gp[n].abs().max())
+        rows[n] = {"gap": float((gk[n] - gp[n]).abs().max()) / top,
+                   "twin_gap": float((gt[n] - gp[n]).abs().max()) / top,
+                   "kernel_vs_twin": float((gk[n] - gt[n]).abs().max()) / top,
+                   "fp32_over_plain": float(g32[n].abs().max()) / top}
+    zero = sorted(n for n, r in rows.items() if r["fp32_over_plain"] <= 2**-8)
+    over = sorted((n for n in rows if n not in zero and rows[n]["gap"] > 5e-2),
+                  key=lambda n: -rows[n]["gap"])
+    failed = [n for n in over if not rows[n]["gap"] <= 5e-2 + rows[n]["twin_gap"]]
+    checked = [n for n in rows if n not in zero]
+    worst = max(checked, key=lambda n: rows[n]["gap"])
+    med = lambda key: float(np.median([rows[n][key] for n in checked]))  # noqa: E731
+    emit({"phase": "train_check", "card": smi, "loss_kernel": loss_k, "loss_plain": loss_p,
+          "loss_fp32": loss_32, "parameters": len(gk), "zero_in_fp32": zero,
+          "worst_grad_tensor": worst, **rows[worst],
+          "largest_gap_beyond_twin": max(rows[n]["gap"] - rows[n]["twin_gap"] for n in checked),
+          "median_gap": med("gap"), "median_twin_gap": med("twin_gap"),
+          "median_kernel_vs_twin": med("kernel_vs_twin"),
+          "over_5e-2": {n: rows[n] for n in over}})
+    if not abs(loss_k - loss_p) <= TOL:
+        raise AssertionError(f"kernel vs plain loss {loss_k} vs {loss_p}")
+    if failed:
+        raise AssertionError(f"kernel vs plain gradients off: {[(n, rows[n]) for n in failed[:4]]}")
+
+    # the main path: 5 steps through make_train_step, counters read per step
+    state = train.create_train_state(model, cfg, steps_per_epoch=5, num_epochs=1, seed=0)
+    step = train.make_train_step(model, pos_weight)
+    stats0 = {k: v.clone() for k, v in model.named_buffers()}
+    losses, launches, step_s = [], [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        metrics, counts = _step_launches(lambda: step(state, batch))
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        launches.append(counts)
+    # 9 layers x 2 attentions and 2 FFNs (tokens, CLS) forward; backward the
+    # same, but for the last layer's token FFN: only the CLS stream reaches
+    # the logits, so that output gets no gradient and autograd skips it
+    want = {"divided_attention": 18, "geglu_ffn": 18, "divided_attention_bwd": 18,
+            "geglu_ffn_bwd": 17}
+    if any(c != want for c in launches):
+        raise AssertionError(f"launches per train step {launches}, want {want}")
+    with torch.no_grad():  # the loss of step 0's forward (same drop-connect masks), now
+        after, _ = train.forward_loss(model, batch, pos_weight, train=True,
+                                      generator=train.step_generator(0, 0))
+    after = float(after)
+    if not (np.isfinite(after) and after < losses[0]):
+        raise AssertionError(f"loss after 5 steps {after} is not below the first {losses[0]}")
+    moved = [k for k, v in model.named_buffers() if not torch.equal(v, stats0[k])]
+    if len(moved) != len(stats0):
+        raise AssertionError(f"BatchNorm statistics unmoved: {sorted(set(stats0) - set(moved))[:8]}")
+
+    device_ms = time_ms(lambda: step(state, batch), iters=5, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    steady = sorted(step_s[1:])
+    emit({"phase": "train", "card": smi, "batch": 8, "steps": 5, "launches_per_step": launches[0],
+          "losses": losses, "loss_after": after, "pos_weight": pos_weight,
+          "build_model_s": build_model_s, "first_step_s": step_s[0], "step_s": step_s,
+          "steps_per_s": 1 / steady[len(steady) // 2],
+          "videos_per_s_batch8": 8 / steady[len(steady) // 2],
+          "device_ms_per_step": device_ms,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "profile", "card": smi, "what": "train step", "batch": 8,
+          **_profile(lambda: step(state, batch))})
+    return launches[0]
 
 
 def main() -> int:
@@ -446,19 +731,30 @@ def main() -> int:
     rows = phase_kernels(smi)
     launches, model, stacked = phase_slice(smi)
     phase_profile(smi, model, stacked)
+    del model
+    torch.cuda.empty_cache()
+    train_launches = phase_train(smi)
 
-    sources = {"geglu_ffn": ("mintime_torch/csrc/geglu_ffn.cu", "mintime_tpu/ops/pallas_ffn.py:57"),
-               "divided_attention": ("mintime_torch/csrc/divided_attention.cu",
-                                     "mintime_tpu/ops/pallas_attention.py:140")}
+    sources = {
+        "geglu_ffn": ("mintime_torch/csrc/geglu_ffn.cu", "mintime_tpu/ops/pallas_ffn.py:57"),
+        "divided_attention": ("mintime_torch/csrc/divided_attention.cu",
+                              "mintime_tpu/ops/pallas_attention.py:140"),
+        "geglu_ffn_bwd": ("mintime_torch/csrc/geglu_ffn_bwd.cu", "mintime_tpu/ops/pallas_ffn.py:77"),
+        "divided_attention_bwd": ("mintime_torch/csrc/divided_attention_bwd.cu",
+                                  "mintime_tpu/ops/pallas_attention.py:289"),
+    }
     kernels = []
     for name, shapes in rows.items():
         calls = sum(s["calls"] for s in shapes)
         per_call = lambda key: sum(s[key] * s["calls"] for s in shapes) / calls  # noqa: E731
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "replaces": sources[name][1],
+            # the forward kernels' main path is serving, the backward kernels' training
+            "launches": launches.get(name, train_launches[name]),
+            "launches_per_train_step": train_launches[name],
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            # per launch, averaged over the shapes one forward launches it at
+            # per launch, averaged over the shapes one forward or train step launches it at
             "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
             "bound_ms": per_call("bound_ms"),
             "bound_by": max(shapes, key=lambda s: s["calls"] * s["bound_ms"])["bound_by"],

@@ -16,6 +16,9 @@ from mintime_torch.config import ModelConfig
 class Baseline(nn.Module):
     """Per-face MLP head over NHWC feature maps ``(N, h, w, C)``."""
 
+    #: computes in its parameters' dtype (see :meth:`forward`)
+    keep_param_dtype = True
+
     def __init__(self, config: ModelConfig):
         super().__init__()
         self.mlp_head = nn.Sequential(
@@ -24,7 +27,9 @@ class Baseline(nn.Module):
         )
 
     def forward(self, x):
-        return self.mlp_head(x.mean(dim=(1, 2)))
+        """In the parameters' dtype, as the JAX head's ``Dense`` layers
+        promote a bf16 feature map to their fp32 parameters."""
+        return self.mlp_head(x.mean(dim=(1, 2)).to(self.mlp_head[0].weight.dtype))
 
 
 def video_logits(face_logits: torch.Tensor, batch: int, num_frames: int) -> torch.Tensor:

@@ -7,9 +7,18 @@ plus the last layer's CLS-row attention maps with ``require_attention``.
 The Xception backbone is not ported yet.
 
 The model is built on ``device`` (default ``"cuda"``, which raises when
-there is no card) in ``dtype`` (default bf16 on the card, fp32 on the CPU),
+there is no card), computes in ``dtype`` (default bf16 on the card, fp32 on
+the CPU) and keeps its parameters in ``param_dtype`` (default ``dtype``),
 with weights drawn from ``torch.Generator().manual_seed(seed)``: the same
 seed gives the same weights on every machine.
+
+Serving keeps bf16 parameters on the card. Training keeps fp32 master
+parameters (``param_dtype=torch.float32``) and computes in bf16 as the JAX
+train state does (``classifier.py:43``, flax ``promote_dtype``): each forward
+casts the parameters to the compute dtype once, so their gradients pass
+through bf16 and land in fp32. Modules that compute in fp32 in the JAX
+package declare ``keep_param_dtype`` (BatchNorm, the TimeSformer's output
+projection, the baseline head) and stay in the parameter dtype.
 """
 
 from __future__ import annotations
@@ -51,20 +60,29 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.trunc_normal_(m.cls_token, std=0.02, a=-0.04, b=0.04, generator=generator)
 
 
+def _cast_names(module: nn.Module) -> list[str]:
+    """The parameters of ``module`` that a forward casts to the compute
+    dtype: all but those under a module that declares ``keep_param_dtype``."""
+    kept = tuple(f"{name}." if name else "" for name, m in module.named_modules()
+                 if getattr(m, "keep_param_dtype", False))
+    return [name for name, _ in module.named_parameters() if not name.startswith(kept)]
+
+
 class MintimeVideoClassifier(nn.Module):
     """Flagship model: EfficientNet-B0 per face, then the Size-Invariant
     TimeSformer (or the baseline MLP head) per video.
 
     ``use_kernels`` routes the TimeSformer's FFNs and divided attentions
     through the CUDA kernels on the card (their plain versions on the CPU).
-    ``freeze_backbone`` detaches the feature maps.
+    ``freeze_backbone`` detaches the feature maps and keeps the backbone in
+    eval mode.
     """
 
     def __init__(self, config: ModelConfig, backbone: str = "efficientnet-b0",
                  head: str = "timesformer", require_attention: bool = False,
                  freeze_backbone: bool = False, use_kernels: bool = False,
                  device: str | torch.device = "cuda", dtype: torch.dtype | None = None,
-                 seed: int = 0):
+                 param_dtype: torch.dtype | None = None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         if backbone not in BACKBONES:
@@ -83,36 +101,57 @@ class MintimeVideoClassifier(nn.Module):
             self.head = Baseline(config)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.eval()
-        self.to(device=dev, dtype=dtype or default_dtype(dev))
+        self.compute_dtype = dtype or default_dtype(dev)
+        self.to(device=dev, dtype=param_dtype or self.compute_dtype)
         if dev.type == "cuda":
             self.to(memory_format=torch.channels_last)
+        self._cast_names = {child: _cast_names(getattr(self, child))
+                            for child in ("extractor", "head") if hasattr(self, child)}
 
     @property
     def dtype(self) -> torch.dtype:
+        """The parameters' dtype (``compute_dtype`` is what the forward runs in)."""
         return next(self.parameters()).dtype
 
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    def _in_compute_dtype(self, child: str, *args, **kwargs):
+        """Run the child module ``child`` with the parameters listed in
+        ``_cast_names`` cast to the compute dtype; a plain call when
+        parameters and compute share a dtype."""
+        module, names = getattr(self, child), self._cast_names[child]
+        if self.dtype == self.compute_dtype or not names:
+            return module(*args, **kwargs)
+        cast = {n: module.get_parameter(n).to(self.compute_dtype) for n in names}
+        return torch.func.functional_call(module, cast, args, kwargs)
+
     def forward(self, frames, mask=None, identities_mask=None, size_embedding=None,
-                positions=None):
+                positions=None, *, train: bool = False, generator: torch.Generator | None = None):
+        """``train`` picks train mode for this call, as the JAX package's
+        ``train`` argument does: batch statistics and drop-connect in the
+        backbone (unless ``freeze_backbone``), dropout in the head.
+        ``generator`` drives drop-connect."""
         B, F_ = frames.shape[:2]
+        cd = self.compute_dtype
         if self.backbone == "none":
-            feats = frames.to(self.dtype)
+            feats = frames.to(cd)
         else:
-            x = frames.reshape((B * F_,) + frames.shape[2:]).to(self.dtype)
-            feats = self.extractor(x)
+            x = frames.reshape((B * F_,) + frames.shape[2:]).to(cd)
+            self.extractor.train(train and not self.freeze_backbone)
+            feats = self._in_compute_dtype("extractor", x, generator=generator)
             if self.freeze_backbone:
                 feats = feats.detach()
             feats = feats.reshape((B, F_) + feats.shape[1:])
 
+        self.head.train(train)
         if self.head_kind == "baseline":
-            face_logits = self.head(feats.reshape((B * F_,) + feats.shape[2:]))
+            face_logits = self._in_compute_dtype("head", feats.reshape((B * F_,) + feats.shape[2:]))
             return video_logits(face_logits, B, F_).float()
 
-        out = self.head(feats, mask=mask, identities_mask=identities_mask,
-                        size_embedding=size_embedding, positions=positions)
+        out = self._in_compute_dtype("head", feats, mask=mask, identities_mask=identities_mask,
+                                     size_embedding=size_embedding, positions=positions)
         if self.require_attention:
             logits, attns = out
             return logits.float(), attns

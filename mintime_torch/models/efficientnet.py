@@ -1,4 +1,4 @@
-"""EfficientNet feature-map forward, inference only (counterpart of
+"""EfficientNet feature-map forward (counterpart of
 ``mintime_tpu/models/efficientnet.py:36-226``).
 
 Stem → 16 MBConv blocks with squeeze-excite (B0) → head conv + BN + swish,
@@ -6,8 +6,10 @@ no pooling: a 224 input gives ``(N, 7, 7, 1280)``. The public boundary is
 NHWC like the JAX package; inside, the NHWC input is viewed as NCHW, which
 leaves it in PyTorch's channels-last memory format, and the convolutions run
 through ``torch.nn.functional.conv2d`` (the JAX package has no kernel of its
-own here). BatchNorm uses running statistics with eps 1e-3. Module and key
-names are the reference's (``_conv_stem``, ``_blocks.{i}._depthwise_conv``,
+own here). BatchNorm follows flax (eps 1e-3, momentum 0.99; see
+:class:`BatchNorm`), and in train mode residual blocks drop their branch per
+sample with rate ``drop_connect_rate * idx / blocks``. Module and key names
+are the reference's (``_conv_stem``, ``_blocks.{i}._depthwise_conv``,
 …), so ``mintime_tpu.utils.torch_convert.efficientnet_params_to_torch`` and
 :func:`mintime_torch.convert.efficientnet_state_dict` give the same dict.
 
@@ -110,8 +112,21 @@ class SameConv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with the reference's parameter names (no
-    ``num_batches_tracked``: the port never updates the statistics)."""
+    """BatchNorm with the reference's parameter names and flax's semantics
+    (``mintime_tpu/models/efficientnet.py:123-130``, ``:191-198``).
+
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch's mean and biased variance and updates the running
+    statistics as ``momentum * running + (1 - momentum) * batch`` with the
+    **biased** batch variance, as flax does; torch's ``BatchNorm2d`` would
+    fold in the unbiased one (PARITY.md #23). The batch statistics are taken
+    in fp32 whatever the input dtype. There is no ``num_batches_tracked``,
+    so the reference's key names hold.
+    """
+
+    momentum = 0.99
+    #: scale and shift stay in the parameters' dtype, as flax's BatchNorm
+    keep_param_dtype = True
 
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__()
@@ -122,8 +137,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
+                                                  0.0, self.eps)
+        with torch.no_grad():
+            var = invstd.pow(-2).sub(self.eps).clamp_(min=0.0)
+            self.running_mean.mul_(self.momentum).add_(mean.to(self.running_mean.dtype),
+                                                       alpha=1.0 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var.to(self.running_var.dtype),
+                                                      alpha=1.0 - self.momentum)
+        return y
+
+
+def drop_connect(x, rate: float, generator: torch.Generator | None):
+    """Per-sample stochastic depth (``efficientnet.py:160-165``): keep each
+    sample's branch with probability ``1 - rate`` and scale the kept ones by
+    ``1 / (1 - rate)``. The draws come from ``generator`` on the CPU (the
+    default generator when None), so one seed gives the same masks on every
+    device."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape[0], generator=generator) < keep
+    return x / keep * mask.to(device=x.device, dtype=x.dtype)[:, None, None, None]
 
 
 class MBConvBlock(nn.Module):
@@ -145,7 +181,7 @@ class MBConvBlock(nn.Module):
         self._project_conv = SameConv2d(expanded, a.out_filters, 1, bias=False)
         self._bn2 = BatchNorm(a.out_filters)
 
-    def forward(self, x):
+    def forward(self, x, drop_rate: float = 0.0, generator: torch.Generator | None = None):
         a = self.args
         inputs = x
         if a.expand != 1:
@@ -156,15 +192,23 @@ class MBConvBlock(nn.Module):
         x = torch.sigmoid(s) * x
         x = self._bn2(self._project_conv(x))
         if a.stride == 1 and a.in_filters == a.out_filters:
-            x = x + inputs  # drop-connect is a training-time op
+            if self.training and drop_rate > 0:
+                x = drop_connect(x, drop_rate, generator)
+            x = x + inputs
         return x
 
 
 class EfficientNet(nn.Module):
-    """Feature-map EfficientNet: ``(N, H, W, 3)`` → ``(N, h, w, C)``."""
+    """Feature-map EfficientNet: ``(N, H, W, 3)`` → ``(N, h, w, C)``.
 
-    def __init__(self, variant: str = "efficientnet-b0"):
+    ``drop_connect_rate`` is the JAX package's (``efficientnet.py:176``):
+    block ``idx`` of ``n`` drops its residual branch at ``rate * idx / n`` in
+    train mode, drawing from the ``generator`` given to :meth:`forward`.
+    """
+
+    def __init__(self, variant: str = "efficientnet-b0", drop_connect_rate: float = 0.2):
         super().__init__()
+        self.drop_connect_rate = drop_connect_rate
         width = SCALING[variant][0]
         stem = round_filters(32, width)
         self.feature_dim = round_filters(1280, width)
@@ -175,10 +219,11 @@ class EfficientNet(nn.Module):
         self._conv_head = SameConv2d(blocks[-1].out_filters, self.feature_dim, 1, bias=False)
         self._bn1 = BatchNorm(self.feature_dim)
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         x = x.permute(0, 3, 1, 2)  # NHWC data seen as NCHW: channels-last memory
         x = F.silu(self._bn0(self._conv_stem(x)))
-        for block in self._blocks:
-            x = block(x)
+        n = len(self._blocks)
+        for idx, block in enumerate(self._blocks):
+            x = block(x, self.drop_connect_rate * idx / n, generator)
         x = F.silu(self._bn1(self._conv_head(x)))
         return x.permute(0, 2, 3, 1)

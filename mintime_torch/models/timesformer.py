@@ -11,13 +11,17 @@ Embedding tables hold the rows that are indexed: ``1 + F * num_patches``
 positions and ``1 + NUM_SIZE_BUCKETS`` sizes.
 
 With ``use_kernels`` the FFNs go through :func:`mintime_torch.ops.geglu_ffn.
-geglu_ffn`, and every attention that returns no map and attends over at most
-256 positions goes through :func:`mintime_torch.ops.divided_attention.
-divided_attention`. On the card the two kernels are built for the flagship
-geometry (width 512, dim_head 64, at most 64 rows a group) and their
-wrappers raise on any other. The last layer under ``require_attention`` takes the
-plain path and returns its CLS-row maps in the ``(B·heads, 1, 1+F·n)``
-layout.
+geglu_ffn` when their dropout is 0 or the module is in eval mode (the JAX
+rule, ``timesformer.py:87``), and every attention that returns no map and
+attends over at most 256 positions goes through
+:func:`mintime_torch.ops.divided_attention.divided_attention`; both are
+differentiable, with backward kernels on the card. On the card the kernels
+are built for the flagship geometry (width 512, dim_head 64, at most 64 rows
+a group) and their wrappers raise on any other. The last layer under
+``require_attention`` takes the plain path and returns its CLS-row maps in
+the ``(B·heads, 1, 1+F·n)`` layout. Dropout sits where the JAX package puts
+it: after each attention's output projection (``attn_dropout``) and on the
+GEGLU product (``ff_dropout``).
 """
 
 from __future__ import annotations
@@ -39,18 +43,20 @@ KERNEL_MAX_AXIS = 256
 class GEGLU(nn.Module):
     """Linear → val · gelu_erf(gates) → Linear (reference ``net.0`` / ``net.3``)."""
 
-    def __init__(self, dim: int, mult: int = 4, use_kernels: bool = False):
+    def __init__(self, dim: int, mult: int = 4, use_kernels: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         hidden = dim * mult
         self.use_kernels = use_kernels
-        self.net = nn.ModuleDict({"0": nn.Linear(dim, 2 * hidden), "3": nn.Linear(hidden, dim)})
+        self.net = nn.ModuleDict({"0": nn.Linear(dim, 2 * hidden), "2": nn.Dropout(dropout),
+                                  "3": nn.Linear(hidden, dim)})
 
     def forward(self, x):
-        l0, l1 = self.net["0"], self.net["3"]
-        if self.use_kernels:
+        l0, drop, l1 = self.net["0"], self.net["2"], self.net["3"]
+        if self.use_kernels and (drop.p == 0.0 or not self.training):
             return geglu_ffn(x, l0.weight, l0.bias, l1.weight, l1.bias)
         val, gates = l0(x).chunk(2, dim=-1)
-        return l1(val * F.gelu(gates))
+        return l1(drop(val * F.gelu(gates)))
 
 
 class DividedAttention(nn.Module):
@@ -62,19 +68,23 @@ class DividedAttention(nn.Module):
     ``cls_mask``; every token also attends to the CLS key/value.
     """
 
-    def __init__(self, dim: int, heads: int, dim_head: int, use_kernels: bool = False):
+    def __init__(self, dim: int, heads: int, dim_head: int, use_kernels: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         self.use_kernels = use_kernels
         inner = heads * dim_head
         self.to_qkv = nn.Linear(dim, 3 * inner, bias=False)
-        self.to_out = nn.ModuleDict({"0": nn.Linear(inner, dim)})
+        self.to_out = nn.ModuleDict({"0": nn.Linear(inner, dim), "1": nn.Dropout(dropout)})
 
     def forward(self, x_tok, x_cls, *, axis: str, frame_mask=None, cls_mask=None,
                 need_attn: bool = True):
         B, f, n, _ = x_tok.shape
         H, dh = self.heads, self.dim_head
-        proj = self.to_out["0"]
+
+        def proj(o):
+            return self.to_out["1"](self.to_out["0"](o))
+
         qkv_tok = self.to_qkv(x_tok)  # (B, f, n, 3*inner)
         qkv_cls = self.to_qkv(x_cls)  # (B, 1, 3*inner)
         axis_len = f if axis == "time" else n
@@ -183,13 +193,16 @@ class SizeInvariantTimeSformer(nn.Module):
             self.size_emb = nn.Embedding(1 + NUM_SIZE_BUCKETS, dim)
         self.layers = nn.ModuleList(
             nn.ModuleList([
-                PreNorm(dim, DividedAttention(dim, cfg.heads, cfg.dim_head, use_kernels)),
-                PreNorm(dim, DividedAttention(dim, cfg.heads, cfg.dim_head, use_kernels)),
-                PreNorm(dim, GEGLU(dim, use_kernels=use_kernels)),
+                PreNorm(dim, DividedAttention(dim, cfg.heads, cfg.dim_head, use_kernels,
+                                              cfg.attn_dropout)),
+                PreNorm(dim, DividedAttention(dim, cfg.heads, cfg.dim_head, use_kernels,
+                                              cfg.attn_dropout)),
+                PreNorm(dim, GEGLU(dim, use_kernels=use_kernels, dropout=cfg.ff_dropout)),
             ])
             for _ in range(cfg.depth)
         )
         self.to_out = nn.Sequential(nn.LayerNorm(dim, eps=1e-5), nn.Linear(dim, cfg.num_classes))
+        self.to_out[1].keep_param_dtype = True  # fp32, as the JAX package's out_proj
 
     def forward(self, x, mask=None, identities_mask=None, size_embedding=None, positions=None):
         cfg = self.config

@@ -1,5 +1,6 @@
 """Divided attention with a CLS row from packed qkv (counterpart of
 ``mintime_tpu/ops/pallas_attention.py``: ``_divided_kernel`` at ``:140-238``,
+``_divided_bwd_kernel`` at ``:289-452``, the ``custom_vjp`` at ``:488-511``,
 ``divided_attention`` at ``:773-822`` and ``mask_to_bias`` at ``:115-117``).
 
 The packed columns are ``[q | k | v]``-major with heads inside each third,
@@ -7,12 +8,16 @@ which is PyTorch's ``to_qkv`` layout; the JAX package packs head-major
 ``(H, [q|k|v], dh)`` instead, and the weight converter permutes once at load
 time (:mod:`mintime_torch.convert`).
 
-:func:`divided_attention` runs the CUDA kernel ``csrc/divided_attention.cu``
-for a CUDA tensor and :func:`divided_attention_plain` for a CPU tensor. The
-plain version repeats the kernel's arithmetic: q scaled in the input dtype,
+:func:`divided_attention` is differentiable through
+:class:`DividedAttentionFunction`. For CUDA tensors its forward runs the
+kernel ``csrc/divided_attention.cu`` and its backward
+``csrc/divided_attention_bwd.cu``; for CPU tensors they run
+:func:`divided_attention_plain` and :func:`divided_attention_bwd_plain`. The
+plain versions repeat the kernels' arithmetic: q scaled in the input dtype,
 fp32 logits, biases added in fp32, token-row probabilities rounded to the
 input dtype before PV, the CLS row's unnormalised probabilities rounded
-before PV and its sum divided out at the end.
+before PV and its sum divided out at the end; the backward recomputes both
+softmaxes in fp32 and rounds only its results.
 """
 
 from __future__ import annotations
@@ -21,14 +26,18 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from mintime_torch.ops import _build
 
 #: finite additive mask value (``pallas_attention.py:32``)
 NEG = -0.7 * float(np.finfo(np.float32).max)
 
-#: kernel launches since the last reset (one per :func:`divided_attention` call on the card)
+#: forward kernel launches since the last reset (one per :func:`divided_attention_cuda` call)
 launches = 0
+#: backward kernel launches since the last reset (one per
+#: :func:`divided_attention_bwd_cuda` call)
+bwd_launches = 0
 
 _KERNEL_DH = 64
 _KERNEL_MAX_L = 64
@@ -36,8 +45,8 @@ _KERNEL_MAX_KEYS = 12 * 1024  # G*L fp32 CLS-row logits in 48 KB of shared memor
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bwd_launches
+    launches = bwd_launches = 0
 
 
 def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -104,6 +113,80 @@ def divided_attention_plain(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, d
     return out, out_cls.to(dt)
 
 
+def _empty_grouped(like, last: int):
+    """Uninitialised (B, G, L, last) tensor in the stride order of ``like``:
+    a transposed view when ``like`` is the (B, L, G, ·) layout seen as
+    (B, G, L, ·), so transposing it back is free."""
+    B, G, L, _ = like.shape
+    if like.stride(1) < like.stride(2):
+        return torch.empty((B, L, G, last), dtype=like.dtype, device=like.device).transpose(1, 2)
+    return torch.empty((B, G, L, last), dtype=like.dtype, device=like.device)
+
+
+def divided_attention_bwd_plain(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls, *,
+                                heads: int, dim_head: int):
+    """Plain PyTorch version of the backward kernel.
+
+    ``d_tok (B, G, L, H*dh)`` and ``d_cls (B, 1, H*dh)`` are the cotangents
+    of :func:`divided_attention_plain`'s outputs. Returns ``(d_qkv, d_qkvc)``
+    in qkv's dtype, ``d_qkv`` in the stride order of ``qkv_g``.
+    """
+    f32 = torch.float32
+    B, G, L, _ = qkv_g.shape
+    dt = qkv_g.dtype
+    scale = dim_head ** -0.5
+    q, k, v = _split(qkv_g, heads, dim_head)  # (B, G, L, H, dh)
+    qc, kc, vc = _split(qkv_cls[:, 0], heads, dim_head)  # (B, H, dh)
+    q = (q * scale).to(f32)
+    qc = (qc * scale).to(f32)
+    k, v, kc, vc = k.to(f32), v.to(f32), kc.to(f32), vc.to(f32)
+    do = d_tok.to(dt).to(f32).unflatten(-1, (heads, dim_head))
+    dc = d_cls[:, 0].to(dt).to(f32).unflatten(-1, (heads, dim_head))
+
+    # token rows: recompute the softmax over [CLS key | L keys], fp32
+    logits = torch.cat([torch.einsum("bglhd,bhd->bhgl", q, kc)[..., None],
+                        torch.einsum("bglhd,bgmhd->bhglm", q, k)], dim=-1)
+    if seq_bias is not None:
+        logits = logits + seq_bias.to(f32)[:, None, None]
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    attn = p / p.sum(dim=-1, keepdim=True)  # (B, H, G, L, 1+L)
+    dattn = torch.cat([torch.einsum("bglhd,bhd->bhgl", do, vc)[..., None],
+                       torch.einsum("bglhd,bgmhd->bhglm", do, v)], dim=-1)
+    dlog = attn * (dattn - (dattn * attn).sum(dim=-1, keepdim=True))
+    dq = (torch.einsum("bhglm,bgmhd->bglhd", dlog[..., 1:], k)
+          + torch.einsum("bhgl,bhd->bglhd", dlog[..., 0], kc))
+    dk = torch.einsum("bhglm,bglhd->bgmhd", dlog[..., 1:], q)
+    dkc = torch.einsum("bhgl,bglhd->bhd", dlog[..., 0], q)
+    dv = torch.einsum("bhglm,bglhd->bgmhd", attn[..., 1:], do)
+    dvc = torch.einsum("bhgl,bglhd->bhd", attn[..., 0], do)
+
+    # CLS row: recompute the softmax over itself and all G*L keys
+    lr = torch.einsum("bhd,bglhd->bhgl", qc, k)
+    if row_bias is not None:
+        lr = lr + row_bias.to(f32)[:, None]
+    ls = (qc * kc).sum(dim=-1)  # (B, H)
+    mc = torch.maximum(lr.amax(dim=(2, 3)), ls)
+    pru = torch.exp(lr - mc[:, :, None, None])
+    psu = torch.exp(ls - mc)
+    z = pru.sum(dim=(2, 3)) + psu
+    pr, ps = pru / z[:, :, None, None], psu / z
+    dpr = torch.einsum("bhd,bglhd->bhgl", dc, v)
+    dps = (vc * dc).sum(dim=-1)
+    s_dot = (pr * dpr).sum(dim=(2, 3)) + ps * dps
+    dlr = pr * (dpr - s_dot[:, :, None, None])
+    dls = ps * (dps - s_dot)
+    dqc = scale * (torch.einsum("bhgl,bglhd->bhd", dlr, k) + dls[..., None] * kc)
+    dk = dk + torch.einsum("bhgl,bhd->bglhd", dlr, qc)
+    dkc = dkc + dls[..., None] * qc
+    dv = dv + torch.einsum("bhgl,bhd->bglhd", pr, dc)
+    dvc = dvc + ps[..., None] * dc
+
+    d_qkv = _empty_grouped(qkv_g, 3 * heads * dim_head)
+    d_qkv.copy_(torch.stack([scale * dq, dk, dv], dim=3).reshape(B, G, L, -1))
+    d_qkvc = torch.stack([dqc, dkc, dvc], dim=1).reshape(B, 1, -1).to(dt)
+    return d_qkv, d_qkvc
+
+
 def _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
     B, G, L, c3 = qkv_g.shape
     inner = heads * dim_head
@@ -144,10 +227,7 @@ def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, di
     B, G, L, _ = qkv_g.shape
     inner = heads * dim_head
     dev = qkv_g.device
-    if qkv_g.stride(1) < qkv_g.stride(2):  # transposed view of (B, L, G, ·)
-        out = torch.empty((B, L, G, inner), dtype=qkv_g.dtype, device=dev).transpose(1, 2)
-    else:
-        out = torch.empty((B, G, L, inner), dtype=qkv_g.dtype, device=dev)
+    out = _empty_grouped(qkv_g, inner)
     out_cls = torch.empty((B, 1, inner), dtype=qkv_g.dtype, device=dev)
     if row_bias is not None:
         row_bias = row_bias.expand(B, G, L)
@@ -174,15 +254,93 @@ def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, di
     return out, out_cls
 
 
-def divided_attention(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, dim_head: int):
-    """Grouped attention with a CLS row from packed ``[q|k|v]`` qkv.
+def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls, *,
+                               heads: int, dim_head: int):
+    """Launch the backward kernel; same results as
+    :func:`divided_attention_bwd_plain`. ``d_tok`` may be any strided view
+    whose last axis is contiguous; ``d_qkv`` gets the stride order of
+    ``qkv_g``."""
+    global bwd_launches
+    _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head)
+    B, G, L, c3 = qkv_g.shape
+    inner = heads * dim_head
+    dev, f32 = qkv_g.device, torch.float32
+    d_tok = d_tok.to(qkv_g.dtype)
+    d_cls = d_cls.to(qkv_g.dtype)
+    if d_tok.stride(-1) != 1:
+        d_tok = d_tok.contiguous()
+    if d_cls.stride(-1) != 1:
+        d_cls = d_cls.contiguous()
+    if d_tok.shape != (B, G, L, inner) or d_cls.shape != (B, 1, inner) \
+            or d_tok.device != dev or d_cls.device != dev:
+        raise ValueError(f"divided_attention: cotangents {tuple(d_tok.shape)} /"
+                         f" {tuple(d_cls.shape)} do not match qkv {tuple(qkv_g.shape)}")
+    d_qkv = _empty_grouped(qkv_g, c3)
+    d_qkvc = torch.empty((B, 1, c3), dtype=qkv_g.dtype, device=dev)
+    stats = torch.empty((B, heads, 3), dtype=f32, device=dev)
+    cls_kv = torch.empty((B, heads, 2, dim_head), dtype=f32, device=dev)
+    kv_part = torch.empty((B, G, heads, 2, dim_head), dtype=f32, device=dev)
+    if row_bias is not None:
+        row_bias = row_bias.expand(B, G, L)
+        rb_ptr, rb_strides = row_bias.data_ptr(), row_bias.stride()
+    else:
+        rb_ptr, rb_strides = None, (0, 0, 0)
+    lib = _build.load("divided_attention_bwd")
+    fn = lib.divided_attention_bwd
+    i64, ptr = ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes = ([ptr, i64, i64, i64, ptr, i64, ptr, ptr, i64, i64, i64, ptr, i64, i64, i64,
+                    ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr]
+                   + [ctypes.c_int] * 5 + [ptr])
+    fn.restype = ctypes.c_int
+    sb, sg, sl, _ = qkv_g.stride()
+    tb, tg, tl, _ = d_tok.stride()
+    ob, og, ol, _ = d_qkv.stride()
+    with torch.cuda.device(dev):
+        status = fn(
+            qkv_g.data_ptr(), sb, sg, sl, qkv_cls.data_ptr(), qkv_cls.stride(0),
+            None if seq_bias is None else seq_bias.data_ptr(), rb_ptr, *rb_strides,
+            d_tok.data_ptr(), tb, tg, tl, d_cls.data_ptr(), d_cls.stride(0),
+            d_qkv.data_ptr(), ob, og, ol, d_qkvc.data_ptr(), d_qkvc.stride(0),
+            stats.data_ptr(), cls_kv.data_ptr(), kv_part.data_ptr(),
+            B, G, L, heads, dim_head, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(status, "divided_attention_bwd")
+    bwd_launches += 1
+    return d_qkv, d_qkvc
 
-    Same arguments and results as :func:`divided_attention_plain`. A CPU
-    tensor takes the plain version; a CUDA tensor takes the kernel or
-    raises. There is no fallback between the two.
+
+class DividedAttentionFunction(torch.autograd.Function):
+    """Divided attention with its recompute backward (the ``custom_vjp`` of
+    ``pallas_attention.py:488-511``): kernels for CUDA tensors, plain
+    versions for CPU tensors. The biases get zero gradients, as in the JAX
+    package."""
+
+    @staticmethod
+    def forward(ctx, qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(qkv_g, qkv_cls, seq_bias, row_bias)
+        ctx.heads, ctx.dim_head = heads, dim_head
+        fwd = divided_attention_cuda if qkv_g.is_cuda else divided_attention_plain
+        return fwd(qkv_g, qkv_cls, seq_bias, row_bias, heads=heads, dim_head=dim_head)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_tok, d_cls):
+        qkv_g, qkv_cls, seq_bias, row_bias = ctx.saved_tensors
+        bwd = divided_attention_bwd_cuda if qkv_g.is_cuda else divided_attention_bwd_plain
+        d_qkv, d_qkvc = bwd(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls,
+                            heads=ctx.heads, dim_head=ctx.dim_head)
+        zero = [torch.zeros_like(t) if t is not None and need else None
+                for t, need in zip((seq_bias, row_bias), ctx.needs_input_grad[2:4])]
+        return d_qkv, d_qkvc, *zero, None, None
+
+
+def divided_attention(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, dim_head: int):
+    """Grouped attention with a CLS row from packed ``[q|k|v]`` qkv,
+    differentiable.
+
+    Same arguments and results as :func:`divided_attention_plain`. CPU
+    tensors take the plain versions; CUDA tensors take the kernels or raise.
+    There is no fallback between the two.
     """
-    if qkv_g.is_cuda:
-        return divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias,
-                                      heads=heads, dim_head=dim_head)
-    return divided_attention_plain(qkv_g, qkv_cls, seq_bias, row_bias,
-                                   heads=heads, dim_head=dim_head)
+    return DividedAttentionFunction.apply(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head)

@@ -1,14 +1,18 @@
-"""Fused GEGLU feed-forward (counterpart of ``mintime_tpu/ops/pallas_ffn.py``,
-the forward of ``geglu_ffn`` at ``:229-247`` and ``_fwd_kernel`` at ``:57-74``).
+"""Fused GEGLU feed-forward (counterpart of ``mintime_tpu/ops/pallas_ffn.py``:
+``geglu_ffn`` at ``:229-247``, ``_fwd_kernel`` at ``:57-74``, ``_bwd_kernel``
+at ``:77-129`` and the ``custom_vjp`` at ``:205-226``).
 
 ``out = (val * gelu_erf(gate)) @ w1.T + b1`` with ``[val | gate] = x @ w0.T
 + b0``. Weights are in PyTorch's Linear layout: ``w0 (2H, D)``, ``w1 (D, H)``.
 
-:func:`geglu_ffn` runs the CUDA kernel ``csrc/geglu_ffn.cu`` for a CUDA
-tensor and :func:`geglu_ffn_plain` for a CPU tensor. The plain version
-repeats the kernel's arithmetic: fp32 accumulation, the up-projection rounded
-to the input dtype before the gate math, gate math in fp32, the product
-rounded again before the down-projection.
+:func:`geglu_ffn` is differentiable through :class:`GegluFFNFunction`. For
+CUDA tensors its forward runs the kernel ``csrc/geglu_ffn.cu`` and its
+backward ``csrc/geglu_ffn_bwd.cu``; for CPU tensors they run
+:func:`geglu_ffn_plain` and :func:`geglu_ffn_bwd_plain`. The plain versions
+repeat the kernels' arithmetic: fp32 accumulation, the up-projection rounded
+to the input dtype before the gate math, gate math in fp32, the product (and
+in the backward ``dh``) rounded again before the next product, weight and
+bias gradients accumulated in fp32.
 """
 
 from __future__ import annotations
@@ -17,11 +21,14 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from mintime_torch.ops import _build
 
-#: kernel launches since the last reset (one per :func:`geglu_ffn` call on the card)
+#: forward kernel launches since the last reset (one per :func:`geglu_ffn_cuda` call)
 launches = 0
+#: backward kernel launches since the last reset (one per :func:`geglu_ffn_bwd_cuda` call)
+bwd_launches = 0
 
 _KERNEL_DIM = 512
 _KERNEL_CHUNK = 64
@@ -29,8 +36,8 @@ _KERNEL_ROWS = 32  # rows per block
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bwd_launches
+    launches = bwd_launches = 0
 
 
 def geglu_ffn_plain(x, w0, b0, w1, b1):
@@ -40,6 +47,31 @@ def geglu_ffn_plain(x, w0, b0, w1, b1):
     val, gate = h.to(f32).chunk(2, dim=-1)
     prod = (val * F.gelu(gate)).to(x.dtype)
     return (prod.to(f32) @ w1.to(f32).T + b1.to(f32)).to(x.dtype)
+
+
+def _dgelu(z):
+    """Derivative of the exact (erf) GELU (``pallas_ffn.py:51-54``)."""
+    cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+    return cdf + z * torch.exp(-0.5 * z * z) * 0.3989422804014327
+
+
+def geglu_ffn_bwd_plain(x, w0, b0, w1, dout):
+    """Plain PyTorch version of the backward kernel.
+
+    Returns ``(dx, dw0, db0, dw1, db1)``: ``dx`` in x's shape and dtype, the
+    weight and bias gradients in fp32 in the weights' layout.
+    """
+    f32, dt = torch.float32, x.dtype
+    x2 = x.reshape(-1, x.shape[-1]).to(f32)
+    d2 = dout.reshape(-1, x.shape[-1]).to(dt).to(f32)
+    h = (x2 @ w0.to(f32).T + b0.to(f32)).to(dt).to(f32)
+    val, gate = h.chunk(2, dim=-1)
+    g = F.gelu(gate)
+    prod = (val * g).to(dt).to(f32)
+    dprod = d2 @ w1.to(f32)
+    dh = torch.cat([dprod * g, dprod * val * _dgelu(gate)], dim=-1).to(dt).to(f32)
+    dx = (dh @ w0.to(f32)).to(dt).reshape(x.shape)
+    return dx, dh.T @ x2, dh.sum(0), d2.T @ prod, d2.sum(0)
 
 
 def split_count(m: int, hidden: int, sms: int) -> int:
@@ -52,10 +84,13 @@ def split_count(m: int, hidden: int, sms: int) -> int:
     return min(hidden // _KERNEL_CHUNK, -(-2 * sms // tiles))
 
 
-def _check_kernel_args(x2, w0, b0, w1, b1):
+def _check_kernel_args(x2, w0, b0, w1, b1=None, dout=None):
     dim = x2.shape[-1]
     hidden = w1.shape[1]
-    for name, t in (("x", x2), ("w0", w0), ("b0", b0), ("w1", w1), ("b1", b1)):
+    named = {"x": x2, "w0": w0, "b0": b0, "w1": w1, "b1": b1, "dout": dout}
+    for name, t in named.items():
+        if t is None:
+            continue
         if not t.is_cuda:
             raise ValueError(f"geglu_ffn: {name} is not on the card with x")
         if t.dtype != torch.bfloat16:
@@ -68,12 +103,11 @@ def _check_kernel_args(x2, w0, b0, w1, b1):
         raise ValueError(f"geglu_ffn kernel is built for width {_KERNEL_DIM}, got {dim}")
     if hidden % _KERNEL_CHUNK:
         raise ValueError(f"geglu_ffn kernel needs hidden % {_KERNEL_CHUNK} == 0, got {hidden}")
-    if w0.shape != (2 * hidden, dim) or b0.shape != (2 * hidden,) or w1.shape != (dim, hidden) \
-            or b1.shape != (dim,):
-        raise ValueError(
-            f"geglu_ffn: inconsistent shapes w0 {tuple(w0.shape)} b0 {tuple(b0.shape)}"
-            f" w1 {tuple(w1.shape)} b1 {tuple(b1.shape)} for width {dim}"
-        )
+    shapes = {"w0": (2 * hidden, dim), "b0": (2 * hidden,), "w1": (dim, hidden), "b1": (dim,),
+              "dout": tuple(x2.shape)}
+    if any(named[k] is not None and tuple(named[k].shape) != v for k, v in shapes.items()):
+        got = {k: tuple(t.shape) for k, t in named.items() if t is not None}
+        raise ValueError(f"geglu_ffn: inconsistent shapes {got} for width {dim}")
 
 
 def geglu_ffn_cuda(x, w0, b0, w1, b1):
@@ -103,12 +137,77 @@ def geglu_ffn_cuda(x, w0, b0, w1, b1):
     return out.reshape(x.shape)
 
 
-def geglu_ffn(x, w0, b0, w1, b1):
-    """Fused GEGLU FFN over the last axis of ``x`` (any leading shape).
+def geglu_ffn_bwd_cuda(x, w0, b0, w1, dout):
+    """Launch the backward kernel; same results as :func:`geglu_ffn_bwd_plain`.
 
-    A CPU tensor takes :func:`geglu_ffn_plain`; a CUDA tensor takes the
-    kernel or raises. There is no fallback between the two.
+    Scratch it allocates: ``dh (M, 2H)`` and ``prod (M, H)`` in bf16 and the
+    per-row-tile column sums of ``dh`` and ``dout`` in fp32.
     """
-    if x.is_cuda:
-        return geglu_ffn_cuda(x, w0, b0, w1, b1)
-    return geglu_ffn_plain(x, w0, b0, w1, b1)
+    global bwd_launches
+    x2 = x.reshape(-1, x.shape[-1])
+    d2 = dout.reshape(-1, x.shape[-1]).to(x.dtype).contiguous()
+    if d2.data_ptr() % 32:  # a view into a larger gradient
+        d2 = d2.clone()
+    _check_kernel_args(x2, w0, b0, w1, dout=d2)
+    m, dim = x2.shape
+    hidden = w1.shape[1]
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty_like(x2)
+    dw0 = torch.empty((2 * hidden, dim), dtype=f32, device=dev)
+    db0 = torch.empty(2 * hidden, dtype=f32, device=dev)
+    dw1 = torch.empty((dim, hidden), dtype=f32, device=dev)
+    db1 = torch.empty(dim, dtype=f32, device=dev)
+    if m == 0:
+        return dx.reshape(x.shape), dw0.zero_(), db0.zero_(), dw1.zero_(), db1.zero_()
+    tiles = -(-m // _KERNEL_ROWS)
+    dh = torch.empty((m, 2 * hidden), dtype=x.dtype, device=dev)
+    prod = torch.empty((m, hidden), dtype=x.dtype, device=dev)
+    db0_part = torch.empty((tiles, 2 * hidden), dtype=f32, device=dev)
+    db1_part = torch.empty((tiles, dim), dtype=f32, device=dev)
+    splits = split_count(m, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
+    lib = _build.load("geglu_ffn_bwd")
+    fn = lib.geglu_ffn_bwd
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(x2.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), d2.data_ptr(),
+                    dx.data_ptr(), dw0.data_ptr(), db0.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                    dh.data_ptr(), prod.data_ptr(), db0_part.data_ptr(), db1_part.data_ptr(),
+                    m, dim, hidden, splits, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "geglu_ffn_bwd")
+    bwd_launches += 1
+    return dx.reshape(x.shape), dw0, db0, dw1, db1
+
+
+class GegluFFNFunction(torch.autograd.Function):
+    """The fused FFN with its fused backward (the ``custom_vjp`` of
+    ``pallas_ffn.py:205-226``): kernels for CUDA tensors, plain versions for
+    CPU tensors. Gradients come back in their inputs' dtypes, so bf16
+    weights cast from fp32 masters pass their gradient through bf16 as in
+    the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, w0, b0, w1, b1):
+        ctx.save_for_backward(x, w0, b0, w1)
+        ctx.b1_dtype = b1.dtype
+        if x.is_cuda:
+            return geglu_ffn_cuda(x, w0, b0, w1, b1)
+        return geglu_ffn_plain(x, w0, b0, w1, b1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        x, w0, b0, w1 = ctx.saved_tensors
+        bwd = geglu_ffn_bwd_cuda if x.is_cuda else geglu_ffn_bwd_plain
+        dx, dw0, db0, dw1, db1 = bwd(x, w0, b0, w1, dout)
+        return dx, dw0.to(w0.dtype), db0.to(b0.dtype), dw1.to(w1.dtype), db1.to(ctx.b1_dtype)
+
+
+def geglu_ffn(x, w0, b0, w1, b1):
+    """Fused GEGLU FFN over the last axis of ``x`` (any leading shape),
+    differentiable.
+
+    CPU tensors take the plain versions; CUDA tensors take the kernels or
+    raise. There is no fallback between the two.
+    """
+    return GegluFFNFunction.apply(x, w0, b0, w1, b1)

@@ -43,7 +43,7 @@ def test_no_forbidden_or_top_level_lazy_imports(path):
 
 def test_import_pulls_in_no_jax_cv2_or_yaml():
     code = ("import sys, mintime_torch.predict, mintime_torch.models.classifier, "
-            "mintime_torch.convert\n"
+            "mintime_torch.convert, mintime_torch.train, mintime_torch.train_loop\n"
             "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'mintime_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
@@ -61,6 +61,22 @@ def test_default_device_raises_without_a_card():
         MintimeVideoClassifier(cfg)
 
 
+@pytest.mark.parametrize("device_kw", [{}, {"device": "cuda"}])
+def test_training_entry_point_raises_without_a_card_unless_cpu(device_kw):
+    """``training_model`` defaults to the card and raises without one; with
+    ``device="cpu"`` it builds the fp32 training model."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from mintime_torch.config import ModelConfig
+    from mintime_torch.train import training_model
+
+    cfg = ModelConfig(num_frames=8, num_patches=1, dim=32, depth=1, heads=1, dim_head=32)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        training_model(cfg, **device_kw)
+    model = training_model(cfg, device="cpu")
+    assert model.dtype == model.compute_dtype == torch.float32
+
+
 def test_kernel_wrappers_refuse_cpu_calls_to_the_kernel():
     """The kernel entry points check their arguments instead of silently
     computing on the CPU."""
@@ -74,3 +90,10 @@ def test_kernel_wrappers_refuse_cpu_calls_to_the_kernel():
         divided_attention.divided_attention_cuda(
             torch.zeros(1, 2, 3, 192), torch.zeros(1, 1, 192), None, None,
             heads=1, dim_head=64)
+    with pytest.raises(ValueError, match="card"):
+        geglu_ffn.geglu_ffn_bwd_cuda(x, torch.zeros(4096, 512), torch.zeros(4096),
+                                     torch.zeros(512, 2048), torch.zeros(8, 512))
+    with pytest.raises(ValueError, match="card"):
+        divided_attention.divided_attention_bwd_cuda(
+            torch.zeros(1, 2, 3, 192), torch.zeros(1, 1, 192), None, None,
+            torch.zeros(1, 2, 3, 64), torch.zeros(1, 1, 64), heads=1, dim_head=64)

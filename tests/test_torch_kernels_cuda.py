@@ -42,3 +42,62 @@ def test_divided_attention_kernel_on_card():
     want = port_divided.divided_attention_plain(qkv, qkvc, None, rb, heads=H, dim_head=dh)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+
+
+def _close_per_gradient(got, want, what):
+    """max |kernel - plain| <= 2e-2 * max(1, max |plain|), one gradient at a time."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape, (what, i, a.shape, b.shape)
+        err = float((a - b).abs().max())
+        limit = 2e-2 * max(1.0, float(b.abs().max()))
+        assert err <= limit, f"{what} gradient {i}: max abs error {err} > {limit}"
+
+
+@pytest.mark.cuda
+def test_geglu_backward_kernel_on_card():
+    """The backward kernel against its plain version in bf16 at the token and
+    CLS rows of a batch of 8 and a ragged M (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(1)
+    r = lambda *s, sc=0.05: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    w0, b0, w1 = r(4096, 512), r(4096), r(512, 2048)
+    for m in (6272, 8, 37):
+        x, dout = r(m, 512, sc=1.0), r(m, 512, sc=0.1)
+        got = port.geglu_ffn_bwd_cuda(x, w0, b0, w1, dout)
+        torch.cuda.synchronize()
+        _close_per_gradient(got, port.geglu_ffn_bwd_plain(x, w0, b0, w1, dout), f"ffn M={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["time", "space"])
+def test_divided_attention_backward_kernel_on_card(axis):
+    """The backward kernel against its plain version in bf16 on both flagship
+    axes, with masked frames, a strided time-axis view and d_qkv in its
+    stride order (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(2)
+    B, F, n, H, dh = 2, 16, 49, 8, 64
+    qkv = torch.randn(B, F, n, 3 * H * dh, generator=gen).cuda().bfloat16()
+    qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
+    mask = torch.ones(B, F, dtype=torch.bool, device="cuda")
+    mask[1, 10:] = False
+    rb = port_divided.mask_to_bias(mask)
+    if axis == "time":
+        frame = torch.cat([torch.ones(B, F, 1, dtype=torch.bool, device="cuda"),
+                           mask[:, None, :].expand(B, F, F)], dim=-1)
+        args = (qkv.transpose(1, 2), qkvc, port_divided.mask_to_bias(frame), rb[:, None, :])
+    else:
+        args = (qkv, qkvc, None, rb[:, :, None])
+    G, L = args[0].shape[1:3]
+    d_tok = torch.randn(B, L, G, H * dh, generator=gen).cuda().bfloat16().transpose(1, 2) \
+        if axis == "time" else torch.randn(B, G, L, H * dh, generator=gen).cuda().bfloat16()
+    d_cls = torch.randn(B, 1, H * dh, generator=gen).cuda().bfloat16()
+    kw = dict(heads=H, dim_head=dh)
+    got = port_divided.divided_attention_bwd_cuda(*args, d_tok, d_cls, **kw)
+    torch.cuda.synchronize()
+    assert got[0].stride() == args[0].stride()
+    _close_per_gradient(got, port_divided.divided_attention_bwd_plain(*args, d_tok, d_cls, **kw),
+                        f"attention {axis}")
