@@ -6,14 +6,16 @@ one card. It builds the CUDA kernels itself.
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device and build: the card, its power limit, torch and CUDA versions, the
-   seconds ``nvcc`` took for ``mintime_torch/csrc/*.cu``;
+   seconds ``nvcc`` took for the six ``mintime_torch/csrc/*.cu`` sources;
 2. kernels: every kernel of the serving and training paths against its plain
-   PyTorch version on the card in bf16 at the flagship shapes (forward: max
-   abs error <= 2e-2; backward, with unit-scale cotangents: per gradient
-   <= 2e-2 * max(1, max |plain|), each gradient's error and max printed),
-   with its time, the plain version's time and the card's bound for the work;
-   the divided attention is also timed as one dense masked
-   ``scaled_dot_product_attention`` call, forward and backward (a yardstick
+   PyTorch version on the card in bf16 at the main paths' shapes (the FFN at
+   widths 512 and 256, the divided attention at the flagship's, the token
+   rows at the Convolutional TimeSformer's time axis and, with masked frames,
+   at 96 groups; forward: max abs error <= 2e-2; backward, with unit-scale
+   cotangents: per gradient <= 2e-2 * max(1, max |plain|), each gradient's
+   error and max printed), with its time, the plain version's time and the
+   card's bound for the work; the attentions are also timed as
+   ``scaled_dot_product_attention`` calls, forward and backward (yardsticks
    the port never calls);
 3. slice: the flagship EfficientNet-B0 + Size-Invariant TimeSformer at full
    width (224 px, 1280 channels, dim 512, depth 9, 8 x 64 heads, F = 16,
@@ -41,7 +43,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    readings); every parameter must get a finite, non-zero gradient; the loss
    after the 5 steps must be below the first; the BatchNorm statistics must
    move. Steps/s, videos/s, device ms per step, peak memory and a profile of
-   one step are printed.
+   one step are printed;
+6. conv: the Convolutional TimeSformer preset (``configs/
+   convolutional_timesformer.yaml``: EfficientNet-B0 tapped at block 20, 1280
+   channel tokens of width 49 per frame, dim 256, depth 4, 6 x 64 heads,
+   F = 8) at full width, bf16 weights from seed 0, through
+   ``train.make_eval_step`` at batch 8 on ``bench.py``'s inputs
+   (standard-normal frames, all-true mask, size bucket 1). One forward must
+   launch 4 token-row and 8 FFN kernels and no whole-slice attention (the
+   space axis, L = 1280, stays plain); kernel-mode logits must match
+   plain-mode logits within 2e-2 and a CPU fp32 run of the first video within
+   5e-2; videos/s, forward device ms, peak memory and a profile are printed;
+7. conv_train: the same model with fp32 masters computing in bf16, 5 SGD
+   steps at batch 8 (lr 0.01, weight decay 1e-4, half labelled fake) through
+   ``train.make_train_step``. Each step must launch 4 token-row and 8 FFN
+   kernels forward and 4 token-row and 7 FFN kernels backward; the gradient
+   rule of phase 5 over the head's parameters, each with a finite non-zero
+   gradient; the frozen extractor gets no gradient, its BatchNorm statistics
+   stay bitwise unchanged and its weights move by weight decay alone; the
+   loss falls. Steps/s, device ms per step, peak memory and a profile are
+   printed.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -169,8 +190,21 @@ def _split_one_attention(o, G, L):
             o[:, :, 0].reshape(B, 1, H * dh))
 
 
+#: the FFN's shapes on the main paths: (model width, hidden width, [(M, calls per
+#: forward, calls per train step)]) for the flagship (the token and CLS rows of
+#: 8 videos, 9 layers) and the Convolutional TimeSformer (4 layers)
+FFN_SHAPES = ((512, 2048, ((8 * 16 * 49, 9, 8), (8, 9, 9))),
+              (256, 1024, ((8 * 8 * 1280, 4, 3), (8, 4, 4))))
+
+
+def _ffn_weights(r, dim, hidden):
+    """W0, b0, W1, b1 at unit fan-in scale."""
+    return (r(2 * hidden, dim, sc=dim ** -0.5), r(2 * hidden, sc=0.02),
+            r(dim, hidden, sc=hidden ** -0.5), r(dim, sc=0.02))
+
+
 def phase_kernels(smi):
-    """Each kernel vs its plain version at the flagship shapes."""
+    """Each kernel vs its plain version at the main paths' shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -183,21 +217,21 @@ def phase_kernels(smi):
     rows = {"geglu_ffn": [], "divided_attention": []}
 
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
-    w0, b0, w1, b1 = r(4096, 512, sc=0.044), r(4096, sc=0.02), r(512, 2048, sc=0.022), r(512, sc=0.02)
-    # (M, calls per forward): the token rows and the CLS rows of 8 videos
-    for m, calls in ((8 * 16 * 49, 9), (8, 9)):
-        x = r(m, 512)
-        args = (x, w0, b0, w1, b1)
-        err = max_err(ffn.geglu_ffn_cuda(*args), ffn.geglu_ffn_plain(*args))
-        nbytes = 2 * (2 * m * 512 + w0.numel() + b0.numel() + w1.numel() + b1.numel())
-        flops = 2 * m * (512 * 4096 + 2048 * 512)
-        b_ms, b_by = bound(nbytes, flops)
-        rows["geglu_ffn"].append({
-            "shape": f"M={m}", "calls": calls, "max_abs_err": err,
-            "ms": time_ms(lambda: ffn.geglu_ffn_cuda(*args)),
-            "plain_ms": time_ms(lambda: ffn.geglu_ffn_plain(*args)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
+    for dim, hidden, shapes in FFN_SHAPES:
+        w0, b0, w1, b1 = _ffn_weights(r, dim, hidden)
+        for m, calls, _ in shapes:
+            x = r(m, dim)
+            args = (x, w0, b0, w1, b1)
+            err = max_err(ffn.geglu_ffn_cuda(*args), ffn.geglu_ffn_plain(*args))
+            nbytes = 2 * (2 * m * dim + w0.numel() + b0.numel() + w1.numel() + b1.numel())
+            flops = 2 * m * 3 * dim * hidden
+            b_ms, b_by = bound(nbytes, flops)
+            rows["geglu_ffn"].append({
+                "shape": f"D={dim} H={hidden} M={m}", "calls": calls, "max_abs_err": err,
+                "ms": time_ms(lambda: ffn.geglu_ffn_cuda(*args)),
+                "plain_ms": time_ms(lambda: ffn.geglu_ffn_plain(*args)),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            })
 
     H, dh = 8, 64
     for axis, calls in (("time", 8), ("space", 8)):
@@ -227,6 +261,7 @@ def phase_kernels(smi):
             "library_max_abs_err": lib_err,
         })
 
+    rows["token_rows_attention"] = _token_rows_rows(gen)
     for name, shapes in rows.items():
         for s in shapes:
             emit({"phase": "kernel", "name": name, "card": smi, **s})
@@ -234,6 +269,81 @@ def phase_kernels(smi):
                 raise AssertionError(f"{name} {s['shape']}: max abs error {s['max_abs_err']} > {TOL}")
     rows.update(_backward_kernels(smi, gen))
     return rows
+
+
+def _token_rows_inputs(gen, G, masked, B=8, F=8, H=6, dh=64):
+    """The Convolutional TimeSformer's time axis: qkv (B, F, G, 3*H*dh) seen
+    as its (B, G, F, ·) transpose, the CLS qkv, and with ``masked`` a
+    seq_bias that masks frames (column 0 the CLS key, always kept)."""
+    import torch
+
+    from mintime_torch.ops.attention import build_frame_mask
+    from mintime_torch.ops.divided_attention import mask_to_bias
+
+    qkv = torch.randn(B, F, G, 3 * H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
+    qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
+    sb = None
+    if masked:
+        mask = torch.ones(B, F, dtype=torch.bool)
+        mask[1, 5:] = False
+        mask[6, 2:] = False
+        sb = mask_to_bias(build_frame_mask(mask, None).cuda())
+    return qkv, qkvc, sb
+
+
+def _token_rows_as_sdpa(qkv, qkvc, sb, H, dh):
+    """The same token rows as one ``scaled_dot_product_attention`` call over
+    (B*G, H, L, 1+L): q of each group's L rows, k and v with the CLS row's
+    prepended, and with ``sb`` a boolean mask. Built outside the timed call;
+    the port never calls it."""
+    import torch
+
+    from mintime_torch.ops.divided_attention import NEG
+
+    B, G, L, _ = qkv.shape
+    t = qkv.unflatten(-1, (3, H, dh)).reshape(B * G, L, 3, H, dh).permute(2, 0, 3, 1, 4)
+    c = qkvc[:, 0].unflatten(-1, (3, H, dh)).repeat_interleave(G, dim=0)[:, :, :, None]
+    q = t[0].contiguous()
+    k, v = (torch.cat([c[:, i], t[i]], dim=2).contiguous() for i in (1, 2))
+    mask = None if sb is None else (sb > NEG / 2).repeat_interleave(G, dim=0)[:, None]
+    return q, k, v, mask
+
+
+def _token_rows_rows(gen):
+    """The token-row kernel at the conv time axis (4 launches a forward) and,
+    with frames masked by a seq_bias, at G = 96 (a check; no main path
+    passes a mask)."""
+    import torch.nn.functional as F
+
+    from mintime_torch.ops import token_rows as tr
+
+    H, dh = 6, 64
+    out = []
+    for G, masked, calls in ((1280, False, 4), (96, True, 0)):
+        qkv, qkvc, sb = _token_rows_inputs(gen, G, masked)
+        B, _, L, _ = qkv.shape
+        kw = dict(heads=H, dim_head=dh)
+        plain = tr.token_rows_attention_plain(qkv, qkvc, sb, **kw)
+        err = max_err(tr.token_rows_attention_cuda(qkv, qkvc, sb, **kw), plain)
+        nbytes = (2 * (qkv.numel() + qkvc.numel() + plain.numel())
+                  + 4 * (0 if sb is None else sb.numel()))
+        flops = 4 * B * G * H * L * (1 + L) * dh  # logits and PV over 1 + L keys
+        b_ms, b_by = bound(nbytes, flops)
+        lq, lk, lv, lmask = _token_rows_as_sdpa(qkv, qkvc, sb, H, dh)
+        sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
+        lib_err = max_err(sdpa().transpose(1, 2).reshape(plain.shape), plain)
+        if not lib_err <= TOL:
+            raise AssertionError(f"the one-call token-row yardstick differs by {lib_err}")
+        out.append({
+            "shape": f"time B={B} G={G} L={L} H={H} dh={dh}" + (" seq_bias" if masked else ""),
+            "calls": calls, "max_abs_err": err,
+            "ms": time_ms(lambda: tr.token_rows_attention_cuda(qkv, qkvc, sb, **kw)),
+            "plain_ms": time_ms(lambda: tr.token_rows_attention_plain(qkv, qkvc, sb, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+            "library": "scaled_dot_product_attention over (B*G, H, L, 1+L)",
+            "library_max_abs_err": lib_err,
+        })
+    return out
 
 
 def _grad_err(names, got, want) -> list[dict]:
@@ -259,26 +369,26 @@ def _backward_kernels(smi, gen):
 
     rows = {"geglu_ffn_bwd": [], "divided_attention_bwd": []}
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
-    w0, b0, w1 = r(4096, 512, sc=0.044), r(4096, sc=0.02), r(512, 2048, sc=0.022)
-    hidden = 2048
-    # (M, launches per train step): the last layer's token FFN gets no gradient
-    for m, calls in ((8 * 16 * 49, 8), (8, 9)):
-        x, dout = r(m, 512), r(m, 512)
-        args = (x, w0, b0, w1, dout)
-        grads = _grad_err(("dx", "dw0", "db0", "dw1", "db1"), ffn.geglu_ffn_bwd_cuda(*args),
-                          ffn.geglu_ffn_bwd_plain(*args))
-        # read x, W0, b0, W1, dout; write dx (bf16) and the fp32 weight and bias gradients
-        nbytes = (2 * (2 * m * 512 + w0.numel() + b0.numel() + w1.numel() + m * 512)
-                  + 4 * (w0.numel() + b0.numel() + w1.numel() + 512))
-        flops = 2 * m * 512 * 8 * hidden  # h, dprod, dx, dW0 (2H wide) and dW1 (H wide)
-        b_ms, b_by = bound(nbytes, flops)
-        rows["geglu_ffn_bwd"].append({
-            "shape": f"M={m}", "calls": calls,
-            "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
-            "ms": time_ms(lambda: ffn.geglu_ffn_bwd_cuda(*args)),
-            "plain_ms": time_ms(lambda: ffn.geglu_ffn_bwd_plain(*args)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
+    # launches per train step: the last layer's token FFN gets no gradient
+    for dim, hidden, shapes in FFN_SHAPES:
+        w0, b0, w1, _ = _ffn_weights(r, dim, hidden)
+        for m, _, calls in shapes:
+            x, dout = r(m, dim), r(m, dim)
+            args = (x, w0, b0, w1, dout)
+            grads = _grad_err(("dx", "dw0", "db0", "dw1", "db1"), ffn.geglu_ffn_bwd_cuda(*args),
+                              ffn.geglu_ffn_bwd_plain(*args))
+            # read x, W0, b0, W1, dout; write dx (bf16) and the fp32 weight and bias gradients
+            nbytes = (2 * (2 * m * dim + w0.numel() + b0.numel() + w1.numel() + m * dim)
+                      + 4 * (w0.numel() + b0.numel() + w1.numel() + dim))
+            flops = 2 * m * dim * 8 * hidden  # h, dprod, dx, dW0 (2H wide) and dW1 (H wide)
+            b_ms, b_by = bound(nbytes, flops)
+            rows["geglu_ffn_bwd"].append({
+                "shape": f"D={dim} H={hidden} M={m}", "calls": calls,
+                "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
+                "ms": time_ms(lambda: ffn.geglu_ffn_bwd_cuda(*args)),
+                "plain_ms": time_ms(lambda: ffn.geglu_ffn_bwd_plain(*args)),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            })
 
     H, dh = 8, 64
     for axis, calls in (("time", 9), ("space", 9)):
@@ -309,6 +419,7 @@ def _backward_kernels(smi, gen):
             "library": "backward of one dense masked scaled_dot_product_attention call",
         })
 
+    rows["token_rows_attention_bwd"] = _token_rows_bwd_rows(gen)
     for name, shapes in rows.items():
         for s in shapes:
             emit({"phase": "kernel", "name": name, "card": smi, **s})
@@ -317,6 +428,47 @@ def _backward_kernels(smi, gen):
                 raise AssertionError(f"{name} {s['shape']}: gradients off by more than"
                                      f" {TOL} * max(1, max |plain|): {off}")
     return rows
+
+
+def _token_rows_bwd_rows(gen):
+    """The token-row backward kernel at the conv time axis (4 launches a
+    train step) and, masked, at G = 96, with unit-scale cotangents."""
+    import torch
+
+    from mintime_torch.ops import token_rows as tr
+
+    H, dh = 6, 64
+    out = []
+    for G, masked, calls in ((1280, False, 4), (96, True, 0)):
+        qkv, qkvc, sb = _token_rows_inputs(gen, G, masked)
+        B, _, L, c3 = qkv.shape
+        # the cotangent arrives as the transposed view of the natural layout
+        d_tok = torch.randn(B, L, G, H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
+        kw = dict(heads=H, dim_head=dh)
+        args = (qkv, qkvc, sb, d_tok)
+        got = tr.token_rows_attention_bwd_cuda(*args, **kw)
+        if got[1][..., :H * dh].any():
+            raise AssertionError("token_rows_attention_bwd: the CLS query got a gradient")
+        grads = _grad_err(("d_qkv", "d_qkvc"), got, tr.token_rows_attention_bwd_plain(*args, **kw))
+        nbytes = (2 * (2 * qkv.numel() + 2 * qkvc.numel() + d_tok.numel())
+                  + 4 * (0 if sb is None else sb.numel()))
+        T = 1 + L  # logits, dP and dq over T keys; dK and dV over L rows; dk_cls, dv_cls
+        flops = 2 * B * G * H * dh * (3 * L * T + 2 * L * L + 2 * L)
+        b_ms, b_by = bound(nbytes, flops)
+        lq, lk, lv, lmask = _token_rows_as_sdpa(qkv, qkvc, sb, H, dh)
+        lq, lk, lv = (t.requires_grad_() for t in (lq, lk, lv))
+        lout = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
+        lgrad = torch.randn(lout.shape, generator=gen).cuda().bfloat16()
+        sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
+        out.append({
+            "shape": f"time B={B} G={G} L={L} H={H} dh={dh}" + (" seq_bias" if masked else ""),
+            "calls": calls, "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
+            "ms": time_ms(lambda: tr.token_rows_attention_bwd_cuda(*args, **kw)),
+            "plain_ms": time_ms(lambda: tr.token_rows_attention_bwd_plain(*args, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa_bwd),
+            "library": "backward of scaled_dot_product_attention over (B*G, H, L, 1+L)",
+        })
+    return out
 
 
 def _synthetic_videos(n_videos, seed):
@@ -367,8 +519,6 @@ def phase_slice(smi):
     from mintime_torch import predict
     from mintime_torch.config import MintimeConfig, ModelConfig
     from mintime_torch.models.classifier import MintimeVideoClassifier
-    from mintime_torch.ops import divided_attention as da
-    from mintime_torch.ops import geglu_ffn as ffn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -395,16 +545,13 @@ def phase_slice(smi):
     assert any(n_masked), "the run should hold padded frames"
 
     # the main path: counters at 0 just before, read just after
-    torch.cuda.synchronize()
-    ffn.reset_launches()
-    da.reset_launches()
     t0 = time.perf_counter()
-    results = predict.predict_assembled(staged, model, None, cfg)
-    torch.cuda.synchronize()
+    results, counts = _step_launches(lambda: predict.predict_assembled(staged, model, None, cfg))
     first_s = time.perf_counter() - t0
-    launches = {"divided_attention": da.launches, "geglu_ffn": ffn.launches}
-    if launches != {"divided_attention": 16, "geglu_ffn": 18}:
-        raise AssertionError(f"launches per forward {launches}, want 16 attention and 18 FFN")
+    launches = {k: counts[k] for k in ("divided_attention", "geglu_ffn", "token_rows_attention")}
+    if launches != {"divided_attention": 16, "geglu_ffn": 18, "token_rows_attention": 0}:
+        raise AssertionError(f"launches per forward {launches}, want 16 attention (whole-slice),"
+                             " 18 FFN and 0 token rows")
 
     # what came out: probabilities, per-identity attention, aggregated maps
     assert len(results) == 8
@@ -476,6 +623,10 @@ def phase_slice(smi):
 def _kind(name: str) -> str:
     """Coarse layer of a CUDA kernel, from its name."""
     low = name.lower()
+    if "token_rows_bwd" in low or "token_rows_cls_reduce" in low:
+        return "token_rows_attention backward kernel"
+    if "token_rows_fwd" in low:
+        return "token_rows_attention kernel"
     if "ffn_bwd" in low:
         return "geglu_ffn backward kernel"
     if "attn_bwd" in low:
@@ -540,19 +691,22 @@ def phase_profile(smi, model, stacked):
 
 
 def _step_launches(fn) -> tuple:
-    """Kernel launches of the four wrappers during ``fn()``, counted from 0."""
+    """Kernel launches of the six wrappers during ``fn()``, counted from 0."""
     import torch
 
     from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import geglu_ffn as ffn
+    from mintime_torch.ops import token_rows as tr
 
     torch.cuda.synchronize()
-    ffn.reset_launches()
-    da.reset_launches()
+    for mod in (ffn, da, tr):
+        mod.reset_launches()
     out = fn()
     torch.cuda.synchronize()
     return out, {"divided_attention": da.launches, "geglu_ffn": ffn.launches,
-                 "divided_attention_bwd": da.bwd_launches, "geglu_ffn_bwd": ffn.bwd_launches}
+                 "token_rows_attention": tr.launches,
+                 "divided_attention_bwd": da.bwd_launches, "geglu_ffn_bwd": ffn.bwd_launches,
+                 "token_rows_attention_bwd": tr.bwd_launches}
 
 
 def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bool = False):
@@ -569,6 +723,7 @@ def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bo
     from mintime_torch import train
     from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import geglu_ffn as ffn
+    from mintime_torch.ops import token_rows as tr
 
     stats = {k: v.clone() for k, v in model.named_buffers()}
     set_use_kernels(model, use_kernels)
@@ -576,7 +731,8 @@ def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bo
     with contextlib.ExitStack() as stack:
         if kernel_free:
             for mod, names in ((ffn, ("geglu_ffn", "geglu_ffn_bwd")),
-                               (da, ("divided_attention", "divided_attention_bwd"))):
+                               (da, ("divided_attention", "divided_attention_bwd")),
+                               (tr, ("token_rows_attention", "token_rows_attention_bwd"))):
                 for n in names:
                     stack.enter_context(mock.patch.object(mod, f"{n}_cuda", getattr(mod, f"{n}_plain")))
         loss, _ = train.forward_loss(model, batch, pos_weight, train=True,
@@ -590,6 +746,65 @@ def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bo
     set_use_kernels(model, True)
     model.zero_grad(set_to_none=True)
     return float(loss.detach()), grads
+
+
+def _grad_check(smi, phase, model, ref, batch, pos_weight, trained):
+    """One step's gradients with kernels against the plain path on the same
+    weights, batch and masks. ``trained`` names the parameters that must get
+    a finite, non-zero gradient; every other parameter must get none.
+    ``ref`` is a plain fp32 copy of the model, loaded here and freed after."""
+    import numpy as np
+    import torch
+
+    loss_k, gk = _one_step_grads(model, batch, pos_weight, True)
+    loss_p, gp = _one_step_grads(model, batch, pos_weight, False)
+    bad = [n for n in trained if gk[n] is None or not torch.isfinite(gk[n]).all()
+           or not gk[n].abs().max() > 0]
+    if bad:
+        raise AssertionError(f"parameters without a finite non-zero gradient: {bad[:8]}")
+    frozen = [n for n, g in gk.items() if n not in trained and g is not None and g.any()]
+    if frozen:
+        raise AssertionError(f"frozen parameters with a gradient: {frozen[:8]}")
+    # Two readings beside the kernel-vs-plain gap. An fp32 run of the same
+    # step (same weights, plain path) tells which tensors have a zero
+    # gradient in exact arithmetic: the biases of the _bn2 layers whose
+    # output a train-mode BatchNorm re-centres. There the bf16 paths hold
+    # nothing but round-off, at least 2^8 times the fp32 value. A kernel-free
+    # twin (the kernel path with its plain versions on the card) shows how far
+    # two correct bf16 runs that round at different places already drift
+    # apart at random init: a few percent of a tensor's largest gradient, up
+    # to about 1e-1 on some tensors. Each tensor's kernel-vs-plain gap must
+    # stay within 5e-2 of its largest plain gradient beyond the twin's gap.
+    _, gt = _one_step_grads(model, batch, pos_weight, True, kernel_free=True)
+    ref.load_state_dict(model.state_dict())
+    loss_32, g32 = _one_step_grads(ref, batch, pos_weight, False)
+    del ref
+    torch.cuda.empty_cache()
+    rows = {}
+    for n in trained:
+        top = float(gp[n].abs().max())
+        rows[n] = {"gap": float((gk[n] - gp[n]).abs().max()) / top,
+                   "twin_gap": float((gt[n] - gp[n]).abs().max()) / top,
+                   "kernel_vs_twin": float((gk[n] - gt[n]).abs().max()) / top,
+                   "fp32_over_plain": float(g32[n].abs().max()) / top}
+    zero = sorted(n for n, r in rows.items() if r["fp32_over_plain"] <= 2**-8)
+    over = sorted((n for n in rows if n not in zero and rows[n]["gap"] > 5e-2),
+                  key=lambda n: -rows[n]["gap"])
+    failed = [n for n in over if not rows[n]["gap"] <= 5e-2 + rows[n]["twin_gap"]]
+    checked = [n for n in rows if n not in zero]
+    worst = max(checked, key=lambda n: rows[n]["gap"])
+    med = lambda key: float(np.median([rows[n][key] for n in checked]))  # noqa: E731
+    emit({"phase": phase, "card": smi, "loss_kernel": loss_k, "loss_plain": loss_p,
+          "loss_fp32": loss_32, "parameters": len(gk), "with_gradient": len(trained),
+          "zero_in_fp32": zero, "worst_grad_tensor": worst, **rows[worst],
+          "largest_gap_beyond_twin": max(rows[n]["gap"] - rows[n]["twin_gap"] for n in checked),
+          "median_gap": med("gap"), "median_twin_gap": med("twin_gap"),
+          "median_kernel_vs_twin": med("kernel_vs_twin"),
+          "over_5e-2": {n: rows[n] for n in over}})
+    if not abs(loss_k - loss_p) <= TOL:
+        raise AssertionError(f"kernel vs plain loss {loss_k} vs {loss_p}")
+    if failed:
+        raise AssertionError(f"kernel vs plain gradients off: {[(n, rows[n]) for n in failed[:4]]}")
 
 
 def phase_train(smi):
@@ -621,54 +836,10 @@ def phase_train(smi):
     build_model_s = time.perf_counter() - t0
     assert model.dtype == torch.float32 and model.compute_dtype == torch.bfloat16
 
-    # kernels vs plain, one step's gradients (check 2) and their health (check 3)
-    loss_k, gk = _one_step_grads(model, batch, pos_weight, True)
-    loss_p, gp = _one_step_grads(model, batch, pos_weight, False)
-    bad = [n for n, g in gk.items() if g is None or not torch.isfinite(g).all() or not g.abs().max() > 0]
-    if bad:
-        raise AssertionError(f"parameters without a finite non-zero gradient: {bad[:8]}")
-    # Two readings beside the kernel-vs-plain gap. An fp32 run of the same
-    # step (same weights, plain path) tells which tensors have a zero
-    # gradient in exact arithmetic: the biases of the _bn2 layers whose
-    # output a train-mode BatchNorm re-centres. There the bf16 paths hold
-    # nothing but round-off, at least 2^8 times the fp32 value. A kernel-free
-    # twin (the kernel path with its plain versions on the card) shows how far
-    # two correct bf16 runs that round at different places already drift
-    # apart at random init: a few percent of a tensor's largest gradient, up
-    # to about 1e-1 on some tensors. Each tensor's kernel-vs-plain gap must
-    # stay within 5e-2 of its largest plain gradient beyond the twin's gap.
-    _, gt = _one_step_grads(model, batch, pos_weight, True, kernel_free=True)
     ref = MintimeVideoClassifier(mcfg, use_kernels=False, device="cuda", dtype=torch.float32,
                                  param_dtype=torch.float32, seed=0)
-    ref.load_state_dict(model.state_dict())
-    loss_32, g32 = _one_step_grads(ref, batch, pos_weight, False)
-    del ref
-    torch.cuda.empty_cache()
-    rows = {}
-    for n in gk:
-        top = float(gp[n].abs().max())
-        rows[n] = {"gap": float((gk[n] - gp[n]).abs().max()) / top,
-                   "twin_gap": float((gt[n] - gp[n]).abs().max()) / top,
-                   "kernel_vs_twin": float((gk[n] - gt[n]).abs().max()) / top,
-                   "fp32_over_plain": float(g32[n].abs().max()) / top}
-    zero = sorted(n for n, r in rows.items() if r["fp32_over_plain"] <= 2**-8)
-    over = sorted((n for n in rows if n not in zero and rows[n]["gap"] > 5e-2),
-                  key=lambda n: -rows[n]["gap"])
-    failed = [n for n in over if not rows[n]["gap"] <= 5e-2 + rows[n]["twin_gap"]]
-    checked = [n for n in rows if n not in zero]
-    worst = max(checked, key=lambda n: rows[n]["gap"])
-    med = lambda key: float(np.median([rows[n][key] for n in checked]))  # noqa: E731
-    emit({"phase": "train_check", "card": smi, "loss_kernel": loss_k, "loss_plain": loss_p,
-          "loss_fp32": loss_32, "parameters": len(gk), "zero_in_fp32": zero,
-          "worst_grad_tensor": worst, **rows[worst],
-          "largest_gap_beyond_twin": max(rows[n]["gap"] - rows[n]["twin_gap"] for n in checked),
-          "median_gap": med("gap"), "median_twin_gap": med("twin_gap"),
-          "median_kernel_vs_twin": med("kernel_vs_twin"),
-          "over_5e-2": {n: rows[n] for n in over}})
-    if not abs(loss_k - loss_p) <= TOL:
-        raise AssertionError(f"kernel vs plain loss {loss_k} vs {loss_p}")
-    if failed:
-        raise AssertionError(f"kernel vs plain gradients off: {[(n, rows[n]) for n in failed[:4]]}")
+    _grad_check(smi, "train_check", model, ref, batch, pos_weight,
+                [n for n, _ in model.named_parameters()])
 
     # the main path: 5 steps through make_train_step, counters read per step
     state = train.create_train_state(model, cfg, steps_per_epoch=5, num_epochs=1, seed=0)
@@ -684,8 +855,8 @@ def phase_train(smi):
     # 9 layers x 2 attentions and 2 FFNs (tokens, CLS) forward; backward the
     # same, but for the last layer's token FFN: only the CLS stream reaches
     # the logits, so that output gets no gradient and autograd skips it
-    want = {"divided_attention": 18, "geglu_ffn": 18, "divided_attention_bwd": 18,
-            "geglu_ffn_bwd": 17}
+    want = {"divided_attention": 18, "geglu_ffn": 18, "token_rows_attention": 0,
+            "divided_attention_bwd": 18, "geglu_ffn_bwd": 17, "token_rows_attention_bwd": 0}
     if any(c != want for c in launches):
         raise AssertionError(f"launches per train step {launches}, want {want}")
     with torch.no_grad():  # the loss of step 0's forward (same drop-connect masks), now
@@ -715,6 +886,183 @@ def phase_train(smi):
     return launches[0]
 
 
+def conv_model_config():
+    """The Convolutional TimeSformer preset: the model section of
+    ``configs/convolutional_timesformer.yaml`` (the card's machine has no
+    yaml; a CPU test holds the two equal)."""
+    from mintime_torch.config import ModelConfig
+
+    return ModelConfig(image_size=224, num_classes=1, num_frames=8, num_patches=1280, dim=256,
+                       depth=4, heads=6, dim_head=64, channels=1280, attn_dropout=0.0,
+                       ff_dropout=0.0, shift_tokens=False, efficient_net_block=20)
+
+
+def _conv_batch(n=8):
+    """``bench.py:429-435``'s inputs for the conv model: standard-normal
+    frames from seed 0, an all-true mask, size bucket 1; half labelled fake."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return {"frames": rng.standard_normal((n, 8, 224, 224, 3)).astype(np.float32),
+            "mask": np.ones((n, 8), bool), "size_embedding": np.ones((n, 8), np.int32),
+            "labels": np.array([0.0, 1.0] * (n // 2), np.float32)}
+
+
+#: launches of the conv model: per forward, 4 layers x (one token-row time
+#: axis, two FFNs), the space axis (L = 1280) plain; per train step the same
+#: backward, but for the last layer's token FFN, whose output reaches no logit
+CONV_FORWARD = {"divided_attention": 0, "geglu_ffn": 8, "token_rows_attention": 4}
+CONV_BACKWARD = {"divided_attention_bwd": 0, "geglu_ffn_bwd": 7, "token_rows_attention_bwd": 4}
+
+
+def phase_conv(smi):
+    """The Convolutional TimeSformer preset at full width, bf16 weights from
+    seed 0, through ``train.make_eval_step`` at batch 8."""
+    import numpy as np
+    import torch
+
+    from mintime_torch import train
+    from mintime_torch.models.conv_timesformer import ConvolutionalTimeSformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = conv_model_config()
+    t0 = time.perf_counter()
+    model = ConvolutionalTimeSformer(mcfg, use_kernels=True, device="cuda", seed=0)
+    build_model_s = time.perf_counter() - t0
+    batch = _conv_batch()
+    eval_step = train.make_eval_step(model, 1.0)
+
+    # the main path: counters at 0 just before, read just after
+    t0 = time.perf_counter()
+    out, counts = _step_launches(lambda: eval_step(None, batch))
+    first_s = time.perf_counter() - t0
+    want = {**CONV_FORWARD, **{k: 0 for k in CONV_BACKWARD}}
+    if counts != want:
+        raise AssertionError(f"conv launches per forward {counts}, want {want}")
+    logits_k = out["logits"].float().cpu().numpy()
+    assert logits_k.shape == (8,) and np.isfinite(logits_k).all()
+
+    set_use_kernels(model, False)
+    logits_p = eval_step(None, batch)["logits"].float().cpu().numpy()
+    set_use_kernels(model, True)
+    logit_err = float(np.abs(logits_k - logits_p).max())
+    # the same weights in fp32 on the CPU (plain path) on the first video
+    cpu = ConvolutionalTimeSformer(mcfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        logit_cpu = float(cpu(torch.from_numpy(batch["frames"][:1]), None,
+                              torch.from_numpy(batch["size_embedding"][:1]))[0, 0])
+    del cpu
+    cpu_err = abs(logit_cpu - float(logits_k[0]))
+    emit({"phase": "conv_check", "logits_kernel": logits_k.tolist(),
+          "logits_plain": logits_p.tolist(), "kernel_vs_plain_logit_err": logit_err,
+          "cpu_fp32_logit": logit_cpu, "card_vs_cpu_fp32_logit_err": cpu_err})
+    if not logit_err <= TOL:
+        raise AssertionError(f"conv kernel vs plain logits differ by {logit_err} > {TOL}")
+    if not cpu_err <= 5e-2:
+        raise AssertionError(f"conv bf16 card vs fp32 CPU logit differs by {cpu_err} > 5e-2")
+
+    def run():
+        eval_step(None, batch)
+        torch.cuda.synchronize()
+
+    samples = []
+    for _ in range(5):
+        t = time.perf_counter()
+        run()
+        samples.append(time.perf_counter() - t)
+    samples.sort()
+    fwd_ms = time_ms(lambda: eval_step(None, batch), iters=5, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    emit({"phase": "conv", "card": smi, "batch": 8, "launches": counts,
+          "build_model_s": build_model_s, "first_forward_s": first_s,
+          "videos_per_s_batch8": 8 / samples[len(samples) // 2], "batch8_s": samples,
+          "forward_batch8_device_ms": fwd_ms,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "profile", "card": smi, "what": "conv forward", "batch": 8,
+          **_profile(run)})
+    return counts
+
+
+def phase_conv_train(smi):
+    """The Convolutional TimeSformer preset with fp32 master weights computing
+    in bf16, kernels on, trained for 5 SGD steps at batch 8 through
+    ``train.make_train_step``; its extractor stays frozen."""
+    import numpy as np
+    import torch
+
+    from mintime_torch import train
+    from mintime_torch.config import MintimeConfig, TrainingConfig
+    from mintime_torch.models.conv_timesformer import ConvolutionalTimeSformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = conv_model_config()
+    # the yaml's training section, but batch 8 (its bs is 1), as the flagship phase
+    lr, wd = 0.01, 1e-4
+    cfg = MintimeConfig(model=mcfg, training=TrainingConfig(
+        lr=lr, weight_decay=wd, optimizer="SGD", scheduler="steplr", gamma=0.1, step_size=15,
+        bs=8))
+    batch = _conv_batch()
+    pos_weight = train.pos_weight_from_labels(batch["labels"])
+    t0 = time.perf_counter()
+    model = train.conv_training_model(mcfg, device="cuda", seed=0)
+    build_model_s = time.perf_counter() - t0
+    assert model.dtype == torch.float32 and model.compute_dtype == torch.bfloat16
+    head = [n for n, _ in model.named_parameters() if not n.startswith("extractor.")]
+    ref = ConvolutionalTimeSformer(mcfg, device="cuda", dtype=torch.float32,
+                                   param_dtype=torch.float32, seed=0)
+    _grad_check(smi, "conv_train_check", model, ref, batch, pos_weight, head)
+
+    # the main path: 5 steps through make_train_step, counters read per step
+    state = train.create_train_state(model, cfg, steps_per_epoch=5, num_epochs=1, seed=0)
+    step = train.make_train_step(model, pos_weight)
+    stats0 = {k: v.clone() for k, v in model.named_buffers()}
+    ext0 = {n: p.detach().clone() for n, p in model.named_parameters() if n not in head}
+    losses, launches, step_s = [], [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        metrics, counts = _step_launches(lambda: step(state, batch))
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        launches.append(counts)
+    want = {**CONV_FORWARD, **CONV_BACKWARD}
+    if any(c != want for c in launches):
+        raise AssertionError(f"conv launches per train step {launches}, want {want}")
+    with torch.no_grad():
+        after = float(train.forward_loss(model, batch, pos_weight, train=True)[0])
+    if not (np.isfinite(after) and after < losses[0]):
+        raise AssertionError(f"conv loss after 5 steps {after} is not below the first {losses[0]}")
+    moved = sorted(k for k, v in model.named_buffers() if not torch.equal(v, stats0[k]))
+    if moved:
+        raise AssertionError(f"frozen extractor's BatchNorm statistics moved: {moved[:8]}")
+    # a zero gradient under coupled weight decay: p <- p * (1 - lr * wd), five times
+    decay = max(float((p.detach() - ext0[n] * (1 - lr * wd) ** 5).abs().max()
+                      / ext0[n].abs().max().clamp(min=1e-30))
+                for n, p in model.named_parameters() if n in ext0)
+    if not decay <= 1e-5:
+        raise AssertionError(f"frozen extractor moved by more than weight decay: {decay}")
+
+    device_ms = time_ms(lambda: step(state, batch), iters=3, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    steady = sorted(step_s[1:])
+    emit({"phase": "conv_train", "card": smi, "batch": 8, "steps": 5,
+          "launches_per_step": launches[0], "losses": losses, "loss_after": after,
+          "pos_weight": pos_weight, "extractor_decay_only_rel_err": decay,
+          "build_model_s": build_model_s, "first_step_s": step_s[0], "step_s": step_s,
+          "steps_per_s": 1 / steady[len(steady) // 2],
+          "videos_per_s_batch8": 8 / steady[len(steady) // 2],
+          "device_ms_per_step": device_ms,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "profile", "card": smi, "what": "conv train step", "batch": 8,
+          **_profile(lambda: step(state, batch))})
+    return launches[0]
+
+
 def main() -> int:
     import torch
 
@@ -733,28 +1081,37 @@ def main() -> int:
     phase_profile(smi, model, stacked)
     del model
     torch.cuda.empty_cache()
-    train_launches = phase_train(smi)
+    # each main path's launches, read just after it: one flagship serving
+    # forward, one flagship train step, one conv forward, one conv train step
+    paths = {"flagship_forward": launches, "flagship_train_step": phase_train(smi)}
+    torch.cuda.empty_cache()
+    paths["conv_forward"] = phase_conv(smi)
+    torch.cuda.empty_cache()
+    paths["conv_train_step"] = phase_conv_train(smi)
 
     sources = {
         "geglu_ffn": ("mintime_torch/csrc/geglu_ffn.cu", "mintime_tpu/ops/pallas_ffn.py:57"),
         "divided_attention": ("mintime_torch/csrc/divided_attention.cu",
                               "mintime_tpu/ops/pallas_attention.py:140"),
+        "token_rows_attention": ("mintime_torch/csrc/token_rows_attention.cu",
+                                 "mintime_tpu/ops/pallas_attention.py:530"),
         "geglu_ffn_bwd": ("mintime_torch/csrc/geglu_ffn_bwd.cu", "mintime_tpu/ops/pallas_ffn.py:77"),
         "divided_attention_bwd": ("mintime_torch/csrc/divided_attention_bwd.cu",
                                   "mintime_tpu/ops/pallas_attention.py:289"),
+        "token_rows_attention_bwd": ("mintime_torch/csrc/token_rows_attention_bwd.cu",
+                                     "mintime_tpu/ops/pallas_attention.py:571"),
     }
     kernels = []
     for name, shapes in rows.items():
         calls = sum(s["calls"] for s in shapes)
         per_call = lambda key: sum(s[key] * s["calls"] for s in shapes) / calls  # noqa: E731
+        by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1],
-            # the forward kernels' main path is serving, the backward kernels' training
-            "launches": launches.get(name, train_launches[name]),
-            "launches_per_train_step": train_launches[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            # per launch, averaged over the shapes one forward or train step launches it at
+            # per launch, averaged over the shapes the main paths launch it at
             "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
             "bound_ms": per_call("bound_ms"),
             "bound_by": max(shapes, key=lambda s: s["calls"] * s["bound_ms"])["bound_by"],
@@ -762,6 +1119,9 @@ def main() -> int:
                            if all(s["library_ms"] is not None for s in shapes) else None),
             "card": smi, "shapes": shapes,
         })
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels no main path launched: {missing}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

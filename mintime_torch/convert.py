@@ -49,7 +49,7 @@ def timesformer_state_dict(params: Mapping, config: ModelConfig) -> dict[str, to
     linear("to_patch_embedding", params["to_patch_embedding"])
     layernorm("to_out.0", params["out_norm"])
     linear("to_out.1", params["out_proj"])
-    if config.enable_size_emb:
+    if "size_emb" in params:
         sd["size_emb.weight"] = _t(params["size_emb"]["embedding"])
     for i in range(config.depth):
         for j, kind in ((0, "time"), (1, "space")):
@@ -69,7 +69,9 @@ def timesformer_state_dict(params: Mapping, config: ModelConfig) -> dict[str, to
 
 
 def efficientnet_state_dict(variables: Mapping, variant: str = "efficientnet-b0") -> dict[str, torch.Tensor]:
-    """``EfficientNet`` variables → the port's EfficientNet state_dict."""
+    """``EfficientNet`` variables → the port's EfficientNet state_dict. A
+    network tapped at a block (``tap_block``) holds only the blocks it runs,
+    and the head conv only when it runs it; the dict holds the same."""
     params = variables["params"]
     stats = variables["batch_stats"]
     sd: dict[str, torch.Tensor] = {}
@@ -88,6 +90,8 @@ def efficientnet_state_dict(variables: Mapping, variant: str = "efficientnet-b0"
     conv("_conv_stem", params["conv_stem"])
     bn("_bn0", params["bn_stem"], stats["bn_stem"])
     for i, ba in enumerate(expand_blocks(variant)):
+        if f"block_{i}" not in params:
+            break
         blk, bst = params[f"block_{i}"], stats[f"block_{i}"]
         p = f"_blocks.{i}"
         if ba.expand != 1:
@@ -99,8 +103,9 @@ def efficientnet_state_dict(variables: Mapping, variant: str = "efficientnet-b0"
         conv(f"{p}._se_expand", blk["se_expand"])
         conv(f"{p}._project_conv", blk["project_conv"])
         bn(f"{p}._bn2", blk["bn2"], bst["bn2"])
-    conv("_conv_head", params["conv_head"])
-    bn("_bn1", params["bn_head"], stats["bn_head"])
+    if "conv_head" in params:
+        conv("_conv_head", params["conv_head"])
+        bn("_bn1", params["bn_head"], stats["bn_head"])
     return sd
 
 
@@ -135,9 +140,26 @@ def classifier_state_dict(variables: Mapping, config: ModelConfig,
     return sd
 
 
+def conv_timesformer_state_dict(variables: Mapping, config: ModelConfig) -> dict[str, torch.Tensor]:
+    """``ConvolutionalTimeSformer`` variables → the port's state_dict: the
+    tapped extractor under ``extractor.``, and the head's embeddings, layers and
+    output under ``head.`` with the flagship TimeSformer's key names (the JAX
+    package names them as its TimeSformer does). The JAX package has no
+    reference checkpoint format for this model (``mintime_tpu/utils/
+    checkpoint.py:130-135``), so these keys are the port's choice."""
+    params = variables["params"]
+    head = {k: v for k, v in params.items() if k != "extractor"}
+    return classifier_state_dict({"params": {"extractor": params["extractor"], "head": head},
+                                  "batch_stats": variables["batch_stats"]}, config)
+
+
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
-    """Load JAX classifier variables into a port classifier, in its device
-    and dtype (strict: every key must match)."""
-    sd = classifier_state_dict(variables, model.config, model.backbone, model.head_kind)
+    """Load JAX variables into a port model (the classifier or the
+    Convolutional TimeSformer, by its ``head_kind``), in its device and dtype
+    (strict: every key must match)."""
+    if model.head_kind == "conv_timesformer":
+        sd = conv_timesformer_state_dict(variables, model.config)
+    else:
+        sd = classifier_state_dict(variables, model.config, model.backbone, model.head_kind)
     model.load_state_dict(sd, strict=True)
     return model

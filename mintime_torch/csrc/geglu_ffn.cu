@@ -5,15 +5,17 @@
 //     h    = bf16(x @ W0^T + b0)                  (fp32 accumulation)
 //     prod = bf16(h[:, :H] * gelu_erf(h[:, H:]))   (gate math in fp32)
 //     out  = bf16(prod @ W1^T + b1)                (fp32 accumulation)
-// with W0 (2H, D) and W1 (D, H) in PyTorch's Linear layout, D = 512.
+// with W0 (2H, D) and W1 (D, H) in PyTorch's Linear layout. The model width
+// D is a template parameter, instantiated for 512 (the Size-Invariant
+// TimeSformer) and 256 (the Convolutional TimeSformer).
 //
 // Bound on an H100: tensor-core operations. At M = 6272 rows, D = 512,
 // H = 2048 one call is 2*M*(D*2H + H*D) = 39.5 GFLOP, about 40 us at
 // 989 TFLOP/s; its bytes (x, out, W0, W1 once) are about 19 MB, about 6 us
-// at 3.35 TB/s.
+// at 3.35 TB/s. At M = 81920, D = 256, H = 1024 it is 129 GFLOP, 0.13 ms.
 //
-// Design: one block of 8 warps per 32-row tile keeps the whole (32, 512)
-// fp32 output in WMMA accumulator fragments (64 registers a thread). It walks
+// Design: one block of 8 warps per 32-row tile keeps the whole (32, D)
+// fp32 output in WMMA accumulator fragments (D / 8 registers a thread). It walks
 // the hidden width in chunks of 64: the val and gate columns of a chunk come
 // from the x tile held in shared memory, the bias, bf16 rounding and exact
 // GELU run in fp32 in shared memory, and the bf16 product feeds the
@@ -36,33 +38,42 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int D = 512;         // model width, in and out
 constexpr int BM = 32;         // rows per block
 constexpr int HC = 64;         // hidden columns per chunk (val and gate each)
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int RT = BM / 16;            // row tiles per block
-constexpr int OT = D / 16 / WARPS;     // output column tiles per warp
-constexpr int XS_LD = D + 8;           // bf16, padded against bank conflicts
 constexpr int HS_LD = 2 * HC + 4;      // fp32
 constexpr int PS_LD = HC + 8;          // bf16
-constexpr size_t XS_BYTES = size_t(BM) * XS_LD * 2;
 constexpr size_t HS_BYTES = size_t(BM) * HS_LD * 4;
 constexpr size_t PS_BYTES = size_t(BM) * PS_LD * 2;
 constexpr size_t ST_BYTES = size_t(WARPS) * 256 * 4;
-constexpr size_t SMEM_BYTES = XS_BYTES + HS_BYTES + PS_BYTES + ST_BYTES;
 
 static_assert(2 * HC / 16 == WARPS, "one up-projection column tile per warp");
+
+// the constants that follow the model width D
+template <int D>
+struct Width {
+  static_assert(D % (16 * WARPS) == 0, "whole output column tiles for every warp");
+  static constexpr int OT = D / 16 / WARPS;  // output column tiles per warp
+  static constexpr int XS_LD = D + 8;        // bf16, padded against bank conflicts
+  static constexpr size_t XS_BYTES = size_t(BM) * XS_LD * 2;
+  static constexpr size_t SMEM_BYTES = XS_BYTES + HS_BYTES + PS_BYTES + ST_BYTES;
+};
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 geglu_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
                  const bf16* __restrict__ b0, const bf16* __restrict__ w1,
                  const bf16* __restrict__ b1, bf16* __restrict__ out,
                  float* __restrict__ partial, int M, int hidden) {
+  constexpr int OT = Width<D>::OT;
+  constexpr int XS_LD = Width<D>::XS_LD;
+  constexpr size_t XS_BYTES = Width<D>::XS_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   float* hs = reinterpret_cast<float*>(smem + XS_BYTES);
@@ -179,7 +190,7 @@ geglu_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
 // out = bf16(sum over the splits of partial + b1), one thread an element
 __global__ void geglu_split_reduce_kernel(const float* __restrict__ partial,
                                           const bf16* __restrict__ b1, bf16* __restrict__ out,
-                                          int M, int splits) {
+                                          int M, int D, int splits) {
   const size_t n = size_t(M) * D;
   for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += size_t(gridDim.x) * blockDim.x) {
@@ -189,22 +200,15 @@ __global__ void geglu_split_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-}  // namespace
-
-// splits: how many blocks share the hidden width of a row tile; with
-// splits > 1, partial is fp32 scratch of splits * M * dim elements.
-extern "C" int geglu_ffn_fwd(const void* x, const void* w0, const void* b0, const void* w1,
-                             const void* b1, void* out, void* partial, int M, int dim,
-                             int hidden, int splits, void* stream) {
-  if (dim != D || hidden <= 0 || hidden % HC != 0 || M <= 0 || splits < 1 ||
-      splits > hidden / HC || (splits > 1) != (partial != nullptr))
-    return int(cudaErrorInvalidValue);
+template <int D>
+int launch(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+           void* out, void* partial, int M, int hidden, int splits, cudaStream_t s) {
+  constexpr size_t smem = Width<D>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      geglu_ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
+      geglu_ffn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((M + BM - 1) / BM, splits);
-  geglu_ffn_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+  geglu_ffn_kernel<D><<<grid, THREADS, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w0), static_cast<const bf16*>(b0),
       static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), static_cast<bf16*>(out),
       static_cast<float*>(partial), M, hidden);
@@ -215,6 +219,23 @@ extern "C" int geglu_ffn_fwd(const void* x, const void* w0, const void* b0, cons
   const int blocks = wanted < 1024 ? int(wanted) : 1024;
   geglu_split_reduce_kernel<<<blocks, threads, 0, s>>>(
       static_cast<const float*>(partial), static_cast<const bf16*>(b1), static_cast<bf16*>(out),
-      M, splits);
+      M, D, splits);
   return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// dim: the model width, 512 or 256. splits: how many blocks share the hidden
+// width of a row tile; with splits > 1, partial is fp32 scratch of
+// splits * M * dim elements.
+extern "C" int geglu_ffn_fwd(const void* x, const void* w0, const void* b0, const void* w1,
+                             const void* b1, void* out, void* partial, int M, int dim,
+                             int hidden, int splits, void* stream) {
+  if (hidden <= 0 || hidden % HC != 0 || M <= 0 || splits < 1 || splits > hidden / HC ||
+      (splits > 1) != (partial != nullptr))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim == 512) return launch<512>(x, w0, b0, w1, b1, out, partial, M, hidden, splits, s);
+  if (dim == 256) return launch<256>(x, w0, b0, w1, b1, out, partial, M, hidden, splits, s);
+  return int(cudaErrorInvalidValue);
 }

@@ -2,7 +2,9 @@
 //
 // Replaces: mintime_tpu/ops/pallas_ffn.py::_bwd_kernel (reached through
 // _bwd_call and the custom_vjp of _geglu_core). With W0 (2H, D), W1 (D, H)
-// in PyTorch's Linear layout, D = 512, and dout the cotangent of out:
+// in PyTorch's Linear layout, the model width D = 512 or 256 (a template
+// parameter of the dh kernel; the products take it at run time), and dout the
+// cotangent of out:
 //     h     = bf16(x @ W0^T + b0)                 recomputed, fp32 accumulation
 //     g     = gelu_erf(gate), prod = bf16(val * g)  (gate math in fp32)
 //     dprod = dout @ W1                           (fp32)
@@ -13,8 +15,9 @@
 //
 // Bound on an H100: tensor-core operations at the token rows. At M = 6272,
 // D = 512, H = 2048 one call is 2*M*D*(2H + H + 2H + 2H + H) = 105 GFLOP,
-// about 0.11 ms at 989 TFLOP/s. At M = 8 (the CLS rows) it is bytes: the
-// weights read (6 MB) and the fp32 gradients written (12.6 MB).
+// about 0.11 ms at 989 TFLOP/s (M = 81920, D = 256, H = 1024: 344 GFLOP,
+// 0.35 ms). At M = 8 (the CLS rows) it is bytes: the weights read (6 MB) and
+// the fp32 gradients written (12.6 MB).
 //
 // Design. The TPU kernel walks a sequential grid and carries the weight
 // gradients in VMEM from one row tile to the next; a GPU grid runs its
@@ -45,19 +48,24 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int D = 512;         // model width
 constexpr int BM = 32;         // rows per block of the dh kernel
 constexpr int HC = 64;         // hidden columns per chunk (val and gate each)
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int RT = BM / 16;    // row tiles per block
-constexpr int XS_LD = D + 8;   // bf16, padded against bank conflicts
 constexpr int HS_LD = 2 * HC + 4;  // fp32: recomputed [val | gate] chunk, then dh
 constexpr int GS_LD = HC + 4;      // fp32: dprod chunk
-constexpr size_t XS_BYTES = size_t(BM) * XS_LD * 2;
 constexpr size_t HS_BYTES = size_t(BM) * HS_LD * 4;
 constexpr size_t GS_BYTES = size_t(BM) * GS_LD * 4;
-constexpr size_t DH_SMEM = 2 * XS_BYTES + HS_BYTES + GS_BYTES;
+
+// the constants of the dh kernel that follow the model width D
+template <int D>
+struct Width {
+  static_assert(D % 16 == 0, "whole 16-deep WMMA steps over the width");
+  static constexpr int XS_LD = D + 8;  // bf16, padded against bank conflicts
+  static constexpr size_t XS_BYTES = size_t(BM) * XS_LD * 2;
+  static constexpr size_t SMEM_BYTES = 2 * XS_BYTES + HS_BYTES + GS_BYTES;
+};
 
 static_assert(2 * HC / 16 == WARPS, "one up-projection column tile per warp");
 static_assert(RT * (HC / 16) == WARPS, "one dprod tile per warp");
@@ -69,12 +77,15 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 ffn_bwd_dh_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
                   const bf16* __restrict__ b0, const bf16* __restrict__ w1,
                   const bf16* __restrict__ dout, bf16* __restrict__ dh,
                   bf16* __restrict__ prod, float* __restrict__ db0_part,
                   float* __restrict__ db1_part, int M, int hidden) {
+  constexpr int XS_LD = Width<D>::XS_LD;
+  constexpr size_t XS_BYTES = Width<D>::XS_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* ds = reinterpret_cast<bf16*>(smem + XS_BYTES);
@@ -317,22 +328,33 @@ cudaError_t gemm(const bf16* A, int lda, const bf16* B, int ldb, void* C, int ld
   return cudaGetLastError();
 }
 
+template <int D>
+int launch_dh(const bf16* x, const bf16* w0, const void* b0, const bf16* w1, const bf16* dout,
+              bf16* dh, bf16* prod, void* db0_part, void* db1_part, int M, int hidden,
+              int splits, cudaStream_t s) {
+  constexpr size_t smem = Width<D>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_bwd_dh_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  ffn_bwd_dh_kernel<D><<<dim3((M + BM - 1) / BM, splits), THREADS, smem, s>>>(
+      x, w0, static_cast<const bf16*>(b0), w1, dout, dh, prod, static_cast<float*>(db0_part),
+      static_cast<float*>(db1_part), M, hidden);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
-// splits: how many blocks share the hidden width of a row tile in the dh
-// kernel. Scratch from the caller: dh (M, 2H) and prod (M, H) bf16,
-// db0_part (tiles, 2H) and db1_part (tiles, D) fp32, tiles = ceil(M / 32).
-// Outputs: dx (M, D) bf16; dw0 (2H, D), db0 (2H), dw1 (D, H), db1 (D) fp32.
+// dim: the model width, 512 or 256. splits: how many blocks share the hidden
+// width of a row tile in the dh kernel. Scratch from the caller: dh (M, 2H)
+// and prod (M, H) bf16, db0_part (tiles, 2H) and db1_part (tiles, dim) fp32,
+// tiles = ceil(M / 32). Outputs: dx (M, dim) bf16; dw0 (2H, dim), db0 (2H),
+// dw1 (dim, H), db1 (dim) fp32.
 extern "C" int geglu_ffn_bwd(const void* x, const void* w0, const void* b0, const void* w1,
                              const void* dout, void* dx, void* dw0, void* db0, void* dw1,
                              void* db1, void* dh, void* prod, void* db0_part, void* db1_part,
                              int M, int dim, int hidden, int splits, void* stream) {
-  if (dim != D || hidden <= 0 || hidden % HC != 0 || M <= 0 || splits < 1 ||
-      splits > hidden / HC)
+  if (hidden <= 0 || hidden % HC != 0 || M <= 0 || splits < 1 || splits > hidden / HC)
     return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(DH_SMEM));
-  if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = (M + BM - 1) / BM;
   const int two_h = 2 * hidden;
@@ -343,22 +365,29 @@ extern "C" int geglu_ffn_bwd(const void* x, const void* w0, const void* b0, cons
   bf16* dhb = static_cast<bf16*>(dh);
   bf16* prodb = static_cast<bf16*>(prod);
 
-  ffn_bwd_dh_kernel<<<dim3(tiles, splits), THREADS, DH_SMEM, s>>>(
-      xb, w0b, static_cast<const bf16*>(b0), w1b, doutb, dhb, prodb,
-      static_cast<float*>(db0_part), static_cast<float*>(db1_part), M, hidden);
-  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  int status;
+  if (dim == 512)
+    status = launch_dh<512>(xb, w0b, b0, w1b, doutb, dhb, prodb, db0_part, db1_part, M, hidden,
+                            splits, s);
+  else if (dim == 256)
+    status = launch_dh<256>(xb, w0b, b0, w1b, doutb, dhb, prodb, db0_part, db1_part, M, hidden,
+                            splits, s);
+  else
+    return int(cudaErrorInvalidValue);
+  if (status != 0) return status;
+  cudaError_t err;
   ffn_bwd_colsum_kernel<<<(two_h + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(db0_part), static_cast<float*>(db0), tiles, two_h);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  ffn_bwd_colsum_kernel<<<(D + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(db1_part), static_cast<float*>(db1), tiles, D);
+  ffn_bwd_colsum_kernel<<<(dim + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(db1_part), static_cast<float*>(db1), tiles, dim);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  // dx (M, D) = dh (M, 2H) @ W0 (2H, D)
-  if ((err = gemm<false, false>(dhb, two_h, w0b, D, dx, D, M, D, two_h, s)) != cudaSuccess)
+  // dx (M, dim) = dh (M, 2H) @ W0 (2H, dim)
+  if ((err = gemm<false, false>(dhb, two_h, w0b, dim, dx, dim, M, dim, two_h, s)) != cudaSuccess)
     return int(err);
-  // dW0 (2H, D) = dh^T @ x: dh read column-major
-  if ((err = gemm<true, true>(dhb, two_h, xb, D, dw0, D, two_h, D, M, s)) != cudaSuccess)
+  // dW0 (2H, dim) = dh^T @ x: dh read column-major
+  if ((err = gemm<true, true>(dhb, two_h, xb, dim, dw0, dim, two_h, dim, M, s)) != cudaSuccess)
     return int(err);
-  // dW1 (D, H) = dout^T @ prod
-  return int(gemm<true, true>(doutb, D, prodb, hidden, dw1, hidden, D, hidden, M, s));
+  // dW1 (dim, H) = dout^T @ prod
+  return int(gemm<true, true>(doutb, dim, prodb, hidden, dw1, hidden, dim, hidden, M, s));
 }

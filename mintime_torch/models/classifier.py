@@ -56,7 +56,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        if isinstance(m, SizeInvariantTimeSformer):
+        if isinstance(getattr(m, "cls_token", None), nn.Parameter):
             nn.init.trunc_normal_(m.cls_token, std=0.02, a=-0.04, b=0.04, generator=generator)
 
 
@@ -68,7 +68,46 @@ def _cast_names(module: nn.Module) -> list[str]:
     return [name for name, _ in module.named_parameters() if not name.startswith(kept)]
 
 
-class MintimeVideoClassifier(nn.Module):
+class CastModel(nn.Module):
+    """An end-to-end model of the port: an ``extractor`` and a ``head`` child,
+    weights drawn from a seed, placed on a device, and kept in a parameter
+    dtype that each forward casts to the compute dtype.
+
+    Subclasses build their children, then call :meth:`_place`.
+    """
+
+    def _place(self, device: torch.device, dtype: torch.dtype | None,
+               param_dtype: torch.dtype | None, seed: int) -> None:
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.eval()
+        self.compute_dtype = dtype or default_dtype(device)
+        self.to(device=device, dtype=param_dtype or self.compute_dtype)
+        if device.type == "cuda":
+            self.to(memory_format=torch.channels_last)
+        self._cast_names = {child: _cast_names(getattr(self, child))
+                            for child in ("extractor", "head") if hasattr(self, child)}
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The parameters' dtype (``compute_dtype`` is what the forward runs in)."""
+        return next(self.parameters()).dtype
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def _in_compute_dtype(self, child: str, *args, **kwargs):
+        """Run the child module ``child`` with the parameters listed in
+        ``_cast_names`` cast to the compute dtype; a plain call when
+        parameters and compute share a dtype."""
+        module, names = getattr(self, child), self._cast_names[child]
+        if self.dtype == self.compute_dtype or not names:
+            return module(*args, **kwargs)
+        cast = {n: module.get_parameter(n).to(self.compute_dtype) for n in names}
+        return torch.func.functional_call(module, cast, args, kwargs)
+
+
+class MintimeVideoClassifier(CastModel):
     """Flagship model: EfficientNet-B0 per face, then the Size-Invariant
     TimeSformer (or the baseline MLP head) per video.
 
@@ -99,33 +138,7 @@ class MintimeVideoClassifier(nn.Module):
             self.head = SizeInvariantTimeSformer(config, require_attention, use_kernels)
         else:
             self.head = Baseline(config)
-        init_weights(self, torch.Generator().manual_seed(seed))
-        self.eval()
-        self.compute_dtype = dtype or default_dtype(dev)
-        self.to(device=dev, dtype=param_dtype or self.compute_dtype)
-        if dev.type == "cuda":
-            self.to(memory_format=torch.channels_last)
-        self._cast_names = {child: _cast_names(getattr(self, child))
-                            for child in ("extractor", "head") if hasattr(self, child)}
-
-    @property
-    def dtype(self) -> torch.dtype:
-        """The parameters' dtype (``compute_dtype`` is what the forward runs in)."""
-        return next(self.parameters()).dtype
-
-    @property
-    def device(self) -> torch.device:
-        return next(self.parameters()).device
-
-    def _in_compute_dtype(self, child: str, *args, **kwargs):
-        """Run the child module ``child`` with the parameters listed in
-        ``_cast_names`` cast to the compute dtype; a plain call when
-        parameters and compute share a dtype."""
-        module, names = getattr(self, child), self._cast_names[child]
-        if self.dtype == self.compute_dtype or not names:
-            return module(*args, **kwargs)
-        cast = {n: module.get_parameter(n).to(self.compute_dtype) for n in names}
-        return torch.func.functional_call(module, cast, args, kwargs)
+        self._place(dev, dtype, param_dtype, seed)
 
     def forward(self, frames, mask=None, identities_mask=None, size_embedding=None,
                 positions=None, *, train: bool = False, generator: torch.Generator | None = None):

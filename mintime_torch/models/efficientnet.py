@@ -204,26 +204,44 @@ class EfficientNet(nn.Module):
     ``drop_connect_rate`` is the JAX package's (``efficientnet.py:176``):
     block ``idx`` of ``n`` drops its residual branch at ``rate * idx / n`` in
     train mode, drawing from the ``generator`` given to :meth:`forward`.
+
+    ``tap_block`` (``efficientnet.py:211-226``, the reference's
+    ``extract_features_at_block``): the blocks run up to the first whose index
+    exceeds ``tap_block``, and the head conv runs only when ``tap_block`` is
+    at least the block count. Blocks and layers that never run are not built,
+    as flax creates no parameters for them.
     """
 
-    def __init__(self, variant: str = "efficientnet-b0", drop_connect_rate: float = 0.2):
+    def __init__(self, variant: str = "efficientnet-b0", drop_connect_rate: float = 0.2,
+                 tap_block: int | None = None):
         super().__init__()
         self.drop_connect_rate = drop_connect_rate
         width = SCALING[variant][0]
         stem = round_filters(32, width)
-        self.feature_dim = round_filters(1280, width)
         blocks = expand_blocks(variant)
+        self.num_blocks = len(blocks)
+        ran = blocks if tap_block is None else blocks[:tap_block + 2]
         self._conv_stem = SameConv2d(3, stem, 3, stride=2, bias=False)
         self._bn0 = BatchNorm(stem)
-        self._blocks = nn.ModuleList(MBConvBlock(b) for b in blocks)
-        self._conv_head = SameConv2d(blocks[-1].out_filters, self.feature_dim, 1, bias=False)
-        self._bn1 = BatchNorm(self.feature_dim)
+        self._blocks = nn.ModuleList(MBConvBlock(b) for b in ran)
+        self.feature_dim = ran[-1].out_filters
+        if tap_block is None or tap_block >= self.num_blocks:
+            self.feature_dim = round_filters(1280, width)
+            self._conv_head = SameConv2d(ran[-1].out_filters, self.feature_dim, 1, bias=False)
+            self._bn1 = BatchNorm(self.feature_dim)
+
+    def grid(self, size: int) -> int:
+        """Side of the feature map for a ``size`` x ``size`` input: each
+        stride-2 SAME convolution maps ``s`` to ``ceil(s / 2)``."""
+        for stride in [2] + [b.args.stride for b in self._blocks]:
+            size = -(-size // stride)
+        return size
 
     def forward(self, x, generator: torch.Generator | None = None):
         x = x.permute(0, 3, 1, 2)  # NHWC data seen as NCHW: channels-last memory
         x = F.silu(self._bn0(self._conv_stem(x)))
-        n = len(self._blocks)
         for idx, block in enumerate(self._blocks):
-            x = block(x, self.drop_connect_rate * idx / n, generator)
-        x = F.silu(self._bn1(self._conv_head(x)))
+            x = block(x, self.drop_connect_rate * idx / self.num_blocks, generator)
+        if hasattr(self, "_conv_head"):
+            x = F.silu(self._bn1(self._conv_head(x)))
         return x.permute(0, 2, 3, 1)

@@ -14,10 +14,12 @@ With ``use_kernels`` the FFNs go through :func:`mintime_torch.ops.geglu_ffn.
 geglu_ffn` when their dropout is 0 or the module is in eval mode (the JAX
 rule, ``timesformer.py:87``), and every attention that returns no map and
 attends over at most 256 positions goes through
-:func:`mintime_torch.ops.divided_attention.divided_attention`; both are
+:func:`mintime_torch.ops.divided_attention.divided_attention`, which picks the
+whole-slice or the token-row kernels by the slice's size; both are
 differentiable, with backward kernels on the card. On the card the kernels
-are built for the flagship geometry (width 512, dim_head 64, at most 64 rows
-a group) and their wrappers raise on any other. The last layer under
+are built for widths 512 and 256 and dim_head 64 (at most 64 rows a group on
+the whole-slice path, 32 on the token rows), and their wrappers raise on any
+other geometry. The last layer under
 ``require_attention`` takes the plain path and returns its CLS-row maps in
 the ``(B·heads, 1, 1+F·n)`` layout. Dropout sits where the JAX package puts
 it: after each attention's output projection (``attn_dropout``) and on the

@@ -3,6 +3,14 @@
 ``_divided_bwd_kernel`` at ``:289-452``, the ``custom_vjp`` at ``:488-511``,
 ``divided_attention`` at ``:773-822`` and ``mask_to_bias`` at ``:115-117``).
 
+:func:`divided_attention` picks its path by the slice's bytes, as the JAX
+package does (``pallas_attention.py:816-822``): a slice whose packed qkv is
+at most :data:`WHOLE_SLICE_BYTES` goes to the whole-slice kernels here; a
+larger one (the Convolutional TimeSformer's time axis) goes to the token-row
+kernels and the plain CLS row of :mod:`mintime_torch.ops.token_rows`. The
+choice uses the dtype's size, so an fp32 CPU run and a bf16 card run can pick
+differently at the same shape, as in JAX.
+
 The packed columns are ``[q | k | v]``-major with heads inside each third,
 which is PyTorch's ``to_qkv`` layout; the JAX package packs head-major
 ``(H, [q|k|v], dh)`` instead, and the weight converter permutes once at load
@@ -29,6 +37,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from mintime_torch.ops import _build
+from mintime_torch.ops.token_rows import (_empty_grouped, _token_rows_grads, _token_rows_out,
+                                          _upcast, cls_row_plain, token_rows_attention)
 
 #: finite additive mask value (``pallas_attention.py:32``)
 NEG = -0.7 * float(np.finfo(np.float32).max)
@@ -43,6 +53,10 @@ _KERNEL_DH = 64
 _KERNEL_MAX_L = 64
 _KERNEL_MAX_KEYS = 12 * 1024  # G*L fp32 CLS-row logits in 48 KB of shared memory
 
+#: largest packed qkv slice (G*L*3*inner bytes) of the whole-slice kernels
+#: (``pallas_attention.py:770``); larger slices take the token rows
+WHOLE_SLICE_BYTES = 6 * 1024 * 1024
+
 
 def reset_launches() -> None:
     global launches, bwd_launches
@@ -53,12 +67,6 @@ def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
     """bool mask → additive fp32 bias (0 where True, ``NEG`` where False)."""
     zero = torch.zeros((), dtype=torch.float32, device=mask.device)
     return torch.where(mask, zero, torch.full((), NEG, dtype=torch.float32, device=mask.device))
-
-
-def _split(qkv, heads, dim_head):
-    """(..., 3*H*dh) → q, k, v each (..., H, dh)."""
-    t = qkv.unflatten(-1, (3, heads, dim_head))
-    return t[..., 0, :, :], t[..., 1, :, :], t[..., 2, :, :]
 
 
 def divided_attention_plain(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, dim_head: int):
@@ -75,29 +83,10 @@ def divided_attention_plain(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, d
     Returns (out (B, G, L, H*dh), out_cls (B, 1, H*dh)) in qkv's dtype.
     """
     f32 = torch.float32
-    B, G, L, _ = qkv_g.shape
+    B = qkv_g.shape[0]
     dt = qkv_g.dtype
-    scale = dim_head ** -0.5
-    q, k, v = _split(qkv_g, heads, dim_head)  # (B, G, L, H, dh)
-    qc, kc, vc = _split(qkv_cls[:, 0], heads, dim_head)  # (B, H, dh)
-    q = (q * scale).to(f32)
-    qc = (qc * scale).to(f32)
-    k, v, kc, vc = k.to(f32), v.to(f32), kc.to(f32), vc.to(f32)
-
-    # token rows: softmax over [CLS key | L keys] within each group
-    logits = torch.cat(
-        [torch.einsum("bglhd,bhd->bhgl", q, kc)[..., None],
-         torch.einsum("bglhd,bgmhd->bhglm", q, k)],
-        dim=-1,
-    )  # (B, H, G, L, 1+L)
-    if seq_bias is not None:
-        logits = logits + seq_bias.to(f32)[:, None, None]
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    attn = (p / p.sum(dim=-1, keepdim=True)).to(dt).to(f32)
-    out = torch.einsum("bhglm,bgmhd->bglhd", attn[..., 1:], v)
-    out = out + attn[..., 0].permute(0, 2, 3, 1)[..., None] * vc[:, None, None]
-    out = out.reshape(B, G, L, heads * dim_head).to(dt)
+    q, k, v, qc, kc, vc = _upcast(qkv_g, qkv_cls, heads, dim_head)  # fp32, q and qc scaled
+    out = _token_rows_out(q, k, v, kc, vc, seq_bias, dt)
 
     # CLS row: one query over all G*L keys and itself
     lr = torch.einsum("bhd,bglhd->bhgl", qc, k)
@@ -113,16 +102,6 @@ def divided_attention_plain(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, d
     return out, out_cls.to(dt)
 
 
-def _empty_grouped(like, last: int):
-    """Uninitialised (B, G, L, last) tensor in the stride order of ``like``:
-    a transposed view when ``like`` is the (B, L, G, ·) layout seen as
-    (B, G, L, ·), so transposing it back is free."""
-    B, G, L, _ = like.shape
-    if like.stride(1) < like.stride(2):
-        return torch.empty((B, L, G, last), dtype=like.dtype, device=like.device).transpose(1, 2)
-    return torch.empty((B, G, L, last), dtype=like.dtype, device=like.device)
-
-
 def divided_attention_bwd_plain(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls, *,
                                 heads: int, dim_head: int):
     """Plain PyTorch version of the backward kernel.
@@ -135,30 +114,10 @@ def divided_attention_bwd_plain(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls
     B, G, L, _ = qkv_g.shape
     dt = qkv_g.dtype
     scale = dim_head ** -0.5
-    q, k, v = _split(qkv_g, heads, dim_head)  # (B, G, L, H, dh)
-    qc, kc, vc = _split(qkv_cls[:, 0], heads, dim_head)  # (B, H, dh)
-    q = (q * scale).to(f32)
-    qc = (qc * scale).to(f32)
-    k, v, kc, vc = k.to(f32), v.to(f32), kc.to(f32), vc.to(f32)
+    q, k, v, qc, kc, vc = _upcast(qkv_g, qkv_cls, heads, dim_head)  # fp32, q and qc scaled
     do = d_tok.to(dt).to(f32).unflatten(-1, (heads, dim_head))
     dc = d_cls[:, 0].to(dt).to(f32).unflatten(-1, (heads, dim_head))
-
-    # token rows: recompute the softmax over [CLS key | L keys], fp32
-    logits = torch.cat([torch.einsum("bglhd,bhd->bhgl", q, kc)[..., None],
-                        torch.einsum("bglhd,bgmhd->bhglm", q, k)], dim=-1)
-    if seq_bias is not None:
-        logits = logits + seq_bias.to(f32)[:, None, None]
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    attn = p / p.sum(dim=-1, keepdim=True)  # (B, H, G, L, 1+L)
-    dattn = torch.cat([torch.einsum("bglhd,bhd->bhgl", do, vc)[..., None],
-                       torch.einsum("bglhd,bgmhd->bhglm", do, v)], dim=-1)
-    dlog = attn * (dattn - (dattn * attn).sum(dim=-1, keepdim=True))
-    dq = (torch.einsum("bhglm,bgmhd->bglhd", dlog[..., 1:], k)
-          + torch.einsum("bhgl,bhd->bglhd", dlog[..., 0], kc))
-    dk = torch.einsum("bhglm,bglhd->bgmhd", dlog[..., 1:], q)
-    dkc = torch.einsum("bhgl,bglhd->bhd", dlog[..., 0], q)
-    dv = torch.einsum("bhglm,bglhd->bgmhd", attn[..., 1:], do)
-    dvc = torch.einsum("bhgl,bglhd->bhd", attn[..., 0], do)
+    dq, dk, dv, dkc, dvc = _token_rows_grads(q, k, v, kc, vc, do, seq_bias)
 
     # CLS row: recompute the softmax over itself and all G*L keys
     lr = torch.einsum("bhd,bglhd->bhgl", qc, k)
@@ -339,8 +298,14 @@ def divided_attention(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, dim_hea
     """Grouped attention with a CLS row from packed ``[q|k|v]`` qkv,
     differentiable.
 
-    Same arguments and results as :func:`divided_attention_plain`. CPU
-    tensors take the plain versions; CUDA tensors take the kernels or raise.
-    There is no fallback between the two.
+    Same arguments and results as :func:`divided_attention_plain`. A slice of
+    at most :data:`WHOLE_SLICE_BYTES` takes the whole-slice kernels; a larger
+    one the token-row kernels and :func:`~mintime_torch.ops.token_rows.
+    cls_row_plain`. CPU tensors take the plain versions; CUDA tensors take the
+    kernels or raise. There is no fallback between the two.
     """
-    return DividedAttentionFunction.apply(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head)
+    _, G, L, c3 = qkv_g.shape
+    if G * L * c3 * qkv_g.element_size() <= WHOLE_SLICE_BYTES:
+        return DividedAttentionFunction.apply(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head)
+    out_tok = token_rows_attention(qkv_g, qkv_cls, seq_bias, heads=heads, dim_head=dim_head)
+    return out_tok, cls_row_plain(qkv_g, qkv_cls, row_bias, heads=heads, dim_head=dim_head)

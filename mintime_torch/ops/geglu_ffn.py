@@ -30,7 +30,7 @@ launches = 0
 #: backward kernel launches since the last reset (one per :func:`geglu_ffn_bwd_cuda` call)
 bwd_launches = 0
 
-_KERNEL_DIM = 512
+_KERNEL_DIMS = (256, 512)  # the model widths the kernels are instantiated for
 _KERNEL_CHUNK = 64
 _KERNEL_ROWS = 32  # rows per block
 
@@ -99,8 +99,8 @@ def _check_kernel_args(x2, w0, b0, w1, b1=None, dout=None):
             raise ValueError(f"geglu_ffn kernel needs a contiguous {name}")
         if t.data_ptr() % 32:
             raise ValueError(f"geglu_ffn kernel needs {name} aligned to 32 bytes")
-    if dim != _KERNEL_DIM:
-        raise ValueError(f"geglu_ffn kernel is built for width {_KERNEL_DIM}, got {dim}")
+    if dim not in _KERNEL_DIMS:
+        raise ValueError(f"geglu_ffn kernel is built for widths {_KERNEL_DIMS}, got {dim}")
     if hidden % _KERNEL_CHUNK:
         raise ValueError(f"geglu_ffn kernel needs hidden % {_KERNEL_CHUNK} == 0, got {hidden}")
     shapes = {"w0": (2 * hidden, dim), "b0": (2 * hidden,), "w1": (dim, hidden), "b1": (dim,),
@@ -111,7 +111,8 @@ def _check_kernel_args(x2, w0, b0, w1, b1=None, dout=None):
 
 
 def geglu_ffn_cuda(x, w0, b0, w1, b1):
-    """Launch the CUDA kernel on ``x (..., 512)`` bf16; returns a new tensor."""
+    """Launch the CUDA kernel on ``x (..., D)`` bf16, D = 256 or 512; returns a
+    new tensor."""
     global launches
     x2 = x.reshape(-1, x.shape[-1])
     _check_kernel_args(x2, w0, b0, w1, b1)

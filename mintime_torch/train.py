@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from mintime_torch.config import MintimeConfig
 from mintime_torch.models.classifier import MintimeVideoClassifier
+from mintime_torch.models.conv_timesformer import ConvolutionalTimeSformer
 
 
 def bce_with_logits(logits, labels, pos_weight: float = 1.0, weights=None):
@@ -122,9 +123,13 @@ def extractor_unfreeze_mask(unfreeze_blocks: int):
 
 def model_inputs(batch: Mapping[str, Any], head: str, device) -> tuple:
     """The model's positional inputs from a batch dict (numpy arrays or
-    tensors), on ``device``."""
-    keys = ("frames",) if head == "baseline" else (
-        "frames", "mask", "identities_mask", "size_embedding", "positions")
+    tensors), on ``device`` (``train.py:157-168``)."""
+    if head == "baseline":
+        keys = ("frames",)
+    elif head == "conv_timesformer":
+        keys = ("frames", "mask", "size_embedding")
+    else:
+        keys = ("frames", "mask", "identities_mask", "size_embedding", "positions")
     return tuple(torch.as_tensor(batch[k]).to(device, non_blocking=True) for k in keys)
 
 
@@ -148,6 +153,15 @@ def training_model(config, device: str | torch.device = "cuda", seed: int = 0):
     without one."""
     return MintimeVideoClassifier(config, use_kernels=True, device=device,
                                   param_dtype=torch.float32, seed=seed)
+
+
+def conv_training_model(config, device: str | torch.device = "cuda", seed: int = 0):
+    """The Convolutional TimeSformer (``--model 3``) as the JAX train state
+    holds it: fp32 parameters and BatchNorm statistics, computing in bf16 on
+    the card (fp32 on the CPU), kernels on; its extractor stays frozen.
+    ``device`` defaults to the card and raises without one."""
+    return ConvolutionalTimeSformer(config, use_kernels=True, device=device,
+                                    param_dtype=torch.float32, seed=seed)
 
 
 def create_train_state(model, cfg: MintimeConfig, steps_per_epoch: int = 1000,

@@ -130,8 +130,12 @@ def test_cuda_tensor_never_takes_plain_path(monkeypatch):
     monkeypatch.setattr(port_divided, "divided_attention_plain",
                         lambda *a, **k: called.append("plain"))
 
-    class FakeCuda:
+    class FakeCuda:  # a slice small enough for the whole-slice kernel
         is_cuda = True
+        shape = (1, 1, 1, 192)
+
+        def element_size(self):
+            return 2
 
     port_divided.divided_attention(FakeCuda(), None, None, None, heads=1, dim_head=64)
     port_divided.divided_attention(torch.zeros(1, 1, 1, 192), None, None, None,

@@ -1,5 +1,6 @@
 """CUDA kernels against their plain versions on the card, in bf16 at the
-flagship shapes, max abs error 2e-2. These need an NVIDIA GPU (a CUDA kernel
+flagship shapes and at the Convolutional TimeSformer's (the FFN at width 256,
+the token rows), max abs error 2e-2. These need an NVIDIA GPU (a CUDA kernel
 has no CPU mode) and skip without one; on a machine with a card run
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``. The file
 imports no JAX, so it runs where JAX is not installed.
@@ -10,6 +11,7 @@ import torch
 
 from mintime_torch.ops import divided_attention as port_divided
 from mintime_torch.ops import geglu_ffn as port
+from mintime_torch.ops import token_rows as port_rows
 
 
 @pytest.mark.cuda
@@ -101,3 +103,58 @@ def test_divided_attention_backward_kernel_on_card(axis):
     assert got[0].stride() == args[0].stride()
     _close_per_gradient(got, port_divided.divided_attention_bwd_plain(*args, d_tok, d_cls, **kw),
                         f"attention {axis}")
+
+
+@pytest.mark.cuda
+def test_geglu_kernels_on_card_at_width_256():
+    """Both FFN kernels at the Convolutional TimeSformer's width 256 (hidden
+    1024) against their plain versions, at its token rows of one video, its
+    CLS rows and a ragged M (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(3)
+    r = lambda *s, sc=0.05: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    w0, b0, w1, b1 = r(2048, 256, sc=0.0625), r(2048), r(256, 1024, sc=0.031), r(256)
+    for m in (8 * 1280, 8, 37):
+        x, dout = r(m, 256, sc=1.0), r(m, 256, sc=1.0)
+        torch.testing.assert_close(port.geglu_ffn_cuda(x, w0, b0, w1, b1).float(),
+                                   port.geglu_ffn_plain(x, w0, b0, w1, b1).float(),
+                                   atol=2e-2, rtol=2e-2)
+        got = port.geglu_ffn_bwd_cuda(x, w0, b0, w1, dout)
+        torch.cuda.synchronize()
+        _close_per_gradient(got, port.geglu_ffn_bwd_plain(x, w0, b0, w1, dout), f"ffn256 M={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_token_rows_kernels_on_card(masked):
+    """The token-row kernels, forward and backward, against their plain
+    versions on the strided time-axis view of the Convolutional TimeSformer
+    (G = 1280 channel groups of L = 8 frames, 6 heads of 64) and, with a
+    seq_bias that masks frames, at G = 96 (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(4)
+    B, F, G, H, dh = 2, 8, (96 if masked else 1280), 6, 64
+    qkv = torch.randn(B, F, G, 3 * H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
+    qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
+    sb = None
+    if masked:
+        mask = torch.ones(B, F, dtype=torch.bool)
+        mask[1, 5:] = False
+        frame = torch.cat([torch.ones(B, F, 1, dtype=torch.bool), mask[:, None, :].expand(B, F, F)],
+                          dim=-1)
+        sb = port_divided.mask_to_bias(frame.cuda())
+    kw = dict(heads=H, dim_head=dh)
+    got = port_rows.token_rows_attention_cuda(qkv, qkvc, sb, **kw)
+    assert got.stride() == port_rows._empty_grouped(qkv, H * dh).stride()
+    torch.testing.assert_close(got.float(),
+                               port_rows.token_rows_attention_plain(qkv, qkvc, sb, **kw).float(),
+                               atol=2e-2, rtol=2e-2)
+    d_tok = torch.randn(B, F, G, H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
+    got = port_rows.token_rows_attention_bwd_cuda(qkv, qkvc, sb, d_tok, **kw)
+    torch.cuda.synchronize()
+    assert got[0].stride() == qkv.stride()
+    assert not got[1][..., :H * dh].any()
+    _close_per_gradient(got, port_rows.token_rows_attention_bwd_plain(qkv, qkvc, sb, d_tok, **kw),
+                        f"token rows G={G}")
