@@ -6,17 +6,21 @@ one card. It builds the CUDA kernels itself.
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device and build: the card, its power limit, torch and CUDA versions, the
-   seconds ``nvcc`` took for the six ``mintime_torch/csrc/*.cu`` sources;
-2. kernels: every kernel of the serving and training paths against its plain
-   PyTorch version on the card in bf16 at the main paths' shapes (the FFN at
-   widths 512 and 256, the divided attention at the flagship's, the token
-   rows at the Convolutional TimeSformer's time axis and, with masked frames,
-   at 96 groups; forward: max abs error <= 2e-2; backward, with unit-scale
-   cotangents: per gradient <= 2e-2 * max(1, max |plain|), each gradient's
-   error and max printed), with its time, the plain version's time and the
-   card's bound for the work; the attentions are also timed as
-   ``scaled_dot_product_attention`` calls, forward and backward (yardsticks
-   the port never calls);
+   seconds ``nvcc`` took for the ten ``mintime_torch/csrc/*.cu`` sources;
+2. kernels: every kernel of the serving, training and probe paths against
+   its plain PyTorch version on the card in bf16 at the paths' shapes (the
+   FFN at widths 512 and 256, the divided attention at the flagship's, the
+   token rows at the Convolutional TimeSformer's time axis and, with masked
+   frames, at 96 groups; the v1 grouped attention at flagship width, masked
+   and not; the chunked attention at the attention probe's B = 32 and
+   packing; the depthwise forward and weight gradient at the dw probes' 512
+   images and geometries; forward attentions: max abs error <= 2e-2; the
+   depthwise forward <= 2e-2 * max(1, max |plain|), its weight gradient
+   <= 2e-2 * max |plain|; backward, with unit-scale cotangents: per gradient
+   <= 2e-2 * max(1, max |plain|), each gradient's error and max printed),
+   with its time, the plain version's time, the card's bound for the work
+   and one library call's time as a yardstick the port never calls
+   (``scaled_dot_product_attention``, forward and backward, or cuDNN);
 3. slice: the flagship EfficientNet-B0 + Size-Invariant TimeSformer at full
    width (224 px, 1280 channels, dim 512, depth 9, 8 x 64 heads, F = 16,
    n = 49, two identities), seeded random weights, through the port's
@@ -62,7 +66,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    gradient; the frozen extractor gets no gradient, its BatchNorm statistics
    stay bitwise unchanged and its weights move by weight decay alone; the
    loss falls. Steps/s, device ms per step, peak memory and a profile are
-   printed.
+   printed;
+8. grouped: the JAX package's v1 ``fused_grouped_attention`` through the
+   port's function at flagship width (B = 8, 8 x 64 heads) on both axes,
+   masked as ``tests/test_pallas_attention.py`` masks and unmasked: four
+   kernel launches, each output within 2e-2 of the plain grouped attention
+   in fp32 and of the kernel's plain version;
+9. probes: the three probes' ``run()`` (``mintime_torch/experiments/``: the
+   attention variants A, B, G, D, E at B = 32, the depthwise forward against
+   cuDNN and the weight gradient against cuDNN's backward at 512 images),
+   one JSON line a table row; variants B and G within 2e-2 of A; the
+   launches of the chunked-attention and both depthwise kernels counted;
+   ``dw_conv_wgrad`` bitwise equal on reruns.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -154,42 +169,6 @@ def _attention_inputs(axis, gen, B=8, F=16, n=49, H=8, dh=64):
     return qkv, qkvc, None, rb[:, :, None]
 
 
-def _as_one_attention(qkv, qkvc, sb, rbias, H, dh):
-    """The same divided attention as one dense attention over the CLS row and
-    all G*L tokens: q, k, v (B, H, 1+G*L, dh), CLS first, and a boolean mask
-    (B, 1, N, N) that keeps each token to the CLS key and its own group (and
-    ``seq_bias``) and the CLS row to every key its ``row_bias`` allows. Built
-    outside the timed call; the port never calls it."""
-    import torch
-
-    from mintime_torch.ops.divided_attention import NEG
-
-    B, G, L, _ = qkv.shape
-    N, dev = 1 + G * L, qkv.device
-    t = qkv.unflatten(-1, (3, H, dh))
-    tc = qkvc[:, 0].unflatten(-1, (3, H, dh))
-    q, k, v = (torch.cat([tc[:, i, :, None], t[..., i, :, :].reshape(B, G * L, H, dh)
-                          .transpose(1, 2)], dim=2).contiguous() for i in range(3))
-    pos = torch.arange(G * L, device=dev)
-    tok = (pos[:, None] // L == pos[None, :] // L).expand(B, G * L, G * L)
-    if sb is not None:
-        keep = sb > NEG / 2  # (B, L, 1+L), column 0 the CLS key
-        tok = tok & keep[:, pos % L][:, :, 1 + pos % L]
-    mask = torch.zeros(B, N, N, dtype=torch.bool, device=dev)
-    mask[:, 0, 0] = True
-    mask[:, 0, 1:] = (rbias.expand(B, G, L) > NEG / 2).reshape(B, G * L)
-    mask[:, 1:, 0] = True if sb is None else sb[:, pos % L, 0] > NEG / 2
-    mask[:, 1:, 1:] = tok
-    return q, k, v, mask[:, None]
-
-
-def _split_one_attention(o, G, L):
-    """(B, H, 1+G*L, dh) → (tokens (B, G, L, H*dh), CLS (B, 1, H*dh))."""
-    B, H, _, dh = o.shape
-    return (o[:, :, 1:].transpose(1, 2).reshape(B, G, L, H * dh),
-            o[:, :, 0].reshape(B, 1, H * dh))
-
-
 #: the FFN's shapes on the main paths: (model width, hidden width, [(M, calls per
 #: forward, calls per train step)]) for the flagship (the token and CLS rows of
 #: 8 videos, 9 layers) and the Convolutional TimeSformer (4 layers)
@@ -208,6 +187,7 @@ def phase_kernels(smi):
     import torch
     import torch.nn.functional as F
 
+    from mintime_torch.experiments.attn_kernel_variants import dense_inputs, split_dense
     from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import geglu_ffn as ffn
 
@@ -245,9 +225,9 @@ def phase_kernels(smi):
                   + 4 * ((sb.numel() if sb is not None else 0) + rbias.numel()))
         flops = 4 * B * H * dh * (G * L * (1 + L) + G * L + 1)
         b_ms, b_by = bound(nbytes, flops)
-        lq, lk, lv, lmask = _as_one_attention(qkv, qkvc, sb, rbias, H, dh)
+        lq, lk, lv, lmask = dense_inputs(qkv, qkvc, sb, rbias, H, dh)
         sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
-        lib_err = max_err(_split_one_attention(sdpa(), G, L),
+        lib_err = max_err(split_dense(sdpa(), G, L),
                           da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw))
         if not lib_err <= TOL:
             raise AssertionError(f"the one-call attention yardstick differs by {lib_err}")
@@ -262,11 +242,13 @@ def phase_kernels(smi):
         })
 
     rows["token_rows_attention"] = _token_rows_rows(gen)
+    rows.update(_probe_kernel_rows(gen))
     for name, shapes in rows.items():
         for s in shapes:
             emit({"phase": "kernel", "name": name, "card": smi, **s})
-            if not s["max_abs_err"] <= TOL:
-                raise AssertionError(f"{name} {s['shape']}: max abs error {s['max_abs_err']} > {TOL}")
+            limit = s.get("limit", TOL)
+            if not s["max_abs_err"] <= limit:
+                raise AssertionError(f"{name} {s['shape']}: max abs error {s['max_abs_err']} > {limit}")
     rows.update(_backward_kernels(smi, gen))
     return rows
 
@@ -346,6 +328,144 @@ def _token_rows_rows(gen):
     return out
 
 
+def _grouped_inputs(gen, G, L, masked, B=8, H=8, D=64):
+    """Flagship-width q (pre-scaled), k, v (B, H, G, L, D; v at scale 0.5,
+    so outputs stay below 2 and one bf16 step below 2e-2), the CLS k and v
+    in bf16, and with ``masked`` the mask of ``tests/test_pallas_attention.py:
+    22-26`` (keys dropped at random, the CLS column and each row's own key
+    kept) as (bool mask, fp32 bias)."""
+    import torch
+
+    from mintime_torch.ops.divided_attention import mask_to_bias
+
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    q, k, v = r(B, H, G, L, D, sc=D ** -0.5), r(B, H, G, L, D), r(B, H, G, L, D, sc=0.5)
+    kc, vc = r(B, H, 1, D), r(B, H, 1, D)
+    mask = None
+    if masked:
+        mask = torch.rand(B, L, 1 + L, generator=gen) > 0.3
+        mask[..., 0] = True
+        mask[:, torch.arange(L), 1 + torch.arange(L)] = True
+        mask = mask.cuda()
+    return (q, k, v, kc, vc, None if mask is None else mask_to_bias(mask)), mask
+
+
+def _probe_kernel_rows(gen):
+    """The probes' kernels against their plain versions, with their times,
+    bounds and library calls: the grouped attention at flagship width, the
+    chunked attention at the attention probe's size and packing, the
+    depthwise forward and weight gradient at the dw probes' 512 images and
+    geometries (limits 2e-2 * max(1, max |plain|) and 2e-2 * max |plain|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mintime_torch.experiments import attn_kernel_variants as attn_probe
+    from mintime_torch.experiments import dw_conv_bwd_cuda_vs_cudnn as dwb_probe
+    from mintime_torch.experiments import dw_conv_cuda_vs_cudnn as dwf_probe
+    from mintime_torch.ops import chunked_attention as ca
+    from mintime_torch.ops import divided_attention as da
+    from mintime_torch.ops import dw_conv
+    from mintime_torch.ops import grouped_attention as ga
+
+    rows = {"grouped_attention": [], "chunked_attention": [], "dw_conv": [], "dw_conv_wgrad": []}
+    H = 8
+    for (G, L) in ((49, 16), (16, 49)):
+        for masked in (True, False):
+            args, mask = _grouped_inputs(gen, G, L, masked)
+            q, k, v, kc, vc, bias = args
+            B, _, _, _, D = q.shape
+            plain = ga.fused_grouped_attention_plain(*args, heads=H)
+            err = max_err(ga.fused_grouped_attention_cuda(*args, heads=H), plain)
+            nbytes = 2 * (4 * q.numel() + 2 * kc.numel()) + 4 * (0 if bias is None else bias.numel())
+            b_ms, b_by = bound(nbytes, 4 * B * H * G * L * (1 + L) * D)
+            lq = q.reshape(B, H * G, L, D)
+            lk, lv = (torch.cat([c[:, :, None].expand(B, H, G, 1, D), t], dim=3)
+                      .reshape(B, H * G, 1 + L, D) for c, t in ((kc, k), (vc, v)))
+            lmask = None if mask is None else mask[:, None]
+            sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask, scale=1.0)  # noqa: E731
+            rows["grouped_attention"].append({
+                "shape": f"B={B} H={H} G={G} L={L} D={D}" + (" masked" if masked else ""),
+                "calls": 1, "max_abs_err": err,
+                "ms": time_ms(lambda: ga.fused_grouped_attention_cuda(*args, heads=H)),
+                "plain_ms": time_ms(lambda: ga.fused_grouped_attention_plain(*args, heads=H)),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+                "library": "scaled_dot_product_attention over (B, H*G, L, 1+L), CLS prepended",
+                "library_max_abs_err": max_err(sdpa().reshape(plain.shape), plain),
+            })
+            del args, q, k, v, kc, vc, bias, lq, lk, lv, lmask, plain
+
+    for axis, (G, L) in attn_probe.GEOMS.items():
+        P = attn_probe.P_BY_AXIS[axis]
+        qkv, qkvc, sb, rb = attn_probe.make_inputs(G, L)
+        kw = dict(heads=attn_probe.H, dim_head=attn_probe.DH, P=P)
+        plain = ca.chunked_attention_plain(qkv, qkvc, sb, rb, **kw)
+        err = max_err(ca.chunked_attention_cuda(qkv, qkvc, sb, rb, **kw), plain)
+        B = qkv.shape[0]
+        Hh, dh = attn_probe.H, attn_probe.DH
+        nbytes = (2 * (qkv.numel() + qkvc.numel() + plain[0].numel() + plain[1].numel())
+                  + 4 * (sb.numel() + rb.numel()))
+        b_ms, b_by = bound(nbytes, 4 * B * Hh * dh * (G * L * (1 + L) + G * L + 1))
+        lq, lk, lv, lmask = attn_probe.dense_inputs(qkv, qkvc, sb, rb)
+        sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
+        rows["chunked_attention"].append({
+            "shape": f"{axis} B={B} G={G} L={L} H={Hh} dh={dh} P={P} Lp={ca.padded_sizes(G, L, P)[1]}",
+            "calls": 1, "max_abs_err": err,
+            "ms": time_ms(lambda: ca.chunked_attention_cuda(qkv, qkvc, sb, rb, **kw)),
+            "plain_ms": time_ms(lambda: ca.chunked_attention_plain(qkv, qkvc, sb, rb, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+            "library": "scaled_dot_product_attention, one dense masked call",
+            "library_max_abs_err": max_err(attn_probe.split_dense(sdpa(), G, L), plain),
+            "kernel_vs_divided_plain": max_err(
+                ca.chunked_attention_cuda(qkv, qkvc, sb, rb, **kw),
+                da.divided_attention_plain(qkv, qkvc, sb, rb, heads=Hh, dim_head=dh)),
+        })
+        del qkv, qkvc, sb, rb, plain, lq, lk, lv, lmask
+    torch.cuda.empty_cache()
+
+    for H_, W_, C, K, _ in dwf_probe.GEOMS:
+        x, w, b = dwf_probe.make_inputs(H_, W_, C, K)
+        plain = dw_conv.dw_conv_bias_silu_plain(x, w, b, K=K)
+        top = float(plain.float().abs().max())
+        w_lib = w.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous()
+        b_lib = b.to(torch.bfloat16)
+        b_ms, b_by = dwf_probe.bound(x, K)
+        rows["dw_conv"].append({
+            "shape": f"N={x.shape[0]} {H_}x{W_} C={C} K={K}", "calls": 1,
+            "max_abs_err": max_err(dw_conv.dw_conv_bias_silu_cuda(x, w, b, K=K), plain),
+            "max_plain": top, "limit": TOL * max(1.0, top),
+            "ms": time_ms(lambda: dw_conv.dw_conv_bias_silu_cuda(x, w, b, K=K)),
+            "plain_ms": time_ms(lambda: dw_conv.dw_conv_bias_silu_plain(x, w, b, K=K), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: dwf_probe.cudnn_dwconv(x, w_lib, b_lib, K)),
+            "library": "cuDNN F.conv2d(groups=C) with bias, channels-last, then F.silu",
+            "library_max_abs_err": max_err(dwf_probe.cudnn_dwconv(x, w_lib, b_lib, K), plain),
+        })
+        del x, w, b, plain, w_lib, b_lib
+        torch.cuda.empty_cache()
+
+    for tag, H_, C, K, stride in dwb_probe.GEOMS:
+        if stride != 1:
+            continue
+        x, dy, w = dwb_probe.make_inputs(H_, C, K, stride)
+        plain = dw_conv.dw_conv_wgrad_plain(x, dy, K=K)
+        top = float(plain.abs().max())
+        b_ms, b_by = dwb_probe.bound(x, dy, K)
+        lib = lambda: dwb_probe.cudnn_backward(x, dy, w, 1, (False, True))  # noqa: E731
+        rows["dw_conv_wgrad"].append({
+            "shape": f"{tag.split()[0]} N={x.shape[0]} {H_}x{H_} C={C} K={K}", "calls": 1,
+            "max_abs_err": max_err(dw_conv.dw_conv_wgrad_cuda(x, dy, K=K), plain),
+            "max_plain": top, "limit": TOL * top,
+            "ms": time_ms(lambda: dw_conv.dw_conv_wgrad_cuda(x, dy, K=K)),
+            "plain_ms": time_ms(lambda: dw_conv.dw_conv_wgrad_plain(x, dy, K=K), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib),
+            "library": "cuDNN weight gradient, aten.convolution_backward, bf16, channels-last",
+            "library_max_abs_err": max_err(lib()[1].permute(2, 3, 1, 0), plain),
+        })
+        del x, dy, w, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _grad_err(names, got, want) -> list[dict]:
     """Per gradient: its max abs error, the plain version's max |value| and
     the limit 2e-2 * max(1, max |plain|)."""
@@ -364,6 +484,7 @@ def _backward_kernels(smi, gen):
     import torch
     import torch.nn.functional as F
 
+    from mintime_torch.experiments.attn_kernel_variants import dense_inputs
     from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import geglu_ffn as ffn
 
@@ -406,7 +527,7 @@ def _backward_kernels(smi, gen):
         flops = 2 * B * H * dh * (G * L * (3 * T + 2 * L) + 4 * G * L)
         b_ms, b_by = bound(nbytes, flops)
         lq, lk, lv, lmask = (t.requires_grad_() if t.dtype != torch.bool else t
-                             for t in _as_one_attention(qkv, qkvc, sb, rbias, H, dh))
+                             for t in dense_inputs(qkv, qkvc, sb, rbias, H, dh))
         lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
         lgrad = torch.randn(lout.shape, generator=gen).cuda().bfloat16()
         sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
@@ -548,10 +669,12 @@ def phase_slice(smi):
     t0 = time.perf_counter()
     results, counts = _step_launches(lambda: predict.predict_assembled(staged, model, None, cfg))
     first_s = time.perf_counter() - t0
-    launches = {k: counts[k] for k in ("divided_attention", "geglu_ffn", "token_rows_attention")}
-    if launches != {"divided_attention": 16, "geglu_ffn": 18, "token_rows_attention": 0}:
+    launches = {k: counts[k] for k in ("divided_attention", "geglu_ffn", "token_rows_attention",
+                                       *PROBE_KERNELS)}
+    if launches != {"divided_attention": 16, "geglu_ffn": 18, "token_rows_attention": 0,
+                    **NO_PROBE_LAUNCHES}:
         raise AssertionError(f"launches per forward {launches}, want 16 attention (whole-slice),"
-                             " 18 FFN and 0 token rows")
+                             " 18 FFN, 0 token rows and none of the probes' kernels")
 
     # what came out: probabilities, per-identity attention, aggregated maps
     assert len(results) == 8
@@ -690,23 +813,33 @@ def phase_profile(smi, model, stacked):
               **_profile(lambda: predict.forward_batch(model, None, rows))})
 
 
+#: the kernels that only the probes' paths launch: none of them in a model phase
+PROBE_KERNELS = ("grouped_attention", "chunked_attention", "dw_conv", "dw_conv_wgrad")
+NO_PROBE_LAUNCHES = {k: 0 for k in PROBE_KERNELS}
+
+
 def _step_launches(fn) -> tuple:
-    """Kernel launches of the six wrappers during ``fn()``, counted from 0."""
+    """Kernel launches of the ten wrappers during ``fn()``, counted from 0."""
     import torch
 
+    from mintime_torch.ops import chunked_attention as ca
     from mintime_torch.ops import divided_attention as da
+    from mintime_torch.ops import dw_conv
     from mintime_torch.ops import geglu_ffn as ffn
+    from mintime_torch.ops import grouped_attention as ga
     from mintime_torch.ops import token_rows as tr
 
     torch.cuda.synchronize()
-    for mod in (ffn, da, tr):
+    for mod in (ffn, da, tr, ga, ca, dw_conv):
         mod.reset_launches()
     out = fn()
     torch.cuda.synchronize()
     return out, {"divided_attention": da.launches, "geglu_ffn": ffn.launches,
                  "token_rows_attention": tr.launches,
                  "divided_attention_bwd": da.bwd_launches, "geglu_ffn_bwd": ffn.bwd_launches,
-                 "token_rows_attention_bwd": tr.bwd_launches}
+                 "token_rows_attention_bwd": tr.bwd_launches,
+                 "grouped_attention": ga.launches, "chunked_attention": ca.launches,
+                 "dw_conv": dw_conv.launches, "dw_conv_wgrad": dw_conv.wgrad_launches}
 
 
 def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bool = False):
@@ -856,7 +989,8 @@ def phase_train(smi):
     # same, but for the last layer's token FFN: only the CLS stream reaches
     # the logits, so that output gets no gradient and autograd skips it
     want = {"divided_attention": 18, "geglu_ffn": 18, "token_rows_attention": 0,
-            "divided_attention_bwd": 18, "geglu_ffn_bwd": 17, "token_rows_attention_bwd": 0}
+            "divided_attention_bwd": 18, "geglu_ffn_bwd": 17, "token_rows_attention_bwd": 0,
+            **NO_PROBE_LAUNCHES}
     if any(c != want for c in launches):
         raise AssertionError(f"launches per train step {launches}, want {want}")
     with torch.no_grad():  # the loss of step 0's forward (same drop-connect masks), now
@@ -937,7 +1071,7 @@ def phase_conv(smi):
     t0 = time.perf_counter()
     out, counts = _step_launches(lambda: eval_step(None, batch))
     first_s = time.perf_counter() - t0
-    want = {**CONV_FORWARD, **{k: 0 for k in CONV_BACKWARD}}
+    want = {**CONV_FORWARD, **{k: 0 for k in CONV_BACKWARD}, **NO_PROBE_LAUNCHES}
     if counts != want:
         raise AssertionError(f"conv launches per forward {counts}, want {want}")
     logits_k = out["logits"].float().cpu().numpy()
@@ -1028,7 +1162,7 @@ def phase_conv_train(smi):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         launches.append(counts)
-    want = {**CONV_FORWARD, **CONV_BACKWARD}
+    want = {**CONV_FORWARD, **CONV_BACKWARD, **NO_PROBE_LAUNCHES}
     if any(c != want for c in launches):
         raise AssertionError(f"conv launches per train step {launches}, want {want}")
     with torch.no_grad():
@@ -1063,6 +1197,81 @@ def phase_conv_train(smi):
     return launches[0]
 
 
+def phase_grouped(smi):
+    """``fused_grouped_attention``, the JAX package's v1 public function, at
+    flagship width (B = 8, 8 heads of 64) on both axes, masked as in
+    ``tests/test_pallas_attention.py:13-31`` and with no mask: four calls
+    through the entry point, each against the plain grouped attention with a
+    CLS column (the attention-map path) in fp32 on the same inputs."""
+    import numpy as np
+    import torch
+
+    from mintime_torch.ops import grouped_attention as ga
+    from mintime_torch.ops.attention import grouped_attention_with_cls
+
+    gen = torch.Generator().manual_seed(3)
+    cases = [((G, L), masked) for G, L in ((49, 16), (16, 49)) for masked in (True, False)]
+    inputs = [_grouped_inputs(gen, G, L, masked) for (G, L), masked in cases]
+    outs, counts = _step_launches(
+        lambda: [ga.fused_grouped_attention(*args, heads=8) for args, _ in inputs])
+    want = {k: 0 for k in counts} | {"grouped_attention": len(cases)}
+    if counts != want:
+        raise AssertionError(f"fused_grouped_attention launches {counts}, want {want}")
+    errs = []
+    for ((G, L), masked), (args, mask), out in zip(cases, inputs, outs):
+        q = args[0]
+        assert out.shape == q.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+        ref = grouped_attention_with_cls(*(t.float() for t in args[:5]),
+                                         None if mask is None else mask[:, None])
+        errs.append({"G": G, "L": L, "masked": masked, "vs_fp32_reference": max_err(out, ref),
+                     "vs_plain": max_err(out, ga.fused_grouped_attention_plain(*args, heads=8))})
+    emit({"phase": "grouped", "card": smi, "launches": counts, "cases": errs})
+    worst = max(max(e["vs_fp32_reference"], e["vs_plain"]) for e in errs)
+    if not np.isfinite(worst) or worst > TOL:
+        raise AssertionError(f"fused_grouped_attention off by {worst} > {TOL}: {errs}")
+    return counts
+
+
+def phase_probes(smi):
+    """The three probes' ``run()`` at their full sizes (the attention
+    variants at B = 32, the depthwise forward and weight gradient at 512
+    images over their geometries), their tables printed one JSON line a row;
+    the kernel variants B and G must agree with variant A within 2e-2. Then
+    ``dw_conv_wgrad`` must give the same bits on two calls."""
+    import torch
+
+    from mintime_torch.experiments import attn_kernel_variants as attn_probe
+    from mintime_torch.experiments import dw_conv_bwd_cuda_vs_cudnn as dwb_probe
+    from mintime_torch.experiments import dw_conv_cuda_vs_cudnn as dwf_probe
+    from mintime_torch.ops import dw_conv
+
+    probes = {"attn_kernel_variants": attn_probe, "dw_conv_cuda_vs_cudnn": dwf_probe,
+              "dw_conv_bwd_cuda_vs_cudnn": dwb_probe}
+    t0 = time.perf_counter()
+    tables, counts = _step_launches(lambda: {name: mod.run() for name, mod in probes.items()})
+    seconds = time.perf_counter() - t0
+    for name, table in tables.items():
+        for row in table:
+            emit({"phase": "probe", "probe": name, "card": smi, **row})
+    off = {f"{r['axis']} {k}": r[k] for r in tables["attn_kernel_variants"] for k in r
+           if k.startswith(("B_vs_A", "G_vs_A")) and not r[k] <= TOL}
+    if off:
+        raise AssertionError(f"attention variants differ from variant A by more than {TOL}: {off}")
+
+    _, H_, C, K, _ = dwb_probe.GEOMS[0]
+    x, dy, _ = dwb_probe.make_inputs(H_, C, K, 1)
+    first = dw_conv.dw_conv_wgrad(x, dy, K=K)
+    bitwise = all(torch.equal(dw_conv.dw_conv_wgrad(x, dy, K=K), first) for _ in range(2))
+    del x, dy
+    torch.cuda.empty_cache()
+    counts = {k: counts[k] for k in PROBE_KERNELS}
+    emit({"phase": "probes", "card": smi, "seconds": seconds, "launches": counts,
+          "dw_conv_wgrad_bitwise_stable": bitwise})
+    if not bitwise:
+        raise AssertionError("dw_conv_wgrad gave other bits on a rerun")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1088,6 +1297,12 @@ def main() -> int:
     paths["conv_forward"] = phase_conv(smi)
     torch.cuda.empty_cache()
     paths["conv_train_step"] = phase_conv_train(smi)
+    torch.cuda.empty_cache()
+    # the probes' paths: the JAX package's v1 grouped attention through its
+    # public function, and the three probes' entry points
+    paths["grouped_attention_calls"] = phase_grouped(smi)
+    torch.cuda.empty_cache()
+    paths["probes"] = phase_probes(smi)
 
     sources = {
         "geglu_ffn": ("mintime_torch/csrc/geglu_ffn.cu", "mintime_tpu/ops/pallas_ffn.py:57"),
@@ -1100,6 +1315,13 @@ def main() -> int:
                                   "mintime_tpu/ops/pallas_attention.py:289"),
         "token_rows_attention_bwd": ("mintime_torch/csrc/token_rows_attention_bwd.cu",
                                      "mintime_tpu/ops/pallas_attention.py:571"),
+        "grouped_attention": ("mintime_torch/csrc/grouped_attention.cu",
+                              "mintime_tpu/ops/pallas_attention.py:35"),
+        "chunked_attention": ("mintime_torch/csrc/chunked_attention.cu",
+                              "experiments/attn_kernel_variants.py:173"),
+        "dw_conv": ("mintime_torch/csrc/dw_conv.cu", "experiments/dw_conv_pallas_vs_xla.py:24"),
+        "dw_conv_wgrad": ("mintime_torch/csrc/dw_conv_wgrad.cu",
+                          "experiments/dw_conv_bwd_pallas_vs_xla.py:128, :188, :231"),
     }
     kernels = []
     for name, shapes in rows.items():

@@ -41,7 +41,7 @@ typedef long long i64;
 namespace {
 
 constexpr int DH = 64;          // head width: two dimensions a lane
-constexpr int MAXL = 32;        // longest attended sequence (the frame counts 8, 16, 32)
+constexpr int MAXL = 64;        // longest attended sequence (frame counts up to 32; the probe's 49 patches)
 constexpr int MAXT = (MAXL + 1 + 31) / 32;  // keys per lane (CLS + L)
 constexpr int WARPS = 4;
 constexpr int KLD = DH + 1;     // padded fp32 rows: lane t reads key t conflict-free

@@ -82,13 +82,20 @@ def divided_attention_plain(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, d
         the time axis, (B, G, 1) on the space axis — or None.
     Returns (out (B, G, L, H*dh), out_cls (B, 1, H*dh)) in qkv's dtype.
     """
-    f32 = torch.float32
-    B = qkv_g.shape[0]
     dt = qkv_g.dtype
     q, k, v, qc, kc, vc = _upcast(qkv_g, qkv_cls, heads, dim_head)  # fp32, q and qc scaled
     out = _token_rows_out(q, k, v, kc, vc, seq_bias, dt)
+    return out, _cls_row_out(qc, kc, vc, k, v, row_bias, dt)
 
-    # CLS row: one query over all G*L keys and itself
+
+def _cls_row_out(qc, kc, vc, k, v, row_bias, dt):
+    """The CLS row, one query over itself and all G*L keys, from the fp32
+    operands of :func:`~mintime_torch.ops.token_rows._upcast` (``qc``
+    scaled): unnormalised probabilities rounded to ``dt`` before PV and the
+    sum divided out at the end. ``row_bias``: fp32, broadcastable to (B, G,
+    L), or None. Returns (B, 1, H*dh) in ``dt``."""
+    f32 = torch.float32
+    B, H, dh = qc.shape
     lr = torch.einsum("bhd,bglhd->bhgl", qc, k)
     if row_bias is not None:
         lr = lr + row_bias.to(f32)[:, None]
@@ -98,8 +105,7 @@ def divided_attention_plain(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, d
     ps = torch.exp(ls - mx)
     z = pr.sum(dim=(2, 3)) + ps
     acc = torch.einsum("bhgl,bglhd->bhd", pr.to(dt).to(f32), v)
-    out_cls = ((acc + ps[..., None] * vc) / z[..., None]).reshape(B, 1, heads * dim_head)
-    return out, out_cls.to(dt)
+    return ((acc + ps[..., None] * vc) / z[..., None]).reshape(B, 1, H * dh).to(dt)
 
 
 def divided_attention_bwd_plain(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls, *,

@@ -1,6 +1,7 @@
 """CUDA kernels against their plain versions on the card, in bf16 at the
 flagship shapes and at the Convolutional TimeSformer's (the FFN at width 256,
-the token rows), max abs error 2e-2. These need an NVIDIA GPU (a CUDA kernel
+the token rows), max abs error 2e-2, and the probes' kernels (grouped and
+chunked attention, depthwise conv forward and weight gradient). These need an NVIDIA GPU (a CUDA kernel
 has no CPU mode) and skip without one; on a machine with a card run
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``. The file
 imports no JAX, so it runs where JAX is not installed.
@@ -9,8 +10,11 @@ imports no JAX, so it runs where JAX is not installed.
 import pytest
 import torch
 
+from mintime_torch.ops import chunked_attention as port_chunked
 from mintime_torch.ops import divided_attention as port_divided
+from mintime_torch.ops import dw_conv as port_dw
 from mintime_torch.ops import geglu_ffn as port
+from mintime_torch.ops import grouped_attention as port_grouped
 from mintime_torch.ops import token_rows as port_rows
 
 
@@ -158,3 +162,89 @@ def test_token_rows_kernels_on_card(masked):
     assert not got[1][..., :H * dh].any()
     _close_per_gradient(got, port_rows.token_rows_attention_bwd_plain(qkv, qkvc, sb, d_tok, **kw),
                         f"token rows G={G}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,L,masked", [(49, 16, True), (16, 49, True), (49, 16, False)])
+def test_grouped_attention_kernel_on_card(G, L, masked):
+    """The v1 grouped-attention kernel against its plain version in bf16 at
+    flagship width (8 heads of 64), with and without a key mask (needs the
+    card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(5)
+    B, H, D = 2, 8, 64
+    r = lambda *s: (torch.randn(*s, generator=gen) * 0.5).cuda().bfloat16()  # noqa: E731
+    q, k, v, kc, vc = r(B, H, G, L, D), r(B, H, G, L, D), r(B, H, G, L, D), r(B, H, 1, D), r(B, H, 1, D)
+    bias = None
+    if masked:
+        keep = torch.rand(B, L, 1 + L, generator=gen) > 0.3
+        keep[..., 0] = True
+        bias = port_grouped.mask_to_bias(keep.cuda())
+    got = port_grouped.fused_grouped_attention_cuda(q, k, v, kc, vc, bias, heads=H)
+    want = port_grouped.fused_grouped_attention_plain(q, k, v, kc, vc, bias, heads=H)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,L,P", [(49, 16, 4), (16, 49, 2), (49, 16, 8), (7, 5, 3)])
+def test_chunked_attention_kernel_on_card(G, L, P):
+    """The chunked-dense kernel against its plain version in bf16 on both
+    flagship geometries, at the packings the probe uses and a ragged one
+    (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(6)
+    B, H, dh = 2, 8, 64
+    qkv = torch.randn(B, G, L, 3 * H * dh, generator=gen).cuda().bfloat16()
+    qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
+    sb = port_divided.mask_to_bias((torch.rand(B, L, 1 + L, generator=gen) > 0.1).cuda())
+    rb = port_divided.mask_to_bias((torch.rand(B, 1, L, generator=gen) > 0.1).cuda())
+    kw = dict(heads=H, dim_head=dh, P=P)
+    got = port_chunked.chunked_attention_cuda(qkv, qkvc, sb, rb, **kw)
+    want = port_chunked.chunked_attention_plain(qkv, qkvc, sb, rb, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,K", [(112, 112, 32, 3), (14, 14, 672, 5), (9, 7, 17, 3),
+                                     (7, 7, 150, 5)])
+def test_dw_conv_kernels_on_card(H, W, C, K):
+    """The depthwise forward (+bias+SiLU) and weight-gradient kernels against
+    their plain versions in bf16, with even and odd C and a ragged channel
+    tile; the weight gradient bitwise equal on a rerun (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(7)
+    N = 4
+    x = torch.randn(N, H, W, C, generator=gen).cuda().bfloat16()
+    dy = torch.randn(N, H, W, C, generator=gen).cuda().bfloat16()
+    w = (torch.randn(K, K, C, generator=gen) * 0.1).cuda()
+    b = (torch.randn(C, generator=gen) * 0.1).cuda()
+    got = port_dw.dw_conv_bias_silu_cuda(x, w, b, K=K).float()
+    want = port_dw.dw_conv_bias_silu_plain(x, w, b, K=K).float()
+    assert float((got - want).abs().max()) <= 2e-2 * max(1.0, float(want.abs().max()))
+    got = port_dw.dw_conv_wgrad_cuda(x, dy, K=K)
+    want = port_dw.dw_conv_wgrad_plain(x, dy, K=K)
+    assert got.shape == (K, K, 1, C) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    assert torch.equal(port_dw.dw_conv_wgrad_cuda(x, dy, K=K), got)
+
+
+@pytest.mark.cuda
+def test_token_rows_forward_kernel_on_card_at_space_axis():
+    """The token-row forward kernel on the flagship space axis (L = 49
+    patches, 8 heads), where the attention probe's variant B runs it (needs
+    the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(8)
+    B, G, L, H, dh = 2, 16, 49, 8, 64
+    qkv = torch.randn(B, G, L, 3 * H * dh, generator=gen).cuda().bfloat16()
+    qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
+    sb = port_divided.mask_to_bias((torch.rand(B, L, 1 + L, generator=gen) > 0.1).cuda())
+    kw = dict(heads=H, dim_head=dh)
+    torch.testing.assert_close(port_rows.token_rows_attention_cuda(qkv, qkvc, sb, **kw).float(),
+                               port_rows.token_rows_attention_plain(qkv, qkvc, sb, **kw).float(),
+                               atol=2e-2, rtol=2e-2)

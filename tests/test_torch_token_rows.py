@@ -183,6 +183,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="card"):
         port.token_rows_attention_bwd_cuda(qkv, qkvc, None, torch.zeros(1, 4, 8, 64), heads=1,
                                            dim_head=64)
-    with pytest.raises(ValueError, match="L <= 32"):
-        port.token_rows_attention_cuda(torch.zeros(1, 4, 33, 192), qkvc, None, heads=1,
+    with pytest.raises(ValueError, match="L <= 64"):
+        port.token_rows_attention_cuda(torch.zeros(1, 4, 65, 192), qkvc, None, heads=1,
                                        dim_head=64)
+    with pytest.raises(ValueError, match="L <= 32"):
+        port.token_rows_attention_bwd_cuda(torch.zeros(1, 4, 33, 192), qkvc, None,
+                                           torch.zeros(1, 4, 33, 64), heads=1, dim_head=64)
