@@ -9,8 +9,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    seconds ``nvcc`` took for the ten ``mintime_torch/csrc/*.cu`` sources;
 2. kernels: every kernel of the serving, training and probe paths against
    its plain PyTorch version on the card in bf16 at the paths' shapes (the
-   FFN at widths 512 and 256, the divided attention at the flagship's, the
-   token rows at the Convolutional TimeSformer's time axis and, with masked
+   FFN at widths 512 and 256, the divided attention at the flagship's and
+   at the conv model's long axes (G = 8 groups of L = 80, 112, 192 and 256,
+   and 192 groups of 8; 6 x 64 heads, batch 8), the token rows at the Convolutional TimeSformer's time axis and, with masked
    frames, at 96 groups; the v1 grouped attention at flagship width, masked
    and not; the chunked attention at the attention probe's B = 32 and
    packing; the depthwise forward and weight gradient at the dw probes' 512
@@ -67,6 +68,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    stay bitwise unchanged and its weights move by weight decay alone; the
    loss falls. Steps/s, device ms per step, peak memory and a profile are
    printed;
+6b, 7b. conv_tap10, conv_tap10_train: phases 6 and 7 with the extractor
+   tapped at block 10 (192 channel tokens of 7 x 7): both axes of every
+   layer take the whole-slice kernels (8 groups of 192 and 192 groups of 8),
+   so one forward must launch 8 divided-attention, 8 FFN and no token-row
+   kernels, and a train step's backward 8 divided-attention and 7 FFN
+   kernels; every check of phases 6 and 7;
 8. grouped: the JAX package's v1 ``fused_grouped_attention`` through the
    port's function at flagship width (B = 8, 8 x 64 heads) on both axes,
    masked as ``tests/test_pallas_attention.py`` masks and unmasked: four
@@ -169,6 +176,50 @@ def _attention_inputs(axis, gen, B=8, F=16, n=49, H=8, dh=64):
     return qkv, qkvc, None, rb[:, :, None]
 
 
+#: the conv model's whole-slice attentions at tap blocks 4-13 (6 x 64 heads,
+#: batch 8, no masks): (G, L, axis, launches per forward and per train step).
+#: Tap block 10 (192 channel tokens) runs both axes, four layers each; 80, 112
+#: and 256 are the other long axes the kernels take (tap blocks 4-6, 7-9, and
+#: the limit), held against their plain versions only
+CONV_LONG_AXES = ((192, 8, "time", 4), (8, 80, "space", 0), (8, 112, "space", 0),
+                  (8, 192, "space", 4), (8, 256, "space", 0))
+
+
+def _divided_cases(gen):
+    """The whole-slice attention's shapes: the flagship's two axes (launched 8
+    times a forward and 9 a train step each) and ``CONV_LONG_AXES``, as
+    (shape, (qkv, qkv_cls, seq_bias, row_bias), heads, launches per forward,
+    launches per train step)."""
+    import torch
+
+    cases = []
+    for axis in ("time", "space"):
+        args = _attention_inputs(axis, gen)
+        B, G, L, _ = args[0].shape
+        cases.append((f"{axis} B={B} G={G} L={L} H=8 dh=64", args, 8, 8, 9))
+    B, H, dh = 8, 6, 64
+    for G, L, axis, calls in CONV_LONG_AXES:
+        if axis == "time":  # the (B, F, C, ·) layout seen as its transpose, as the model passes it
+            qkv = torch.randn(B, L, G, 3 * H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
+        else:
+            qkv = torch.randn(B, G, L, 3 * H * dh, generator=gen).cuda().bfloat16()
+        qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
+        cases.append((f"conv {axis} B={B} G={G} L={L} H={H} dh={dh}", (qkv, qkvc, None, None), H,
+                      calls, calls))
+    return cases
+
+
+def _numel(*tensors) -> int:
+    return sum(0 if t is None else t.numel() for t in tensors)
+
+
+def _dense_row_bias(rbias, B, G):
+    """The CLS-row bias for the one-call yardstick, which needs one."""
+    import torch
+
+    return torch.zeros(B, G, 1, device="cuda") if rbias is None else rbias
+
+
 #: the FFN's shapes on the main paths: (model width, hidden width, [(M, calls per
 #: forward, calls per train step)]) for the flagship (the token and CLS rows of
 #: 8 videos, 9 layers) and the Convolutional TimeSformer (4 layers)
@@ -213,33 +264,32 @@ def phase_kernels(smi):
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             })
 
-    H, dh = 8, 64
-    for axis, calls in (("time", 8), ("space", 8)):
-        qkv, qkvc, sb, rbias = _attention_inputs(axis, gen)
-        B, G, L, c3 = qkv.shape
+    for shape, (qkv, qkvc, sb, rbias), H, calls, _ in _divided_cases(gen):
+        B, G, L, _ = qkv.shape
+        dh = 64
         kw = dict(heads=H, dim_head=dh)
         err = max_err(da.divided_attention_cuda(qkv, qkvc, sb, rbias, **kw),
                       da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw))
         inner = H * dh
         nbytes = (2 * (qkv.numel() + qkvc.numel() + B * G * L * inner + B * inner)
-                  + 4 * ((sb.numel() if sb is not None else 0) + rbias.numel()))
+                  + 4 * _numel(sb, rbias))
         flops = 4 * B * H * dh * (G * L * (1 + L) + G * L + 1)
         b_ms, b_by = bound(nbytes, flops)
-        lq, lk, lv, lmask = dense_inputs(qkv, qkvc, sb, rbias, H, dh)
+        lq, lk, lv, lmask = dense_inputs(qkv, qkvc, sb, _dense_row_bias(rbias, B, G), H, dh)
         sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
         lib_err = max_err(split_dense(sdpa(), G, L),
                           da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw))
         if not lib_err <= TOL:
             raise AssertionError(f"the one-call attention yardstick differs by {lib_err}")
         rows["divided_attention"].append({
-            "shape": f"{axis} B={B} G={G} L={L} H={H} dh={dh}", "calls": calls,
-            "max_abs_err": err,
+            "shape": shape, "calls": calls, "max_abs_err": err,
             "ms": time_ms(lambda: da.divided_attention_cuda(qkv, qkvc, sb, rbias, **kw)),
             "plain_ms": time_ms(lambda: da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
             "library": "scaled_dot_product_attention, one dense masked call",
             "library_max_abs_err": lib_err,
         })
+        del qkv, qkvc, sb, rbias, lq, lk, lv, lmask
 
     rows["token_rows_attention"] = _token_rows_rows(gen)
     rows.update(_probe_kernel_rows(gen))
@@ -511,10 +561,9 @@ def _backward_kernels(smi, gen):
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             })
 
-    H, dh = 8, 64
-    for axis, calls in (("time", 9), ("space", 9)):
-        qkv, qkvc, sb, rbias = _attention_inputs(axis, gen)
+    for shape, (qkv, qkvc, sb, rbias), H, _, calls in _divided_cases(gen):
         B, G, L, c3 = qkv.shape
+        dh = 64
         inner = H * dh
         d_tok, d_cls = r(B, G, L, inner), r(B, 1, inner)
         kw = dict(heads=H, dim_head=dh)
@@ -522,23 +571,25 @@ def _backward_kernels(smi, gen):
         grads = _grad_err(("d_qkv", "d_qkvc"), da.divided_attention_bwd_cuda(*fwd_args, **kw),
                           da.divided_attention_bwd_plain(*fwd_args, **kw))
         nbytes = (2 * (2 * qkv.numel() + 2 * qkvc.numel() + d_tok.numel() + d_cls.numel())
-                  + 4 * ((sb.numel() if sb is not None else 0) + rbias.numel()))
+                  + 4 * _numel(sb, rbias))
         T = 1 + L  # token rows: logits, dP, dq over T keys; dk, dv over L; CLS row over G*L keys
         flops = 2 * B * H * dh * (G * L * (3 * T + 2 * L) + 4 * G * L)
         b_ms, b_by = bound(nbytes, flops)
         lq, lk, lv, lmask = (t.requires_grad_() if t.dtype != torch.bool else t
-                             for t in dense_inputs(qkv, qkvc, sb, rbias, H, dh))
+                             for t in dense_inputs(qkv, qkvc, sb, _dense_row_bias(rbias, B, G),
+                                                   H, dh))
         lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
         lgrad = torch.randn(lout.shape, generator=gen).cuda().bfloat16()
         sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
         rows["divided_attention_bwd"].append({
-            "shape": f"{axis} B={B} G={G} L={L} H={H} dh={dh}", "calls": calls,
+            "shape": shape, "calls": calls,
             "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
             "ms": time_ms(lambda: da.divided_attention_bwd_cuda(*fwd_args, **kw)),
             "plain_ms": time_ms(lambda: da.divided_attention_bwd_plain(*fwd_args, **kw)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa_bwd),
             "library": "backward of one dense masked scaled_dot_product_attention call",
         })
+        del qkv, qkvc, sb, rbias, d_tok, d_cls, fwd_args, lq, lk, lv, lmask, lout, lgrad
 
     rows["token_rows_attention_bwd"] = _token_rows_bwd_rows(gen)
     for name, shapes in rows.items():
@@ -1020,15 +1071,17 @@ def phase_train(smi):
     return launches[0]
 
 
-def conv_model_config():
+def conv_model_config(tap: int = 20):
     """The Convolutional TimeSformer preset: the model section of
     ``configs/convolutional_timesformer.yaml`` (the card's machine has no
-    yaml; a CPU test holds the two equal)."""
+    yaml; a CPU test holds the two equal), its EfficientNet tapped at block
+    ``tap`` (the yaml's 20 by default; at 10 the tokens are 192 channel maps
+    of 7 x 7)."""
     from mintime_torch.config import ModelConfig
 
     return ModelConfig(image_size=224, num_classes=1, num_frames=8, num_patches=1280, dim=256,
                        depth=4, heads=6, dim_head=64, channels=1280, attn_dropout=0.0,
-                       ff_dropout=0.0, shift_tokens=False, efficient_net_block=20)
+                       ff_dropout=0.0, shift_tokens=False, efficient_net_block=tap)
 
 
 def _conv_batch(n=8):
@@ -1042,16 +1095,28 @@ def _conv_batch(n=8):
             "labels": np.array([0.0, 1.0] * (n // 2), np.float32)}
 
 
-#: launches of the conv model: per forward, 4 layers x (one token-row time
-#: axis, two FFNs), the space axis (L = 1280) plain; per train step the same
-#: backward, but for the last layer's token FFN, whose output reaches no logit
-CONV_FORWARD = {"divided_attention": 0, "geglu_ffn": 8, "token_rows_attention": 4}
-CONV_BACKWARD = {"divided_attention_bwd": 0, "geglu_ffn_bwd": 7, "token_rows_attention_bwd": 4}
+#: launches of the conv model by tap block, (per forward, per train step's
+#: backward). At block 20: 4 layers x (one token-row time axis, two FFNs),
+#: the space axis (L = 1280) plain. At block 10: both axes whole-slice (8 x
+#: 192 x 1152 x 2 B = 3.5 MB a slice), so 4 x 2 divided-attention launches
+#: and no token rows. Backward the same, but for the last layer's token FFN,
+#: whose output reaches no logit
+CONV_LAUNCHES = {
+    20: ({"divided_attention": 0, "geglu_ffn": 8, "token_rows_attention": 4},
+         {"divided_attention_bwd": 0, "geglu_ffn_bwd": 7, "token_rows_attention_bwd": 4}),
+    10: ({"divided_attention": 8, "geglu_ffn": 8, "token_rows_attention": 0},
+         {"divided_attention_bwd": 8, "geglu_ffn_bwd": 7, "token_rows_attention_bwd": 0}),
+}
 
 
-def phase_conv(smi):
-    """The Convolutional TimeSformer preset at full width, bf16 weights from
-    seed 0, through ``train.make_eval_step`` at batch 8."""
+def _conv_phase(tap: int) -> str:
+    return "conv" if tap == 20 else f"conv_tap{tap}"
+
+
+def phase_conv(smi, tap: int = 20):
+    """The Convolutional TimeSformer preset tapped at block ``tap`` at full
+    width, bf16 weights from seed 0, through ``train.make_eval_step`` at
+    batch 8."""
     import numpy as np
     import torch
 
@@ -1060,7 +1125,9 @@ def phase_conv(smi):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mcfg = conv_model_config()
+    mcfg = conv_model_config(tap)
+    phase = _conv_phase(tap)
+    fwd_want, bwd_want = CONV_LAUNCHES[tap]
     t0 = time.perf_counter()
     model = ConvolutionalTimeSformer(mcfg, use_kernels=True, device="cuda", seed=0)
     build_model_s = time.perf_counter() - t0
@@ -1071,9 +1138,9 @@ def phase_conv(smi):
     t0 = time.perf_counter()
     out, counts = _step_launches(lambda: eval_step(None, batch))
     first_s = time.perf_counter() - t0
-    want = {**CONV_FORWARD, **{k: 0 for k in CONV_BACKWARD}, **NO_PROBE_LAUNCHES}
+    want = {**fwd_want, **{k: 0 for k in bwd_want}, **NO_PROBE_LAUNCHES}
     if counts != want:
-        raise AssertionError(f"conv launches per forward {counts}, want {want}")
+        raise AssertionError(f"{phase} launches per forward {counts}, want {want}")
     logits_k = out["logits"].float().cpu().numpy()
     assert logits_k.shape == (8,) and np.isfinite(logits_k).all()
 
@@ -1089,13 +1156,13 @@ def phase_conv(smi):
                               torch.from_numpy(batch["size_embedding"][:1]))[0, 0])
     del cpu
     cpu_err = abs(logit_cpu - float(logits_k[0]))
-    emit({"phase": "conv_check", "logits_kernel": logits_k.tolist(),
+    emit({"phase": f"{phase}_check", "logits_kernel": logits_k.tolist(),
           "logits_plain": logits_p.tolist(), "kernel_vs_plain_logit_err": logit_err,
           "cpu_fp32_logit": logit_cpu, "card_vs_cpu_fp32_logit_err": cpu_err})
     if not logit_err <= TOL:
-        raise AssertionError(f"conv kernel vs plain logits differ by {logit_err} > {TOL}")
+        raise AssertionError(f"{phase} kernel vs plain logits differ by {logit_err} > {TOL}")
     if not cpu_err <= 5e-2:
-        raise AssertionError(f"conv bf16 card vs fp32 CPU logit differs by {cpu_err} > 5e-2")
+        raise AssertionError(f"{phase} bf16 card vs fp32 CPU logit differs by {cpu_err} > 5e-2")
 
     def run():
         eval_step(None, batch)
@@ -1110,20 +1177,20 @@ def phase_conv(smi):
     fwd_ms = time_ms(lambda: eval_step(None, batch), iters=5, warmup=1)
     torch.cuda.reset_peak_memory_stats()
     run()
-    emit({"phase": "conv", "card": smi, "batch": 8, "launches": counts,
+    emit({"phase": phase, "card": smi, "tap_block": tap, "batch": 8, "launches": counts,
           "build_model_s": build_model_s, "first_forward_s": first_s,
           "videos_per_s_batch8": 8 / samples[len(samples) // 2], "batch8_s": samples,
           "forward_batch8_device_ms": fwd_ms,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    emit({"phase": "profile", "card": smi, "what": "conv forward", "batch": 8,
+    emit({"phase": "profile", "card": smi, "what": f"{phase} forward", "batch": 8,
           **_profile(run)})
     return counts
 
 
-def phase_conv_train(smi):
-    """The Convolutional TimeSformer preset with fp32 master weights computing
-    in bf16, kernels on, trained for 5 SGD steps at batch 8 through
-    ``train.make_train_step``; its extractor stays frozen."""
+def phase_conv_train(smi, tap: int = 20):
+    """The Convolutional TimeSformer preset tapped at block ``tap`` with fp32
+    master weights computing in bf16, kernels on, trained for 5 SGD steps at
+    batch 8 through ``train.make_train_step``; its extractor stays frozen."""
     import numpy as np
     import torch
 
@@ -1133,7 +1200,8 @@ def phase_conv_train(smi):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mcfg = conv_model_config()
+    mcfg = conv_model_config(tap)
+    phase = f"{_conv_phase(tap)}_train"
     # the yaml's training section, but batch 8 (its bs is 1), as the flagship phase
     lr, wd = 0.01, 1e-4
     cfg = MintimeConfig(model=mcfg, training=TrainingConfig(
@@ -1148,7 +1216,7 @@ def phase_conv_train(smi):
     head = [n for n, _ in model.named_parameters() if not n.startswith("extractor.")]
     ref = ConvolutionalTimeSformer(mcfg, device="cuda", dtype=torch.float32,
                                    param_dtype=torch.float32, seed=0)
-    _grad_check(smi, "conv_train_check", model, ref, batch, pos_weight, head)
+    _grad_check(smi, f"{phase}_check", model, ref, batch, pos_weight, head)
 
     # the main path: 5 steps through make_train_step, counters read per step
     state = train.create_train_state(model, cfg, steps_per_epoch=5, num_epochs=1, seed=0)
@@ -1162,13 +1230,13 @@ def phase_conv_train(smi):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         launches.append(counts)
-    want = {**CONV_FORWARD, **CONV_BACKWARD, **NO_PROBE_LAUNCHES}
+    want = {**CONV_LAUNCHES[tap][0], **CONV_LAUNCHES[tap][1], **NO_PROBE_LAUNCHES}
     if any(c != want for c in launches):
-        raise AssertionError(f"conv launches per train step {launches}, want {want}")
+        raise AssertionError(f"{phase} launches per train step {launches}, want {want}")
     with torch.no_grad():
         after = float(train.forward_loss(model, batch, pos_weight, train=True)[0])
     if not (np.isfinite(after) and after < losses[0]):
-        raise AssertionError(f"conv loss after 5 steps {after} is not below the first {losses[0]}")
+        raise AssertionError(f"{phase} loss after 5 steps {after} is not below the first {losses[0]}")
     moved = sorted(k for k, v in model.named_buffers() if not torch.equal(v, stats0[k]))
     if moved:
         raise AssertionError(f"frozen extractor's BatchNorm statistics moved: {moved[:8]}")
@@ -1184,7 +1252,7 @@ def phase_conv_train(smi):
     step(state, batch)
     torch.cuda.synchronize()
     steady = sorted(step_s[1:])
-    emit({"phase": "conv_train", "card": smi, "batch": 8, "steps": 5,
+    emit({"phase": phase, "card": smi, "tap_block": tap, "batch": 8, "steps": 5,
           "launches_per_step": launches[0], "losses": losses, "loss_after": after,
           "pos_weight": pos_weight, "extractor_decay_only_rel_err": decay,
           "build_model_s": build_model_s, "first_step_s": step_s[0], "step_s": step_s,
@@ -1192,7 +1260,7 @@ def phase_conv_train(smi):
           "videos_per_s_batch8": 8 / steady[len(steady) // 2],
           "device_ms_per_step": device_ms,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    emit({"phase": "profile", "card": smi, "what": "conv train step", "batch": 8,
+    emit({"phase": "profile", "card": smi, "what": f"{phase} step", "batch": 8,
           **_profile(lambda: step(state, batch))})
     return launches[0]
 
@@ -1297,6 +1365,12 @@ def main() -> int:
     paths["conv_forward"] = phase_conv(smi)
     torch.cuda.empty_cache()
     paths["conv_train_step"] = phase_conv_train(smi)
+    torch.cuda.empty_cache()
+    # tap block 10: both axes of every layer through the whole-slice kernels
+    # at 8 groups of 192 and 192 groups of 8
+    paths["conv_tap10_forward"] = phase_conv(smi, tap=10)
+    torch.cuda.empty_cache()
+    paths["conv_tap10_train_step"] = phase_conv_train(smi, tap=10)
     torch.cuda.empty_cache()
     # the probes' paths: the JAX package's v1 grouped attention through its
     # public function, and the three probes' entry points

@@ -22,9 +22,13 @@
 // Design: the TPU held a whole batch slice (2.4 MB) in VMEM; a GPU block
 // cannot, so the work splits in two launches.
 //   * token rows: one 4-warp block per (b, g, h) stages the group's K and V
-//     (CLS as row 0) in shared memory as fp32, and each warp takes one query
-//     row at a time: lane t computes the logit of key t, warp shuffles give
-//     max and sum, and the bf16 probabilities in shared memory feed PV.
+//     (CLS as row 0) in dynamic shared memory as bf16, sized by the actual L
+//     (68 KB at L = 256), in rows padded to 66 values so that lane t reads
+//     key t's pair of dimensions conflict-free; each warp takes one query
+//     row at a time: lane t computes the logits of keys t, t + 32, ...
+//     (NT keys a lane, 3 up to L = 64, 9 up to L = 256), warp shuffles give
+//     max and sum, and the bf16 probabilities in shared memory feed PV, a
+//     lane owning a pair of output dimensions.
 //   * CLS row: one 8-warp block per (b, h) computes the G*L logits into
 //     shared memory (a warp per key), a block-wide max and sum, then PV with
 //     64 threads per dimension group over the keys.
@@ -36,16 +40,19 @@
 #include <math.h>
 
 typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
 typedef long long i64;
 
 namespace {
 
 constexpr int DH = 64;          // head width
-constexpr int MAXL = 64;        // longest attended sequence of the token rows
-constexpr int MAXT = (MAXL + 1 + 31) / 32;  // keys per lane (CLS + L)
+constexpr int MAXL = 256;       // longest attended sequence of the token rows
 constexpr int TOK_WARPS = 4;
 constexpr int CLS_THREADS = 256;
-constexpr int KLD = DH + 1;     // padded fp32 rows: lane t reads key t conflict-free
+constexpr int KVLD = DH + 2;    // padded bf16 rows (33 words): lane t reads key t conflict-free
+
+// keys a lane takes in the token rows (CLS + L keys over 32 lanes)
+constexpr int keys_per_lane(int L) { return (L + 1 + 31) / 32; }
 
 __device__ __forceinline__ float bf(const bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float bf16_round(float v) {
@@ -64,15 +71,15 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+template <int NT>
 __global__ void __launch_bounds__(TOK_WARPS * 32)
 token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
                   const bf16* __restrict__ qkvc, i64 scb,
                   const float* __restrict__ seq_bias, bf16* __restrict__ out, i64 ob,
                   i64 og, i64 ol, int L, int H, float scale) {
-  __shared__ float ks[MAXL + 1][KLD];
-  __shared__ float vs[MAXL + 1][DH];
+  extern __shared__ __align__(16) unsigned char tok_smem[];
   __shared__ float qs[TOK_WARPS][DH];
-  __shared__ float ps[TOK_WARPS][MAXL + 1];
+  __shared__ float ps[TOK_WARPS][NT * 32];
 
   const int h = blockIdx.x;
   const int g = blockIdx.y;
@@ -82,6 +89,8 @@ token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
   const int lane = tid % 32;
   const int inner = H * DH;
   const int T = L + 1;  // CLS key + L keys
+  bf16* ks = reinterpret_cast<bf16*>(tok_smem);  // [T][KVLD]
+  bf16* vs = ks + T * KVLD;                      // [T][KVLD]
   const bf16* base = qkv + b * sb + g * sg;
   const bf16* cls = qkvc + b * scb;
   const int qoff = h * DH;
@@ -92,8 +101,8 @@ token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
     const int r = i / DH;
     const int d = i % DH;
     const bf16* row = r == 0 ? cls : base + (r - 1) * sl;
-    ks[r][d] = bf(row[koff + d]);
-    vs[r][d] = bf(row[voff + d]);
+    ks[r * KVLD + d] = row[koff + d];
+    vs[r * KVLD + d] = row[voff + d];
   }
   __syncthreads();
 
@@ -103,16 +112,21 @@ token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
     qs[warp][lane + 32] = bf16_round(bf(qrow[lane + 32]) * scale);
     __syncwarp();
 
-    float logit[MAXT];
+    float logit[NT];
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const int t = lane + 32 * j;
       float s = -INFINITY;
       if (t < T) {
+        const bf162* krow = reinterpret_cast<const bf162*>(ks + t * KVLD);
         float a = 0.0f;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) a = fmaf(qs[warp][d], ks[t][d], a);
+#pragma unroll 8
+        for (int d2 = 0; d2 < DH / 2; ++d2) {
+          const float2 kv = __bfloat1622float2(krow[d2]);
+          a = fmaf(qs[warp][2 * d2], kv.x, a);
+          a = fmaf(qs[warp][2 * d2 + 1], kv.y, a);
+        }
         if (seq_bias != nullptr) a += seq_bias[(i64(b) * L + r) * T + t];
         s = a;
       }
@@ -122,7 +136,7 @@ token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
     mx = warp_max(mx);
     float sum = 0.0f;
 #pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const int t = lane + 32 * j;
       const float e = t < T ? expf(logit[j] - mx) : 0.0f;
       logit[j] = e;
@@ -130,20 +144,37 @@ token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
     }
     sum = warp_sum(sum);
 #pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const int t = lane + 32 * j;
       if (t < T) ps[warp][t] = bf16_round(logit[j] / sum);
     }
     __syncwarp();
 
-    bf16* orow = out + b * ob + g * og + r * ol + h * DH;
-    for (int d = lane; d < DH; d += 32) {
-      float a = 0.0f;
-      for (int t = 0; t < T; ++t) a = fmaf(ps[warp][t], vs[t][d], a);
-      orow[d] = __float2bfloat16(a);
+    // lane owns dimensions 2*lane and 2*lane + 1
+    float a0 = 0.0f, a1 = 0.0f;
+    for (int t = 0; t < T; ++t) {
+      const float p = ps[warp][t];
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const bf162*>(vs + t * KVLD + 2 * lane));
+      a0 = fmaf(p, v.x, a0);
+      a1 = fmaf(p, v.y, a1);
     }
+    bf16* orow = out + b * ob + g * og + r * ol + h * DH;
+    *reinterpret_cast<bf162*>(orow + 2 * lane) = __floats2bfloat162_rn(a0, a1);
     __syncwarp();
   }
+}
+
+template <int NT>
+cudaError_t launch_token_rows(dim3 grid, cudaStream_t s, const bf16* qkv, i64 sb, i64 sg, i64 sl,
+                              const bf16* qkvc, i64 scb, const float* seq_bias, bf16* out,
+                              i64 ob, i64 og, i64 ol, int L, int H, float scale) {
+  const int smem = 2 * (L + 1) * KVLD * int(sizeof(bf16));
+  cudaError_t err = cudaFuncSetAttribute(token_rows_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  token_rows_kernel<NT><<<grid, TOK_WARPS * 32, smem, s>>>(qkv, sb, sg, sl, qkvc, scb, seq_bias,
+                                                           out, ob, og, ol, L, H, scale);
+  return cudaGetLastError();
 }
 
 // block-wide reduction over CLS_THREADS threads; every thread gets the result
@@ -246,10 +277,16 @@ extern "C" int divided_attention_fwd(const void* qkv, i64 sb, i64 sg, i64 sl, co
   if (cls_smem > 48 * 1024) return int(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(float(DH));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  token_rows_kernel<<<dim3(H, G, B), TOK_WARPS * 32, 0, s>>>(
-      static_cast<const bf16*>(qkv), sb, sg, sl, static_cast<const bf16*>(qkvc), scb,
-      static_cast<const float*>(seq_bias), static_cast<bf16*>(out), ob, og, ol, L, H, scale);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid(H, G, B);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* qc = static_cast<const bf16*>(qkvc);
+  const float* sbias = static_cast<const float*>(seq_bias);
+  bf16* o = static_cast<bf16*>(out);
+  cudaError_t err =
+      L <= 64 ? launch_token_rows<keys_per_lane(64)>(grid, s, q, sb, sg, sl, qc, scb, sbias, o,
+                                                     ob, og, ol, L, H, scale)
+              : launch_token_rows<keys_per_lane(MAXL)>(grid, s, q, sb, sg, sl, qc, scb, sbias, o,
+                                                       ob, og, ol, L, H, scale);
   if (err != cudaSuccess) return int(err);
   cls_row_kernel<<<dim3(H, B), CLS_THREADS, cls_smem, s>>>(
       static_cast<const bf16*>(qkv), sb, sg, sl, static_cast<const bf16*>(qkvc), scb,

@@ -37,19 +37,37 @@
 //      dq, dk, dv, and writes the group's partial dk_cls and dv_cls;
 //   3. attn_bwd_cls_reduce_kernel, per (b, h): sums the partials over g in
 //      order and writes dk_cls and dv_cls.
+// Launch 2 keeps P and dS of the group in shared memory, [L][L+1] fp32 each:
+// 99 KB a block at L = 64 but 487 KB at L = 192. For 64 < L <= 256 it is
+// replaced by attn_bwd_token_rows_long_kernel, whose shared memory grows
+// with L only: q~, K, V and dO of the group in bf16 (all four are exact in
+// bf16; 139 KB at L = 256). One 16-warp block per (b, g, h) makes two
+// passes, recomputing the probabilities in registers each time:
+//   a. a warp per query row: logits, softmax, dS in registers (lane t for
+//      keys t, t + 32, ...), dq from dS broadcast by shuffles, and the row's
+//      max, sum and s_dot kept in shared memory;
+//   b. a warp per key t (the CLS key first): lane r recomputes P[r][t] and
+//      dS[r][t] from the row's scalars, and the warp sums dk_t and dv_t over
+//      the rows in order, a lane owning two dimensions (no atomics); the CLS
+//      key's sums are the group's partial dk_cls and dv_cls.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
 typedef long long i64;
 
 namespace {
 
 constexpr int DH = 64;          // head width
-constexpr int MAXL = 64;        // longest attended sequence of the token rows
-constexpr int MAXT = (MAXL + 1 + 31) / 32;  // keys per lane (CLS + L)
+constexpr int MAXL = 256;       // longest attended sequence of the token rows
+constexpr int SHORT_MAXL = 64;  // longest of attn_bwd_token_rows_kernel
+constexpr int MAXT = (SHORT_MAXL + 1 + 31) / 32;  // its keys per lane (CLS + L)
+constexpr int LONG_NT = (MAXL + 1 + 31) / 32;     // the long kernel's keys (and rows) per lane
+constexpr int LONG_WARPS = 16;
+constexpr int KVLD = DH + 2;    // padded bf16 rows (33 words): lane t reads row t conflict-free
 constexpr int TOK_WARPS = 4;
 constexpr int TOK_THREADS = TOK_WARPS * 32;
 constexpr int CLS_THREADS = 256;
@@ -342,6 +360,199 @@ attn_bwd_token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
   }
 }
 
+__device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
+  const bf162* a2 = reinterpret_cast<const bf162*>(a);
+  const bf162* b2 = reinterpret_cast<const bf162*>(b);
+  float s = 0.0f;
+#pragma unroll 8
+  for (int d2 = 0; d2 < DH / 2; ++d2) {
+    const float2 x = __bfloat1622float2(a2[d2]);
+    const float2 y = __bfloat1622float2(b2[d2]);
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+  }
+  return s;
+}
+
+__device__ __forceinline__ float2 pair(const bf16* row, int lane) {
+  return __bfloat1622float2(*reinterpret_cast<const bf162*>(row + 2 * lane));
+}
+
+// Launch 2 for 64 < L <= 256; the same results as attn_bwd_token_rows_kernel.
+__global__ void __launch_bounds__(LONG_WARPS * 32)
+attn_bwd_token_rows_long_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
+                                const bf16* __restrict__ qkvc, i64 scb,
+                                const float* __restrict__ seq_bias,
+                                const float* __restrict__ row_bias, i64 rb_b, i64 rb_g,
+                                i64 rb_l, const bf16* __restrict__ dtok, i64 db, i64 dg, i64 dl,
+                                const bf16* __restrict__ dcls, i64 dcb,
+                                const float* __restrict__ stats, bf16* __restrict__ dqkv, i64 ob,
+                                i64 og, i64 ol, float* __restrict__ kv_part, int G, int L, int H,
+                                float scale) {
+  extern __shared__ __align__(16) unsigned char lsm[];
+  const int T = L + 1;  // CLS key + L keys
+  bf16* ks = reinterpret_cast<bf16*>(lsm);  // [T][KVLD]  k_cls, K
+  bf16* vs = ks + T * KVLD;                 // [T][KVLD]  v_cls, V
+  bf16* qs = vs + T * KVLD;                 // [L][KVLD]  q~
+  bf16* dos = qs + L * KVLD;                // [L][KVLD]  dO
+  float* rst = reinterpret_cast<float*>(dos + L * KVLD);  // [L][3] max, sum, s_dot
+  float* qc = rst + 3 * L;                  // [DH]       q~_cls
+  float* dc = qc + DH;                      // [DH]       d_cls
+
+  const int h = blockIdx.x;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int inner = H * DH;
+  const bf16* base = qkv + b * sb + g * sg;
+  const bf16* cls = qkvc + b * scb;
+  const bf16* dbase = dtok + b * db + g * dg;
+  const int qoff = h * DH;
+  const int koff = inner + h * DH;
+  const int voff = 2 * inner + h * DH;
+
+  for (int i = tid; i < T * DH; i += LONG_WARPS * 32) {
+    const int r = i / DH;
+    const int d = i % DH;
+    const bf16* row = r == 0 ? cls : base + (r - 1) * sl;
+    ks[r * KVLD + d] = row[koff + d];
+    vs[r * KVLD + d] = row[voff + d];
+    if (r > 0) {
+      qs[(r - 1) * KVLD + d] = __float2bfloat16(bf(row[qoff + d]) * scale);
+      dos[(r - 1) * KVLD + d] = dbase[(r - 1) * dl + h * DH + d];
+    }
+  }
+  if (tid < DH) {
+    qc[tid] = bf16_round(bf(cls[qoff + tid]) * scale);
+    dc[tid] = bf(dcls[b * dcb + h * DH + tid]);
+  }
+  __syncthreads();
+
+  bf16* obase = dqkv + b * ob + g * og;
+  // a. a warp per query row r, lane t for keys t, t + 32, ...
+  for (int r = warp; r < L; r += LONG_WARPS) {
+    const bf16* qrow = qs + r * KVLD;
+    const bf16* drow = dos + r * KVLD;
+    float p[LONG_NT], ds[LONG_NT];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < LONG_NT; ++j) {
+      const int t = lane + 32 * j;
+      float s = -INFINITY;
+      if (t < T) {
+        s = dot_bf16(qrow, ks + t * KVLD);
+        if (seq_bias != nullptr) s += seq_bias[(i64(b) * L + r) * T + t];
+      }
+      p[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < LONG_NT; ++j) {
+      const int t = lane + 32 * j;
+      const float e = t < T ? expf(p[j] - mx) : 0.0f;
+      p[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    float sd = 0.0f;
+#pragma unroll
+    for (int j = 0; j < LONG_NT; ++j) {
+      const int t = lane + 32 * j;
+      p[j] /= sum;
+      ds[j] = t < T ? dot_bf16(drow, vs + t * KVLD) : 0.0f;
+      sd += p[j] * ds[j];
+    }
+    sd = warp_sum(sd);
+#pragma unroll
+    for (int j = 0; j < LONG_NT; ++j) ds[j] = p[j] * (ds[j] - sd);
+
+    float a0 = 0.0f, a1 = 0.0f;  // dq of dimensions 2*lane, 2*lane + 1
+#pragma unroll
+    for (int j = 0; j < LONG_NT; ++j) {
+      if (32 * j >= T) continue;  // warp-uniform; j stays a constant index
+      for (int u = 0; u < 32 && 32 * j + u < T; ++u) {
+        const float w = __shfl_sync(0xffffffffu, ds[j], u);
+        const float2 k = pair(ks + (32 * j + u) * KVLD, lane);
+        a0 = fmaf(w, k.x, a0);
+        a1 = fmaf(w, k.y, a1);
+      }
+    }
+    *reinterpret_cast<bf162*>(obase + r * ol + qoff + 2 * lane) =
+        __floats2bfloat162_rn(scale * a0, scale * a1);
+    if (lane == 0) {
+      rst[3 * r] = mx;
+      rst[3 * r + 1] = sum;
+      rst[3 * r + 2] = sd;
+    }
+  }
+  __syncthreads();
+
+  // b. a warp per key t (0 = the CLS key), lane r for rows r, r + 32, ...
+  const float* st = stats + (size_t(b) * H + h) * 3;
+  for (int t = warp; t < T; t += LONG_WARPS) {
+    const bf16* krow = ks + t * KVLD;
+    const bf16* vrow = vs + t * KVLD;
+    float p[LONG_NT], ds[LONG_NT];
+#pragma unroll
+    for (int j = 0; j < LONG_NT; ++j) {
+      const int r = lane + 32 * j;
+      p[j] = ds[j] = 0.0f;
+      if (r < L) {
+        float s = dot_bf16(qs + r * KVLD, krow);
+        if (seq_bias != nullptr) s += seq_bias[(i64(b) * L + r) * T + t];
+        const float pr = expf(s - rst[3 * r]) / rst[3 * r + 1];
+        p[j] = pr;
+        ds[j] = pr * (dot_bf16(dos + r * KVLD, vrow) - rst[3 * r + 2]);
+      }
+    }
+    float ak0 = 0.0f, ak1 = 0.0f, av0 = 0.0f, av1 = 0.0f;
+    const float2 q2 = make_float2(qc[2 * lane], qc[2 * lane + 1]);
+    const float2 d2 = make_float2(dc[2 * lane], dc[2 * lane + 1]);
+    if (t > 0) {  // the CLS row's terms for key t, from launch 1's scalars
+      const float2 k = pair(krow, lane);
+      const float2 v = pair(vrow, lane);
+      float lr = warp_sum(q2.x * k.x + q2.y * k.y);
+      const float dp = warp_sum(d2.x * v.x + d2.y * v.y);
+      if (row_bias != nullptr) lr += row_bias[b * rb_b + g * rb_g + (t - 1) * rb_l];
+      const float cp = expf(lr - st[0]) / st[1];
+      const float cdl = cp * (dp - st[2]);
+      ak0 = cdl * q2.x;
+      ak1 = cdl * q2.y;
+      av0 = cp * d2.x;
+      av1 = cp * d2.y;
+    }
+#pragma unroll
+    for (int j = 0; j < LONG_NT; ++j) {
+      if (32 * j >= L) continue;  // warp-uniform; j stays a constant index
+      for (int u = 0; u < 32 && 32 * j + u < L; ++u) {
+        const float ws = __shfl_sync(0xffffffffu, ds[j], u);
+        const float wp = __shfl_sync(0xffffffffu, p[j], u);
+        const float2 q = pair(qs + (32 * j + u) * KVLD, lane);
+        const float2 o = pair(dos + (32 * j + u) * KVLD, lane);
+        ak0 = fmaf(ws, q.x, ak0);
+        ak1 = fmaf(ws, q.y, ak1);
+        av0 = fmaf(wp, o.x, av0);
+        av1 = fmaf(wp, o.y, av1);
+      }
+    }
+    if (t == 0) {
+      float* part = kv_part + ((size_t(b) * G + g) * H + h) * 2 * DH;
+      part[2 * lane] = ak0;
+      part[2 * lane + 1] = ak1;
+      part[DH + 2 * lane] = av0;
+      part[DH + 2 * lane + 1] = av1;
+    } else {
+      bf16* orow = obase + (t - 1) * ol;
+      *reinterpret_cast<bf162*>(orow + koff + 2 * lane) = __floats2bfloat162_rn(ak0, ak1);
+      *reinterpret_cast<bf162*>(orow + voff + 2 * lane) = __floats2bfloat162_rn(av0, av1);
+    }
+  }
+}
+
 // dk_cls and dv_cls: the CLS row's own terms plus the groups' partials, in order
 __global__ void attn_bwd_cls_reduce_kernel(const float* __restrict__ cls_kv,
                                            const float* __restrict__ kv_part,
@@ -359,6 +570,11 @@ size_t token_smem(int L) {
   return sizeof(float) * ((2 * size_t(L) + 2 * T) * KLD + 2 * size_t(L) * T + 2 * size_t(L) + 2 * DH);
 }
 
+size_t long_smem(int L) {
+  const size_t T = size_t(L) + 1;
+  return sizeof(bf16) * (2 * T + 2 * size_t(L)) * KVLD + sizeof(float) * (3 * size_t(L) + 2 * DH);
+}
+
 }  // namespace
 
 // Scratch from the caller, fp32: stats (B*H*3), cls_kv (B*H*2*dh),
@@ -374,13 +590,18 @@ extern "C" int divided_attention_bwd(const void* qkv, i64 sb, i64 sg, i64 sl, co
     return int(cudaErrorInvalidValue);
   const size_t cls_smem = 2 * size_t(G) * L * sizeof(float);
   if (cls_smem > 96 * 1024) return int(cudaErrorInvalidValue);
-  const size_t tok_smem = token_smem(L);
+  const bool long_rows = L > SHORT_MAXL;
+  const size_t tok_smem = long_rows ? long_smem(L) : token_smem(L);
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_cls_row_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(cls_smem));
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(attn_bwd_token_rows_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(tok_smem));
+  err = long_rows ? cudaFuncSetAttribute(attn_bwd_token_rows_long_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(tok_smem))
+                  : cudaFuncSetAttribute(attn_bwd_token_rows_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(tok_smem));
   if (err != cudaSuccess) return int(err);
   const float scale = 1.0f / sqrtf(float(DH));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -396,10 +617,16 @@ extern "C" int divided_attention_bwd(const void* qkv, i64 sb, i64 sg, i64 sl, co
   attn_bwd_cls_row_kernel<<<dim3(H, B), CLS_THREADS, cls_smem, s>>>(
       q, sb, sg, sl, qc, scb, rb, rb_b, rb_g, rb_l, dc, dcb, dqc, ocb, st, ckv, G, L, H, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  attn_bwd_token_rows_kernel<<<dim3(H, G, B), TOK_THREADS, tok_smem, s>>>(
-      q, sb, sg, sl, qc, scb, static_cast<const float*>(seq_bias), rb, rb_b, rb_g, rb_l,
-      static_cast<const bf16*>(dtok), db, dg, dl, dc, dcb, st, static_cast<bf16*>(dqkv), ob, og,
-      ol, part, G, L, H, scale);
+  if (long_rows)
+    attn_bwd_token_rows_long_kernel<<<dim3(H, G, B), LONG_WARPS * 32, tok_smem, s>>>(
+        q, sb, sg, sl, qc, scb, static_cast<const float*>(seq_bias), rb, rb_b, rb_g, rb_l,
+        static_cast<const bf16*>(dtok), db, dg, dl, dc, dcb, st, static_cast<bf16*>(dqkv), ob, og,
+        ol, part, G, L, H, scale);
+  else
+    attn_bwd_token_rows_kernel<<<dim3(H, G, B), TOK_THREADS, tok_smem, s>>>(
+        q, sb, sg, sl, qc, scb, static_cast<const float*>(seq_bias), rb, rb_b, rb_g, rb_l,
+        static_cast<const bf16*>(dtok), db, dg, dl, dc, dcb, st, static_cast<bf16*>(dqkv), ob, og,
+        ol, part, G, L, H, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   attn_bwd_cls_reduce_kernel<<<dim3(H, B), 2 * DH, 0, s>>>(ckv, part, dqc, ocb, G, H);
   return int(cudaGetLastError());

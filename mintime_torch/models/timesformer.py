@@ -17,7 +17,7 @@ attends over at most 256 positions goes through
 :func:`mintime_torch.ops.divided_attention.divided_attention`, which picks the
 whole-slice or the token-row kernels by the slice's size; both are
 differentiable, with backward kernels on the card. On the card the kernels
-are built for widths 512 and 256 and dim_head 64 (at most 64 rows a group on
+are built for widths 512 and 256 and dim_head 64 (up to 256 rows a group on
 the whole-slice path, 32 on the token rows), and their wrappers raise on any
 other geometry. The last layer under
 ``require_attention`` takes the plain path and returns its CLS-row maps in
@@ -35,11 +35,11 @@ from torch import nn
 from mintime_torch.config import ModelConfig
 from mintime_torch.data.assembler import NUM_SIZE_BUCKETS
 from mintime_torch.ops.attention import NEG_MAX, build_frame_mask, grouped_attention_with_cls
-from mintime_torch.ops.divided_attention import divided_attention, mask_to_bias
+from mintime_torch.ops.divided_attention import _KERNEL_MAX_L, divided_attention, mask_to_bias
 from mintime_torch.ops.geglu_ffn import geglu_ffn
 
-#: longest attended axis that takes the divided-attention kernel (``timesformer.py:153``)
-KERNEL_MAX_AXIS = 256
+#: longest attended axis that takes the divided-attention kernels (``timesformer.py:153``)
+KERNEL_MAX_AXIS = _KERNEL_MAX_L
 
 
 class GEGLU(nn.Module):

@@ -50,7 +50,10 @@ launches = 0
 bwd_launches = 0
 
 _KERNEL_DH = 64
-_KERNEL_MAX_L = 64
+#: longest attended axis of the whole-slice kernels; ``DividedAttention``
+#: sends every axis up to this length to :func:`divided_attention`
+#: (``mintime_tpu/models/timesformer.py:152``)
+_KERNEL_MAX_L = 256
 _KERNEL_MAX_KEYS = 12 * 1024  # G*L fp32 CLS-row logits in 48 KB of shared memory
 
 #: largest packed qkv slice (G*L*3*inner bytes) of the whole-slice kernels
@@ -152,18 +155,30 @@ def divided_attention_bwd_plain(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls
     return d_qkv, d_qkvc
 
 
-def _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
-    B, G, L, c3 = qkv_g.shape
-    inner = heads * dim_head
+def takes_whole_slice(G: int, L: int, c3: int, element_size: int) -> bool:
+    """Whether :func:`divided_attention` sends a (·, G, L, c3) slice of this
+    element size to the whole-slice kernels (``pallas_attention.py:816``)."""
+    return G * L * c3 * element_size <= WHOLE_SLICE_BYTES
+
+
+def check_kernel_shape(G: int, L: int, heads: int, dim_head: int) -> None:
+    """Raise ``ValueError`` unless the whole-slice kernels take G groups of L
+    positions at ``heads`` x ``dim_head``."""
     if dim_head != _KERNEL_DH:
         raise ValueError(f"divided_attention kernel is built for dim_head {_KERNEL_DH}, got {dim_head}")
-    if c3 != 3 * inner or qkv_cls.shape != (B, 1, c3):
-        raise ValueError(f"divided_attention: qkv {tuple(qkv_g.shape)} / qkv_cls"
-                         f" {tuple(qkv_cls.shape)} do not match heads {heads} x {dim_head}")
     if not 1 <= L <= _KERNEL_MAX_L:
         raise ValueError(f"divided_attention kernel takes 1 <= L <= {_KERNEL_MAX_L}, got {L}")
     if G * L > _KERNEL_MAX_KEYS:
         raise ValueError(f"divided_attention kernel takes G*L <= {_KERNEL_MAX_KEYS}, got {G * L}")
+
+
+def _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
+    B, G, L, c3 = qkv_g.shape
+    inner = heads * dim_head
+    check_kernel_shape(G, L, heads, dim_head)
+    if c3 != 3 * inner or qkv_cls.shape != (B, 1, c3):
+        raise ValueError(f"divided_attention: qkv {tuple(qkv_g.shape)} / qkv_cls"
+                         f" {tuple(qkv_cls.shape)} do not match heads {heads} x {dim_head}")
     for name, t in (("qkv", qkv_g), ("qkv_cls", qkv_cls)):
         if not t.is_cuda or t.device != qkv_g.device:
             raise ValueError(f"divided_attention: {name} is not on the card with qkv")
@@ -311,7 +326,7 @@ def divided_attention(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, dim_hea
     kernels or raise. There is no fallback between the two.
     """
     _, G, L, c3 = qkv_g.shape
-    if G * L * c3 * qkv_g.element_size() <= WHOLE_SLICE_BYTES:
+    if takes_whole_slice(G, L, c3, qkv_g.element_size()):
         return DividedAttentionFunction.apply(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head)
     out_tok = token_rows_attention(qkv_g, qkv_cls, seq_bias, heads=heads, dim_head=dim_head)
     return out_tok, cls_row_plain(qkv_g, qkv_cls, row_bias, heads=heads, dim_head=dim_head)

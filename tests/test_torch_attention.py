@@ -142,3 +142,44 @@ def test_cuda_tensor_never_takes_plain_path(monkeypatch):
                                    heads=1, dim_head=64)
     assert called == ["cuda", "plain"]
 
+
+
+def _long_axis_case(L, bias, seed, B=2, G=8, H=2, dh=32):
+    """qkv (B, G, L, ·) in the JAX packing at an attended axis longer than 64
+    (the conv model's space axis at tap blocks 4-13 has L = 80, 112, 192),
+    with a CLS-row bias that masks groups and, for ``bias="seq"``, a random
+    per-row mask of the token rows (column 0, the CLS key, kept)."""
+    inner = H * dh
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((B, G, L, 3 * inner)).astype(np.float32) * 0.2
+    qkvc = rng.standard_normal((B, 1, 3 * inner)).astype(np.float32) * 0.2
+    keep_g = np.ones((B, G), bool)
+    keep_g[1, 5:] = False
+    seq = None
+    if bias == "seq":
+        seq = rng.random((B, L, 1 + L)) > 0.2
+        seq[..., 0] = True
+    return qkv, qkvc, keep_g, seq, H, dh
+
+
+def _long_axis_biases(keep_g, seq, to_bias, asarray):
+    return (None if seq is None else to_bias(asarray(seq)),
+            to_bias(asarray(keep_g))[:, :, None])
+
+
+@pytest.mark.parametrize("bias", ["row", "seq"])
+@pytest.mark.parametrize("L", [80, 112, 192])
+def test_divided_attention_matches_jax_at_long_axes(L, bias):
+    """The whole-slice regime at 64 < L <= 256 (JAX's ``_divided_kernel`` in
+    interpret mode against the port's plain version), fp32, 1e-4."""
+    qkv, qkvc, keep_g, seq, H, dh = _long_axis_case(L, bias, seed=10 + L)
+    sb, rb = _long_axis_biases(keep_g, seq, jax_pallas.mask_to_bias, jnp.asarray)
+    want_tok, want_cls = jax_pallas.divided_attention(
+        jnp.asarray(qkv), jnp.asarray(qkvc), sb, rb, heads=H, dim_head=dh)
+    sb_t, rb_t = _long_axis_biases(keep_g, seq, port_divided.mask_to_bias, torch.from_numpy)
+    got_tok, got_cls = port_divided.divided_attention(
+        torch.from_numpy(head_major_to_qkv_major(qkv, H, dh)),
+        torch.from_numpy(head_major_to_qkv_major(qkvc, H, dh)), sb_t, rb_t,
+        heads=H, dim_head=dh)
+    np.testing.assert_allclose(got_tok.numpy(), np.asarray(want_tok), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_cls.numpy(), np.asarray(want_cls), atol=1e-4, rtol=1e-4)

@@ -111,3 +111,38 @@ def test_bias_gradients_are_zero_and_cpu_launches_nothing():
     (o.sum() + oc.sum()).backward()
     assert not sb.grad.any() and not rb.grad.any()
     assert port.launches == 0 and port.bwd_launches == 0
+
+
+@pytest.mark.parametrize("bias", ["row", "seq"])
+@pytest.mark.parametrize("L", [80, 112, 192])
+def test_grads_match_jax_at_long_axes(L, bias):
+    """The backward in the whole-slice regime at 64 < L <= 256 (the conv
+    model's space axis at tap blocks 4-13): ``jax.grad`` through the Pallas
+    kernels in interpret mode against the port's autograd Function, fp32,
+    1e-4, unit-scale cotangents."""
+    from test_torch_attention import _long_axis_biases, _long_axis_case
+
+    qkv, qkvc, keep_g, seq, h, dh = _long_axis_case(L, bias, seed=20 + L)
+    B, G = qkv.shape[:2]
+    rng = np.random.default_rng(L)
+    w_tok = rng.standard_normal((B, G, L, h * dh)).astype(np.float32)
+    w_cls = rng.standard_normal((B, 1, h * dh)).astype(np.float32)
+    sb, rb = _long_axis_biases(keep_g, seq, jax_pallas.mask_to_bias, jnp.asarray)
+
+    def loss(q, qc):
+        o, oc = jax_pallas.divided_attention(q, qc, sb, rb, heads=h, dim_head=dh)
+        return jnp.sum(o * w_tok) + jnp.sum(oc * w_cls)
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(qkv), jnp.asarray(qkvc))
+
+    qkv_t = torch.from_numpy(head_major_to_qkv_major(qkv, h, dh)).requires_grad_()
+    qkvc_t = torch.from_numpy(head_major_to_qkv_major(qkvc, h, dh)).requires_grad_()
+    sb_t, rb_t = _long_axis_biases(keep_g, seq, port.mask_to_bias, torch.from_numpy)
+    o, oc = port.divided_attention(qkv_t, qkvc_t, sb_t, rb_t, heads=h, dim_head=dh)
+    assert "DividedAttentionFunction" in o.grad_fn.name()
+    ((o * torch.from_numpy(w_tok)).sum() + (oc * torch.from_numpy(w_cls)).sum()).backward()
+    for g, w, name in zip((qkv_t.grad, qkvc_t.grad), want, ("d_qkv", "d_qkvc")):
+        got = g.numpy()
+        lead = got.shape[:-1]
+        got = got.reshape(*lead, 3, h, dh).swapaxes(-3, -2).reshape(*lead, -1)  # → head-major
+        np.testing.assert_allclose(got, np.asarray(w), atol=1e-4, rtol=1e-4, err_msg=f"L={L} {name}")

@@ -46,13 +46,17 @@ def batch(seed=0):
             "labels": np.array([0.0, 1.0], np.float32)}
 
 
+def conv_kw(tap=20):
+    return {**CONV_KW, "efficient_net_block": tap}
+
+
 @functools.lru_cache(maxsize=None)
-def jax_variables():
-    """Variables of the JAX model: the extractor as the EfficientNet tests
-    draw it, the head's kernels N(0, 1/fan_in), its embeddings and CLS token
-    N(0, 0.5^2)."""
+def jax_variables(tap=20):
+    """Variables of the JAX model tapped at block ``tap``: the extractor as
+    the EfficientNet tests draw it, the head's kernels N(0, 1/fan_in), its
+    embeddings and CLS token N(0, 0.5^2)."""
     b = batch()
-    model = JaxConvTimeSformer(JaxModelConfig(**CONV_KW))
+    model = JaxConvTimeSformer(JaxModelConfig(**conv_kw(tap)))
     v = random_variables(model, b["frames"], b["mask"], b["size_embedding"])
     rng = np.random.default_rng(1)
 
@@ -70,10 +74,10 @@ def jax_variables():
     return jax.tree_util.tree_map_with_path(head, v)
 
 
-def port_model(use_kernels=True):
-    model = ConvolutionalTimeSformer(ModelConfig(**CONV_KW), use_kernels=use_kernels,
+def port_model(use_kernels=True, tap=20):
+    model = ConvolutionalTimeSformer(ModelConfig(**conv_kw(tap)), use_kernels=use_kernels,
                                      device="cpu")
-    return load_jax_variables(model, jax_variables())
+    return load_jax_variables(model, jax_variables(tap))
 
 
 @pytest.mark.parametrize("tap", [1, 20])
@@ -109,6 +113,35 @@ def test_logits_match_jax(use_kernels):
     assert abs(float(want[0, 0] - want[1, 0])) > 1e-2, "logits that ignore the frames test nothing"
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
     assert token_rows.launches == 0  # the CPU launches no kernel
+
+
+def test_logits_match_jax_at_tap_block_10():
+    """Tap block 10 (192 channel tokens on a 1 x 1 grid at 32 px): both axes
+    take the whole-slice regime on both sides, the time axis at G = 192
+    groups of L = 8 and the space axis at G = 8 groups of L = 192, the shape
+    that needs the kernels' long-axis path on the card. Kernels on both sides
+    (the JAX package's in interpret mode, the port's plain versions), fp32,
+    1e-4."""
+    from mintime_torch.ops import divided_attention
+
+    b = batch()
+    jmodel = JaxConvTimeSformer(JaxModelConfig(**conv_kw(10)), use_pallas=True)
+    want = np.asarray(jax.jit(jmodel.apply)(jax_variables(10), b["frames"], b["mask"],
+                                            b["size_embedding"]))
+    model = port_model(True, tap=10)
+    assert model.extractor.feature_dim == 192
+    calls = []
+    fn = divided_attention.DividedAttentionFunction.apply
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(divided_attention.DividedAttentionFunction, "apply",
+                   lambda q, *a: calls.append(tuple(q.shape[1:3])) or fn(q, *a))
+        with torch.no_grad():
+            got = model(torch.from_numpy(b["frames"]), torch.from_numpy(b["mask"]),
+                        torch.from_numpy(b["size_embedding"])).numpy()
+    assert calls == [(192, 8), (8, 192)]  # depth 1: time, then space, both whole-slice
+    assert got.shape == want.shape == (B, 1) and np.isfinite(got).all()
+    assert abs(float(want[0, 0] - want[1, 0])) > 1e-2, "logits that ignore the frames test nothing"
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 def test_state_dict_loads_strictly_with_the_flagship_head_keys():

@@ -248,3 +248,54 @@ def test_token_rows_forward_kernel_on_card_at_space_axis():
     torch.testing.assert_close(port_rows.token_rows_attention_cuda(qkv, qkvc, sb, **kw).float(),
                                port_rows.token_rows_attention_plain(qkv, qkvc, sb, **kw).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [80, 112, 192, 256])
+def test_divided_attention_kernels_on_card_at_long_axes(L):
+    """Both whole-slice kernels at 64 < L <= 256 (the conv model's space axis
+    at tap blocks 4-13: G = 8 frames of L = C channel tokens, 6 heads of 64)
+    against their plain versions in bf16, with a CLS-row bias that masks
+    frames and, on a strided view, a seq_bias (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(9)
+    B, G, H, dh = 2, 8, 6, 64
+    qkv = torch.randn(B, L, G, 3 * H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
+    qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
+    rb = torch.zeros(B, G, 1, device="cuda")
+    rb[1, 5:] = port_divided.NEG
+    keep = torch.rand(B, L, 1 + L, generator=gen) > 0.1
+    keep[..., 0] = True
+    kw = dict(heads=H, dim_head=dh)
+    for sb in (None, port_divided.mask_to_bias(keep.cuda())):
+        got = port_divided.divided_attention_cuda(qkv, qkvc, sb, rb, **kw)
+        want = port_divided.divided_attention_plain(qkv, qkvc, sb, rb, **kw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+        d_tok = torch.randn(B, G, L, H * dh, generator=gen).cuda().bfloat16()
+        d_cls = torch.randn(B, 1, H * dh, generator=gen).cuda().bfloat16()
+        got = port_divided.divided_attention_bwd_cuda(qkv, qkvc, sb, rb, d_tok, d_cls, **kw)
+        torch.cuda.synchronize()
+        assert got[0].stride() == qkv.stride()
+        _close_per_gradient(
+            got, port_divided.divided_attention_bwd_plain(qkv, qkvc, sb, rb, d_tok, d_cls, **kw),
+            f"attention L={L} seq_bias={sb is not None}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C,K", [(112, 32, 3), (28, 240, 5)])
+def test_dw_conv_wgrad_kernel_on_card_at_b0_and_b4(H, C, K):
+    """The weight-gradient kernel at EfficientNet-B0's blocks 0 and 4 (the
+    probe's geometries at 64 images) against its plain version, 2e-2 of max
+    |plain|, and bitwise equal on a rerun (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn(64, H, H, C, generator=gen).cuda().bfloat16()
+    dy = torch.randn(64, H, H, C, generator=gen).cuda().bfloat16()
+    got = port_dw.dw_conv_wgrad_cuda(x, dy, K=K)
+    want = port_dw.dw_conv_wgrad_plain(x, dy, K=K)
+    assert got.shape == (K, K, 1, C) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    assert torch.equal(port_dw.dw_conv_wgrad_cuda(x, dy, K=K), got)
