@@ -194,6 +194,7 @@ wgrad_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       cp_async_wait<0>();
     }
     __syncthreads();
+#ifndef WGRAD_LOADS_ONLY  // the probe's ablation build: stages every row, adds nothing
     if (active) {
       const bf16* xs = bufs + (s & 1) * pl.stage;
       const bf16* dys = xs + pl.x_elems;
@@ -230,6 +231,7 @@ wgrad_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
         }
       }
     }
+#endif
     __syncthreads();  // the buffer is free for stage s + 2
   }
 

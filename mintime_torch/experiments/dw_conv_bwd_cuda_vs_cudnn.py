@@ -20,19 +20,23 @@ The stride-2 rows time the library alone, as the JAX probe does. Times by
 CUDA events over 20 calls after 3 warm-up calls; ``bound_ms`` is x plus dy
 read once at 3.35 TB/s. ``--check`` also holds the kernel against its plain
 version (relative error 2e-2 of max |plain|, the JAX probe's rule).
+``--ablate`` times, at b0, the kernel beside a build of the same source with
+``WGRAD_LOADS_ONLY`` (every row staged as usual, no arithmetic), in turns:
+how much of the kernel's time the staging alone takes.
 
 Run on a machine with a card:
-``python -m mintime_torch.experiments.dw_conv_bwd_cuda_vs_cudnn [--check]``.
+``python -m mintime_torch.experiments.dw_conv_bwd_cuda_vs_cudnn [--check] [--ablate]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 
 import torch
 
 from mintime_torch.experiments import PEAK_FP32_FLOP_S, bound_ms, card, require_card, time_ms
-from mintime_torch.ops import dw_conv
+from mintime_torch.ops import _build, dw_conv
 
 N = 512
 GEOMS = [  # (tag, H, C, K, stride), square images
@@ -100,9 +104,39 @@ def run(device="cuda", check: bool = False) -> list[dict]:
     return rows
 
 
+def ablation(device="cuda") -> dict:
+    """At b0: the kernel's ms and the loads-only build's ms, timed in turns
+    (kernel, loads only, loads only, kernel); each the mean of its two."""
+    dev = require_card(device)
+    _, H, C, K, s = GEOMS[0]
+    x, dy, _ = make_inputs(H, C, K, s, device=dev)
+    N = x.shape[0]
+    lib = _build.load("dw_conv_wgrad", defines=("WGRAD_LOADS_ONLY",))
+    plan = lib.dw_conv_wgrad_chunks
+    plan.argtypes = [ctypes.c_int] * 5
+    chunks = plan(N, H, H, C, K)
+    partial = torch.empty((chunks, K, K, C), dtype=torch.float32, device=dev)
+    out = torch.empty((K, K, 1, C), dtype=torch.float32, device=dev)
+    fn = lib.dw_conv_wgrad
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+    def loads_only():
+        _build.check(fn(x.data_ptr(), dy.data_ptr(), partial.data_ptr(), out.data_ptr(), N, H, H,
+                        C, K, chunks, torch.cuda.current_stream(dev).cuda_stream),
+                     "dw_conv_wgrad[WGRAD_LOADS_ONLY]")
+
+    kernel = lambda: dw_conv.dw_conv_wgrad_cuda(x, dy, K=K)  # noqa: E731
+    a, b, c, d = (time_ms(f) for f in (kernel, loads_only, loads_only, kernel))
+    b_ms, _ = bound(x, dy, K)
+    return {"tag": GEOMS[0][0], "ms": (a + d) / 2, "loads_only_ms": (b + c) / 2, "bound_ms": b_ms,
+            "readings": [a, b, c, d]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true", help="hold the kernel against its plain version")
+    ap.add_argument("--ablate", action="store_true",
+                    help="at b0, time the kernel beside its loads-only build")
     args = ap.parse_args()
     print(f"card: {card()}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     for r in run(check=args.check):
@@ -116,6 +150,11 @@ def main() -> None:
         if args.check:
             ok = "OK" if r["check_rel_err"] <= CHECK_REL else "MISMATCH"
             print(f"  kernel vs plain rel err {r['check_rel_err']:.2e} {ok}")
+    if args.ablate:
+        r = ablation()
+        print(f"=== ablation at {r['tag']}  bound {r['bound_ms']:.3f} ms ===")
+        print(f"  kernel      {r['ms']:8.3f} ms")
+        print(f"  loads only  {r['loads_only_ms']:8.3f} ms   readings {r['readings']}")
 
 
 if __name__ == "__main__":

@@ -24,6 +24,8 @@ preset) and the time axis runs :func:`~mintime_torch.ops.divided_attention.
 divided_attention`, whose packed qkv (1280 groups of 8) exceeds the
 whole-slice budget and so takes the token-row kernels; the space axis (L =
 1280) stays on the plain path, as in the JAX package (``timesformer.py:153``).
+Tapped at blocks 4-13 (80, 112 or 192 channels) both axes fit the whole-slice
+kernels.
 """
 
 from __future__ import annotations

@@ -37,33 +37,38 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: tuple[str, ...] = ()):
     """Start ``nvcc`` for one source unless its library exists; return
-    ``(name, target, tmp, process or None)``."""
-    target = _target(name)
+    ``(key, target, tmp, process or None)``."""
+    target = _target(name, defines)
+    key = name if not defines else f"{name}[{','.join(defines)}]"
     if target.exists():
-        return name, target, None, None
+        return key, target, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return name, target, tmp, proc
+    return key, target, tmp, proc
 
 
-def _finish(name, target, tmp, proc) -> None:
+def _finish(key, target, tmp, proc) -> None:
     if proc is not None:
         out, _ = proc.communicate()
-        BUILD_LOG[name] = out
+        BUILD_LOG[key] = out
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
         os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
-    _LIBS[name] = ctypes.CDLL(str(target))
+    _LIBS[key] = ctypes.CDLL(str(target))
 
 
 def build_all(names=None) -> float:
@@ -76,11 +81,18 @@ def build_all(names=None) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    if name not in _LIBS:
-        build_all([name])
-    return _LIBS[name]
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use;
+    ``defines`` builds a variant with those macros set (the probes'
+    ablations)."""
+    if not defines:
+        if name not in _LIBS:
+            build_all([name])
+        return _LIBS[name]
+    job = _start(name, defines)
+    if job[0] not in _LIBS:
+        _finish(*job)
+    return _LIBS[job[0]]
 
 
 def check(status: int, what: str) -> None:

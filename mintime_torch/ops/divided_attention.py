@@ -161,9 +161,9 @@ def takes_whole_slice(G: int, L: int, c3: int, element_size: int) -> bool:
     return G * L * c3 * element_size <= WHOLE_SLICE_BYTES
 
 
-def check_kernel_shape(G: int, L: int, heads: int, dim_head: int) -> None:
+def check_kernel_shape(G: int, L: int, dim_head: int) -> None:
     """Raise ``ValueError`` unless the whole-slice kernels take G groups of L
-    positions at ``heads`` x ``dim_head``."""
+    positions with heads of ``dim_head``."""
     if dim_head != _KERNEL_DH:
         raise ValueError(f"divided_attention kernel is built for dim_head {_KERNEL_DH}, got {dim_head}")
     if not 1 <= L <= _KERNEL_MAX_L:
@@ -175,7 +175,7 @@ def check_kernel_shape(G: int, L: int, heads: int, dim_head: int) -> None:
 def _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
     B, G, L, c3 = qkv_g.shape
     inner = heads * dim_head
-    check_kernel_shape(G, L, heads, dim_head)
+    check_kernel_shape(G, L, dim_head)
     if c3 != 3 * inner or qkv_cls.shape != (B, 1, c3):
         raise ValueError(f"divided_attention: qkv {tuple(qkv_g.shape)} / qkv_cls"
                          f" {tuple(qkv_cls.shape)} do not match heads {heads} x {dim_head}")

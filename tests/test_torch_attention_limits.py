@@ -53,7 +53,7 @@ def test_conv_model_axes_fit_the_whole_slice_kernels(block, frames):
     C = channels(block)
     for axis, G, L in whole_slice_axes(C, frames, cfg.heads, cfg.dim_head):
         assert L <= da._KERNEL_MAX_L and G * L <= da._KERNEL_MAX_KEYS, (block, frames, axis)
-        da.check_kernel_shape(G, L, cfg.heads, cfg.dim_head)
+        da.check_kernel_shape(G, L, cfg.dim_head)
 
 
 @pytest.mark.parametrize("frames", VALID_NUM_FRAMES)
@@ -63,7 +63,7 @@ def test_flagship_axes_fit_the_whole_slice_kernels(frames):
     assert {a for a, _, _ in axes} == {"time", "space"}
     for axis, G, L in axes:
         assert L <= da._KERNEL_MAX_L and G * L <= da._KERNEL_MAX_KEYS, (frames, axis)
-        da.check_kernel_shape(G, L, heads, dim_head)
+        da.check_kernel_shape(G, L, dim_head)
 
 
 @pytest.mark.parametrize("block,C", [(4, 80), (7, 112), (10, 192), (13, 192)])
@@ -73,13 +73,13 @@ def test_tap_blocks_4_to_13_send_space_axes_longer_than_64(block, C):
     cfg = conv_config(block, 8)
     assert channels(block) == C
     assert ("space", 8, C) in whole_slice_axes(C, 8, cfg.heads, cfg.dim_head)
-    da.check_kernel_shape(8, C, cfg.heads, cfg.dim_head)
+    da.check_kernel_shape(8, C, cfg.dim_head)
 
 
 def test_the_shape_check_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="L <= 256"):
-        da.check_kernel_shape(8, 320, 6, 64)
+        da.check_kernel_shape(8, 320, 64)
     with pytest.raises(ValueError, match="G\\*L"):
-        da.check_kernel_shape(64, 256, 6, 64)
+        da.check_kernel_shape(64, 256, 64)
     with pytest.raises(ValueError, match="dim_head"):
-        da.check_kernel_shape(8, 16, 6, 32)
+        da.check_kernel_shape(8, 16, 32)
