@@ -21,7 +21,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    <= 2e-2 * max(1, max |plain|), each gradient's error and max printed),
    with its time, the plain version's time, the card's bound for the work
    and one library call's time as a yardstick the port never calls
-   (``scaled_dot_product_attention``, forward and backward, or cuDNN);
+   (``scaled_dot_product_attention``, forward and backward, or cuDNN). The
+   divided-attention backward also at the edges of its long-axis tiles
+   (L = 65 and 129, and L = 200 with a sequence mask and a CLS-row bias
+   that masks part of the row; rows with no calls, so they leave the
+   per-launch averages alone); at L = 192 two reruns must give the same
+   bits of ``d_qkv`` and ``d_qkvc``, and one call is profiled by CUDA launch
+   (the CLS row, the token rows' row and column launches, the reduce);
 3. slice: the flagship EfficientNet-B0 + Size-Invariant TimeSformer at full
    width (224 px, 1280 channels, dim 512, depth 9, 8 x 64 heads, F = 16,
    n = 49, two identities), seeded random weights, through the port's
@@ -527,15 +533,114 @@ def _grad_err(names, got, want) -> list[dict]:
     return rows
 
 
-def _backward_kernels(smi, gen):
-    """Each backward kernel vs its plain version at the flagship shapes of a
-    train step at batch 8, with seeded unit-scale cotangents, so that every
-    gradient's largest value exceeds 1 and the limit is 2e-2 of it."""
+def _divided_bwd_row(shape, args, H, calls, gen):
+    """The backward kernel vs its plain version (per gradient, unit-scale
+    cotangents), its time, the plain version's, the bound and the backward of
+    one dense masked SDPA call."""
     import torch
     import torch.nn.functional as F
 
     from mintime_torch.experiments.attn_kernel_variants import dense_inputs
     from mintime_torch.ops import divided_attention as da
+
+    qkv, qkvc, sb, rbias = args
+    B, G, L, _ = qkv.shape
+    dh = 64
+    inner = H * dh
+    r = lambda *s: torch.randn(*s, generator=gen).cuda().bfloat16()  # noqa: E731
+    d_tok, d_cls = r(B, G, L, inner), r(B, 1, inner)
+    kw = dict(heads=H, dim_head=dh)
+    fwd_args = (qkv, qkvc, sb, rbias, d_tok, d_cls)
+    got = da.divided_attention_bwd_cuda(*fwd_args, **kw)
+    want = da.divided_attention_bwd_plain(*fwd_args, **kw)
+    grads = _grad_err(("d_qkv", "d_qkvc"), got, want)
+    differing = float((got[0] != want[0]).float().mean())
+    del got, want
+    nbytes = (2 * (2 * qkv.numel() + 2 * qkvc.numel() + d_tok.numel() + d_cls.numel())
+              + 4 * _numel(sb, rbias))
+    T = 1 + L  # token rows: logits, dP, dq over T keys; dk, dv over L; CLS row over G*L keys
+    flops = 2 * B * H * dh * (G * L * (3 * T + 2 * L) + 4 * G * L)
+    b_ms, b_by = bound(nbytes, flops)
+    lq, lk, lv, lmask = (t.requires_grad_() if t.dtype != torch.bool else t
+                         for t in dense_inputs(qkv, qkvc, sb, _dense_row_bias(rbias, B, G), H, dh))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
+    lgrad = r(*lout.shape)
+    sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
+    return {
+        "shape": shape, "calls": calls,
+        "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
+        "ms": time_ms(lambda: da.divided_attention_bwd_cuda(*fwd_args, **kw)),
+        "plain_ms": time_ms(lambda: da.divided_attention_bwd_plain(*fwd_args, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa_bwd),
+        "library": "backward of one dense masked scaled_dot_product_attention call",
+        # above L = 64, P and dS enter the tensor-core products as bf16 hi/lo
+        # pairs: few bf16 values of d_qkv differ from the fp32 plain version's
+        # (about 40% would if P and dS were rounded once to bf16)
+        "d_qkv_differing": differing, "differing_limit": DIFFERING_LIMIT if L > 64 else None,
+    }
+
+
+#: largest share of the long-axis backward's bf16 d_qkv values that may
+#: differ from the fp32 plain version's
+DIFFERING_LIMIT = 0.05
+
+#: (L, seq mask) of the backward's edge rows: one past a 64-row chunk (65,
+#: 129) and, masked, a ragged last tile (200)
+BWD_EDGE_AXES = ((65, False), (129, False), (200, True))
+
+
+def _edge_inputs(gen, L, masked, B=8, G=8, H=6, dh=64):
+    """The conv space axis at L tokens; if ``masked``, a random seq mask (the
+    CLS key kept) and a CLS-row bias masking the last 3 frames of every
+    other video."""
+    import torch
+
+    from mintime_torch.ops.divided_attention import NEG, mask_to_bias
+
+    qkv = torch.randn(B, G, L, 3 * H * dh, generator=gen).cuda().bfloat16()
+    qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
+    if not masked:
+        return qkv, qkvc, None, None
+    keep = torch.rand(B, L, 1 + L, generator=gen) > 0.1
+    keep[..., 0] = True
+    rb = torch.zeros(B, G, 1, device="cuda")
+    rb[::2, G - 3:] = NEG
+    return qkv, qkvc, mask_to_bias(keep.cuda()), rb
+
+
+def _divided_bwd_rerun_and_launches(smi, gen, L=192):
+    """At the tap-10 space axis (G = 8 groups of L = 192): two reruns of the
+    backward must give the same bits, and one call's device time by CUDA
+    launch (the CLS row, the token rows' row and column launches, the
+    reduce) under ``torch.profiler``."""
+    import torch
+
+    from mintime_torch.ops import divided_attention as da
+
+    qkv, qkvc, sb, rb = _edge_inputs(gen, L, False)
+    B, G, _, c3 = qkv.shape
+    H = c3 // (3 * 64)
+    d_tok = torch.randn(B, G, L, H * 64, generator=gen).cuda().bfloat16()
+    d_cls = torch.randn(B, 1, H * 64, generator=gen).cuda().bfloat16()
+    call = lambda: da.divided_attention_bwd_cuda(qkv, qkvc, sb, rb, d_tok, d_cls,  # noqa: E731
+                                                 heads=H, dim_head=64)
+    first = call()
+    bitwise = all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
+    shape = f"B={B} G={G} L={L} H={H} dh=64"
+    emit({"phase": "kernel_bitwise", "name": "divided_attention_bwd", "shape": shape,
+          "card": smi, "reruns": 2, "d_qkv_and_d_qkvc_bitwise_equal": bitwise})
+    if not bitwise:
+        raise AssertionError(f"divided_attention_bwd gave other bits on a rerun at {shape}")
+    emit({"phase": "kernel_launches", "name": "divided_attention_bwd", "shape": shape,
+          "card": smi, **_profile(call)})
+
+
+def _backward_kernels(smi, gen):
+    """Each backward kernel vs its plain version at the flagship shapes of a
+    train step at batch 8, with seeded unit-scale cotangents, so that every
+    gradient's largest value exceeds 1 and the limit is 2e-2 of it."""
+    import torch
+
     from mintime_torch.ops import geglu_ffn as ffn
 
     rows = {"geglu_ffn_bwd": [], "divided_attention_bwd": []}
@@ -561,35 +666,17 @@ def _backward_kernels(smi, gen):
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             })
 
-    for shape, (qkv, qkvc, sb, rbias), H, _, calls in _divided_cases(gen):
-        B, G, L, c3 = qkv.shape
-        dh = 64
-        inner = H * dh
-        d_tok, d_cls = r(B, G, L, inner), r(B, 1, inner)
-        kw = dict(heads=H, dim_head=dh)
-        fwd_args = (qkv, qkvc, sb, rbias, d_tok, d_cls)
-        grads = _grad_err(("d_qkv", "d_qkvc"), da.divided_attention_bwd_cuda(*fwd_args, **kw),
-                          da.divided_attention_bwd_plain(*fwd_args, **kw))
-        nbytes = (2 * (2 * qkv.numel() + 2 * qkvc.numel() + d_tok.numel() + d_cls.numel())
-                  + 4 * _numel(sb, rbias))
-        T = 1 + L  # token rows: logits, dP, dq over T keys; dk, dv over L; CLS row over G*L keys
-        flops = 2 * B * H * dh * (G * L * (3 * T + 2 * L) + 4 * G * L)
-        b_ms, b_by = bound(nbytes, flops)
-        lq, lk, lv, lmask = (t.requires_grad_() if t.dtype != torch.bool else t
-                             for t in dense_inputs(qkv, qkvc, sb, _dense_row_bias(rbias, B, G),
-                                                   H, dh))
-        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
-        lgrad = torch.randn(lout.shape, generator=gen).cuda().bfloat16()
-        sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
-        rows["divided_attention_bwd"].append({
-            "shape": shape, "calls": calls,
-            "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
-            "ms": time_ms(lambda: da.divided_attention_bwd_cuda(*fwd_args, **kw)),
-            "plain_ms": time_ms(lambda: da.divided_attention_bwd_plain(*fwd_args, **kw)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa_bwd),
-            "library": "backward of one dense masked scaled_dot_product_attention call",
-        })
-        del qkv, qkvc, sb, rbias, d_tok, d_cls, fwd_args, lq, lk, lv, lmask, lout, lgrad
+    for shape, args, H, _, calls in _divided_cases(gen):
+        rows["divided_attention_bwd"].append(_divided_bwd_row(shape, args, H, calls, gen))
+        del args
+    # the long-axis launches' tile edges (16-row tiles, 64-row chunks), held
+    # against the plain version only: no main path launches these shapes
+    for L, masked in BWD_EDGE_AXES:
+        args = _edge_inputs(gen, L, masked)
+        rows["divided_attention_bwd"].append(_divided_bwd_row(
+            f"edge B=8 G=8 L={L} H=6 dh=64 seq_bias={masked}", args, 6, 0, gen))
+        del args
+    _divided_bwd_rerun_and_launches(smi, gen)
 
     rows["token_rows_attention_bwd"] = _token_rows_bwd_rows(gen)
     for name, shapes in rows.items():
@@ -599,6 +686,9 @@ def _backward_kernels(smi, gen):
             if off:
                 raise AssertionError(f"{name} {s['shape']}: gradients off by more than"
                                      f" {TOL} * max(1, max |plain|): {off}")
+            if s.get("differing_limit") and not s["d_qkv_differing"] <= s["differing_limit"]:
+                raise AssertionError(f"{name} {s['shape']}: {s['d_qkv_differing']:.1%} of d_qkv"
+                                     " differs from the plain version in bf16")
     return rows
 
 

@@ -39,21 +39,51 @@
 //      order and writes dk_cls and dv_cls.
 // Launch 2 keeps P and dS of the group in shared memory, [L][L+1] fp32 each:
 // 99 KB a block at L = 64 but 487 KB at L = 192. For 64 < L <= 256 it is
-// replaced by attn_bwd_token_rows_long_kernel, whose shared memory grows
-// with L only: q~, K, V and dO of the group in bf16 (all four are exact in
-// bf16; 139 KB at L = 256). One 16-warp block per (b, g, h) makes two
-// passes, recomputing the probabilities in registers each time:
-//   a. a warp per query row: logits, softmax, dS in registers (lane t for
-//      keys t, t + 32, ...), dq from dS broadcast by shuffles, and the row's
-//      max, sum and s_dot kept in shared memory;
-//   b. a warp per key t (the CLS key first): lane r recomputes P[r][t] and
-//      dS[r][t] from the row's scalars, and the warp sums dk_t and dv_t over
-//      the rows in order, a lane owning two dimensions (no atomics); the CLS
-//      key's sums are the group's partial dk_cls and dv_cls.
+// replaced by two launches on the tensor cores (mma.sync m16n8k16, bf16 in,
+// fp32 accumulators), each owning what it writes:
+//   2a. attn_bwd_long_rows_kernel, one 4-warp block per (b, g, h, chunk of
+//       64 query rows), [k_cls; K] and [v_cls; V] of the group in shared
+//       memory, a warp per 16 rows: S = q~ [k_cls; K]^T and
+//       dP = dO [v_cls; V]^T tile by tile (16 keys), a first sweep for each
+//       row's max, sum and s_dot (online, rescaled), a second for dS and
+//       dq = dS [k_cls; K]; writes dq, the rows' (max, sum, s_dot) as fp32
+//       scratch (B, G, H, L, 3), and the chunk's part of dk_cls and dv_cls
+//       (column 0 of dS^T q~ and P^T dO, summed over its rows in order);
+//   2b. attn_bwd_long_cols_kernel, one 4-warp block per (b, g, h, chunk of
+//       64 token keys), q and dO of the group in shared memory, a warp per
+//       16 keys: S^T and dP^T tile by tile (16 rows), P and dS from the
+//       stored row statistics, dK = dS^T q~ and dV = P^T dO, plus the CLS
+//       row's terms for each key from launch 1's scalars.
+// Each warp reads its own rows' operand (q and dO in 2a, K and V in 2b)
+// from device memory straight into A fragments, once; shared memory holds
+// only the operand every warp sweeps, staged by 16-byte cp.async into
+// unpadded rows whose 16-byte chunks are swizzled by the row, so ldmatrix
+// reads it without bank conflicts. That is at most 54 KB at L = 192 and
+// 70 KB at 256: three blocks an SM, with registers capped at 170 a thread.
+// q~, K, V and dO are exact in bf16, so S and dP match fp32 sums up to
+// their order; with dh = 64 the scale is 1/8, a power of two, so q~ = q / 8
+// exactly and the launches apply it to S and dK instead of to q. P and dS
+// are fp32 (exponentials by __expf, whose relative error near 2^-21 is below
+// what the split below keeps); they enter the gradient products as a bf16
+// hi/lo pair (x = hi + lo, two products into one fp32 accumulator), about 16
+// bits of mantissa. Keys past T and rows past L are padding to 16: padded
+// keys take the finite mask value and a probability of 0, padded rows write
+// nothing. Sums over rows and over keys run in a fixed order and every
+// output is written once: reruns give the same bits. Launch 3 then sums the
+// partials of every group and row chunk.
+//
+// Bound of the long axes: memory as well. At L = 192 (B = 8, G = 8, 6 heads)
+// a call moves about 66 MB (20 us at 3.35 TB/s) and does about 6 * 2 L T dh
+// FLOP a (b, g, h) on the tensor cores, a few us at the card's rate. What
+// sets the time is each warp's chain of products, exponentials and
+// shuffles at 12 warps an SM, and the staging: K and V once a row chunk,
+// q and dO once a key chunk, from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "warp_mma.cuh"
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
@@ -65,9 +95,10 @@ constexpr int DH = 64;          // head width
 constexpr int MAXL = 256;       // longest attended sequence of the token rows
 constexpr int SHORT_MAXL = 64;  // longest of attn_bwd_token_rows_kernel
 constexpr int MAXT = (SHORT_MAXL + 1 + 31) / 32;  // its keys per lane (CLS + L)
-constexpr int LONG_NT = (MAXL + 1 + 31) / 32;     // the long kernel's keys (and rows) per lane
-constexpr int LONG_WARPS = 16;
-constexpr int KVLD = DH + 2;    // padded bf16 rows (33 words): lane t reads row t conflict-free
+constexpr int TILE = 64;        // query rows (2a) or keys (2b) of a block of the long launches
+constexpr int TILE_WARPS = TILE / 16;
+constexpr int MIN_BLOCKS = 3;   // blocks an SM: at most 170 registers a thread
+constexpr float NEG = -0.7f * 3.402823466e38f;  // the finite mask value
 constexpr int TOK_WARPS = 4;
 constexpr int TOK_THREADS = TOK_WARPS * 32;
 constexpr int CLS_THREADS = 256;
@@ -360,195 +391,403 @@ attn_bwd_token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
   }
 }
 
-__device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
-  const bf162* a2 = reinterpret_cast<const bf162*>(a);
-  const bf162* b2 = reinterpret_cast<const bf162*>(b);
-  float s = 0.0f;
-#pragma unroll 8
-  for (int d2 = 0; d2 < DH / 2; ++d2) {
-    const float2 x = __bfloat1622float2(a2[d2]);
-    const float2 y = __bfloat1622float2(b2[d2]);
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
+using warp_mma::ldmatrix_x4;
+using warp_mma::ldmatrix_x4_trans;
+using warp_mma::mma_bf16;
+
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
+
+// Offset of element (r, c) of a [.][DH] bf16 tile in shared memory whose
+// 16-byte chunks are swizzled by the row (chunk c/8 of row r at chunk
+// (c/8) ^ (r % 8)): eight rows' same chunk fall in eight bank groups, so
+// ldmatrix and the staging copies read and write conflict-free, unpadded.
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * DH + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+// Rows first .. end-1 of a swizzled tile: row first + r from src + r * stride
+// (16-byte aligned) by cp.async while r < rows, zeros after.
+__device__ void stage_rows(bf16* tile, int first, const bf16* src, i64 stride, int rows,
+                           int end) {
+  for (int i = threadIdx.x; i < (end - first) * (DH / 8); i += blockDim.x) {
+    const int r = i / (DH / 8);
+    const int c = i % (DH / 8) * 8;
+    uint4* d = reinterpret_cast<uint4*>(tile + sw(first + r, c));
+    if (r < rows)
+      warp_mma::cp_async16(d, src + r * stride + c);
+    else
+      *d = make_uint4(0, 0, 0, 0);
   }
-  return s;
 }
 
-__device__ __forceinline__ float2 pair(const bf16* row, int lane) {
-  return __bfloat1622float2(*reinterpret_cast<const bf162*>(row + 2 * lane));
+// acc[n] (16 x 8, n = 0, 1) = A (16 x DH, fragments a[k]) times rows
+// n0 .. n0+15 of the swizzled tile m, transposed (16 x 16 of A m^T)
+__device__ __forceinline__ void mma_rows_t(float acc[2][4], const uint32_t a[DH / 16][4],
+                                           const bf16* m, int n0, int lane) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < DH / 16; ++k) {
+    uint32_t b[4];
+    ldmatrix_x4(b, m + sw(n0 + (lane & 7) + ((lane >> 4) << 3), k * 16 + ((lane >> 3) & 1) * 8));
+    mma_bf16(acc[0], a[k], b[0], b[1]);
+    mma_bf16(acc[1], a[k], b[2], b[3]);
+  }
 }
 
-// Launch 2 for 64 < L <= 256; the same results as attn_bwd_token_rows_kernel.
-__global__ void __launch_bounds__(LONG_WARPS * 32)
-attn_bwd_token_rows_long_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
-                                const bf16* __restrict__ qkvc, i64 scb,
-                                const float* __restrict__ seq_bias,
-                                const float* __restrict__ row_bias, i64 rb_b, i64 rb_g,
-                                i64 rb_l, const bf16* __restrict__ dtok, i64 db, i64 dg, i64 dl,
-                                const bf16* __restrict__ dcls, i64 dcb,
-                                const float* __restrict__ stats, bf16* __restrict__ dqkv, i64 ob,
-                                i64 og, i64 ol, float* __restrict__ kv_part, int G, int L, int H,
-                                float scale) {
+// acc (16 x DH, 8 tiles of 8 columns) += (hi + lo) (16 x 16) times rows
+// k0 .. k0+15 of the swizzled tile m
+__device__ __forceinline__ void mma_split(float acc[DH / 8][4], const uint32_t hi[4],
+                                          const uint32_t lo[4], const bf16* m, int k0, int lane) {
+#pragma unroll
+  for (int n = 0; n < DH / 16; ++n) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, m + sw(k0 + (lane & 7) + ((lane >> 3) & 1) * 8, n * 16 + (lane >> 4) * 8));
+    mma_bf16(acc[2 * n], hi, b[0], b[1]);
+    mma_bf16(acc[2 * n + 1], hi, b[2], b[3]);
+    mma_bf16(acc[2 * n], lo, b[0], b[1]);
+    mma_bf16(acc[2 * n + 1], lo, b[2], b[3]);
+  }
+}
+
+// The A fragments (16 x DH) of rows r0 .. r0+15 of a bf16 matrix in global
+// memory (row r at src + r * stride), rows from `rows` on zero: read once a
+// warp, straight into registers.
+__device__ __forceinline__ void load_a(uint32_t a[DH / 16][4], const bf16* src, i64 stride,
+                                       int r0, int rows, int lane) {
+#pragma unroll
+  for (int k = 0; k < DH / 16; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + (lane >> 2) + (i & 1) * 8;
+      const int c = k * 16 + (i >> 1) * 8 + 2 * (lane & 3);
+      a[k][i] = r < rows ? *reinterpret_cast<const uint32_t*>(src + r * stride + c) : 0u;
+    }
+}
+
+// Launch 2a for 64 < L <= 256: dq of a chunk of TILE query rows, the rows'
+// softmax statistics and the chunk's part of the CLS key's gradients. With
+// dh = 64 the scale 1/8 is a power of two, so q~ = q / 8 exactly: q is
+// read as it is and the scale applied to S (and to the dk_cls part).
+__global__ void __launch_bounds__(TILE_WARPS * 32, MIN_BLOCKS)
+attn_bwd_long_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
+                          const bf16* __restrict__ qkvc, i64 scb,
+                          const float* __restrict__ seq_bias, const bf16* __restrict__ dtok,
+                          i64 db, i64 dg, i64 dl, bf16* __restrict__ dqkv, i64 ob, i64 og,
+                          i64 ol, float* __restrict__ row_stats, float* __restrict__ kv_part,
+                          int G, int L, int H, float scale) {
   extern __shared__ __align__(16) unsigned char lsm[];
   const int T = L + 1;  // CLS key + L keys
-  bf16* ks = reinterpret_cast<bf16*>(lsm);  // [T][KVLD]  k_cls, K
-  bf16* vs = ks + T * KVLD;                 // [T][KVLD]  v_cls, V
-  bf16* qs = vs + T * KVLD;                 // [L][KVLD]  q~
-  bf16* dos = qs + L * KVLD;                // [L][KVLD]  dO
-  float* rst = reinterpret_cast<float*>(dos + L * KVLD);  // [L][3] max, sum, s_dot
-  float* qc = rst + 3 * L;                  // [DH]       q~_cls
-  float* dc = qc + DH;                      // [DH]       d_cls
-
+  const int Tp = pad16(T);
+  const int chunks = (L + TILE - 1) / TILE;
   const int h = blockIdx.x;
-  const int g = blockIdx.y;
+  const int g = blockIdx.y / chunks;
+  const int chunk = blockIdx.y % chunks;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int r0 = chunk * TILE;
+  const int rows = min(TILE, L - r0);
+  bf16* ks = reinterpret_cast<bf16*>(lsm);  // [Tp][DH]  k_cls, K, zeros (swizzled)
+  bf16* vs = ks + Tp * DH;                  // [Tp][DH]  v_cls, V, zeros (swizzled)
+  float* pc = reinterpret_cast<float*>(vs + Tp * DH);  // [TILE] P[r][0]
+  float* dsc = pc + TILE;                               // [TILE] dS[r][0]
+
   const int inner = H * DH;
   const bf16* base = qkv + b * sb + g * sg;
   const bf16* cls = qkvc + b * scb;
-  const bf16* dbase = dtok + b * db + g * dg;
   const int qoff = h * DH;
   const int koff = inner + h * DH;
   const int voff = 2 * inner + h * DH;
+  stage_rows(ks, 0, cls + koff, 0, 1, 1);
+  stage_rows(ks, 1, base + koff, sl, L, Tp);
+  stage_rows(vs, 0, cls + voff, 0, 1, 1);
+  stage_rows(vs, 1, base + voff, sl, L, Tp);
+  const bf16* qrows = base + r0 * sl + qoff;                    // q of the chunk (unscaled)
+  const bf16* drows = dtok + b * db + g * dg + r0 * dl + h * DH;  // dO of the chunk
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wr = warp * 16;  // the warp's first row in the chunk
+  uint32_t qa[DH / 16][4], da[DH / 16][4];  // loaded while the copies run
+  load_a(qa, qrows, sl, wr, rows, lane);
+  load_a(da, drows, dl, wr, rows, lane);
+  warp_mma::cp_async_wait_all();
+  __syncthreads();
 
-  for (int i = tid; i < T * DH; i += LONG_WARPS * 32) {
-    const int r = i / DH;
-    const int d = i % DH;
-    const bf16* row = r == 0 ? cls : base + (r - 1) * sl;
-    ks[r * KVLD + d] = row[koff + d];
-    vs[r * KVLD + d] = row[voff + d];
-    if (r > 0) {
-      qs[(r - 1) * KVLD + d] = __float2bfloat16(bf(row[qoff + d]) * scale);
-      dos[(r - 1) * KVLD + d] = dbase[(r - 1) * dl + h * DH + d];
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  if (wr < rows) {  // warp-uniform
+    // this thread's two rows: grp and grp + 8 of the warp's 16
+    const int row[2] = {r0 + wr + grp, r0 + wr + grp + 8};
+    const float* brow[2] = {nullptr, nullptr};
+    if (seq_bias != nullptr)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) brow[x] = seq_bias + (i64(b) * L + min(row[x], L - 1)) * T;
+    // S and dP of keys kb .. kb+15, S scaled and biased, padded keys at NEG
+    auto products = [&](float s[2][4], float dp[2][4], int kb) {
+      float bias[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // issued before the products, to hide its latency
+          const int t = kb + n * 8 + 2 * tig + (i & 1);
+          bias[n][i] = brow[i >> 1] != nullptr && t < T ? brow[i >> 1][t] : 0.0f;
+        }
+      mma_rows_t(s, qa, ks, kb, lane);
+      mma_rows_t(dp, da, vs, kb, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] = kb + n * 8 + 2 * tig + (i & 1) < T ? fmaf(s[n][i], scale, bias[n][i]) : NEG;
+    };
+
+    // sweep 1: each row's max, sum and unnormalised s_dot, online
+    float m[2] = {NEG, NEG}, sum[2] = {0.0f, 0.0f}, sdu[2] = {0.0f, 0.0f};
+    for (int kb = 0; kb < Tp; kb += 16) {
+      float s[2][4], dp[2][4];
+      products(s, dp, kb);
+      float mt[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mt[i >> 1] = fmaxf(mt[i >> 1], s[n][i]);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {  // the row's four lanes agree on its max
+        mt[x] = fmaxf(mt[x], __shfl_xor_sync(0xffffffffu, mt[x], 1));
+        mt[x] = fmaxf(mt[x], __shfl_xor_sync(0xffffffffu, mt[x], 2));
+        const float alpha = __expf(m[x] - mt[x]);
+        sum[x] *= alpha;
+        sdu[x] *= alpha;
+        m[x] = mt[x];
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = kb + n * 8 + 2 * tig + (i & 1);
+          const float e = t < T ? __expf(s[n][i] - m[i >> 1]) : 0.0f;
+          sum[i >> 1] += e;
+          sdu[i >> 1] = fmaf(e, dp[n][i], sdu[i >> 1]);
+        }
     }
+    float inv[2], sd[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 1);
+      sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 2);
+      sdu[x] += __shfl_xor_sync(0xffffffffu, sdu[x], 1);
+      sdu[x] += __shfl_xor_sync(0xffffffffu, sdu[x], 2);
+      inv[x] = 1.0f / sum[x];
+      sd[x] = sdu[x] * inv[x];
+    }
+
+    // sweep 2: P and dS, dq = dS [k_cls; K]
+    float dq[DH / 8][4];
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dq[n][i] = 0.0f;
+    for (int kb = 0; kb < Tp; kb += 16) {
+      float s[2][4], dp[2][4];
+      products(s, dp, kb);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = kb + n * 8 + 2 * tig + (i & 1);
+          const float p = t < T ? __expf(s[n][i] - m[i >> 1]) * inv[i >> 1] : 0.0f;
+          dp[n][i] = p * (dp[n][i] - sd[i >> 1]);  // dS
+          s[n][i] = p;
+        }
+      if (kb == 0 && tig == 0) {  // column 0: the CLS key
+        pc[wr + grp] = s[0][0];
+        dsc[wr + grp] = dp[0][0];
+        pc[wr + grp + 8] = s[0][2];
+        dsc[wr + grp + 8] = dp[0][2];
+      }
+      uint32_t hi[4], lo[4];
+      warp_mma::split_a(dp, hi, lo);
+      mma_split(dq, hi, lo, ks, kb, lane);
+    }
+
+    bf16* obase = dqkv + b * ob + g * og;
+    float* st = row_stats + ((size_t(b) * G + g) * H + h) * size_t(L) * 3;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (row[x] >= L) continue;
+      bf16* orow = obase + row[x] * ol + qoff;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<bf162*>(orow + n * 8 + 2 * tig) =
+            __floats2bfloat162_rn(scale * dq[n][2 * x], scale * dq[n][2 * x + 1]);
+      if (tig == 0) {
+        st[3 * row[x]] = m[x];
+        st[3 * row[x] + 1] = sum[x];
+        st[3 * row[x] + 2] = sd[x];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the CLS key's column over the chunk's rows, summed in order: the chunk's
+  // part of dk_cls (dS[:, 0]^T q~) and dv_cls (P[:, 0]^T dO)
+  if (threadIdx.x < 2 * DH) {
+    const int d = threadIdx.x % DH;
+    const bool v = threadIdx.x >= DH;
+    const float* w = v ? pc : dsc;
+    const bf16* x = v ? drows : qrows;
+    const i64 stride = v ? dl : sl;
+    float a = 0.0f;
+    for (int r = 0; r < rows; ++r) a = fmaf(w[r], bf(x[r * stride + d]), a);
+    kv_part[(((size_t(b) * G + g) * chunks + chunk) * H + h) * 2 * DH + threadIdx.x] =
+        v ? a : scale * a;
+  }
+}
+
+// Launch 2b for 64 < L <= 256: dK and dV of a chunk of TILE token keys, with
+// the CLS row's terms. q is staged unscaled: the scale goes to S^T and dK.
+__global__ void __launch_bounds__(TILE_WARPS * 32, MIN_BLOCKS)
+attn_bwd_long_cols_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
+                          const bf16* __restrict__ qkvc, i64 scb,
+                          const float* __restrict__ seq_bias,
+                          const float* __restrict__ row_bias, i64 rb_b, i64 rb_g, i64 rb_l,
+                          const bf16* __restrict__ dtok, i64 db, i64 dg, i64 dl,
+                          const bf16* __restrict__ dcls, i64 dcb, const float* __restrict__ stats,
+                          const float* __restrict__ row_stats, bf16* __restrict__ dqkv, i64 ob,
+                          i64 og, i64 ol, int G, int L, int H, float scale) {
+  extern __shared__ __align__(16) unsigned char lsm[];
+  const int T = L + 1;
+  const int Lp = pad16(L);
+  const int chunks = (L + TILE - 1) / TILE;
+  const int h = blockIdx.x;
+  const int g = blockIdx.y / chunks;
+  const int chunk = blockIdx.y % chunks;
+  const int b = blockIdx.z;
+  const int j0 = chunk * TILE;  // first token key of the chunk (key j0 + 1 of [CLS; tokens])
+  const int keys = min(TILE, L - j0);
+  bf16* qs = reinterpret_cast<bf16*>(lsm);  // [Lp][DH]  q (unscaled), zeros (swizzled)
+  bf16* dos = qs + Lp * DH;                 // [Lp][DH]  dO, zeros (swizzled)
+  float* rm = reinterpret_cast<float*>(dos + Lp * DH);  // [Lp] row max
+  float* rinv = rm + Lp;                                   // [Lp] 1 / row sum
+  float* rsd = rinv + Lp;                                  // [Lp] row s_dot
+  float* qc = rsd + Lp;                                    // [DH] q~_cls
+  float* dc = qc + DH;                                     // [DH] d_cls
+
+  const int tid = threadIdx.x;
+  const int inner = H * DH;
+  const bf16* base = qkv + b * sb + g * sg;
+  const bf16* cls = qkvc + b * scb;
+  const int qoff = h * DH;
+  const int koff = inner + h * DH;
+  const int voff = 2 * inner + h * DH;
+  const bf16* krows = base + j0 * sl + koff;  // K of the chunk
+  const bf16* vrows = base + j0 * sl + voff;  // V of the chunk
+  stage_rows(qs, 0, base + qoff, sl, L, Lp);
+  stage_rows(dos, 0, dtok + b * db + g * dg + h * DH, dl, L, Lp);
+  const float* rst = row_stats + ((size_t(b) * G + g) * H + h) * size_t(L) * 3;
+  for (int r = tid; r < Lp; r += TILE_WARPS * 32) {
+    rm[r] = r < L ? rst[3 * r] : 0.0f;
+    rinv[r] = r < L ? 1.0f / rst[3 * r + 1] : 0.0f;
+    rsd[r] = r < L ? rst[3 * r + 2] : 0.0f;
   }
   if (tid < DH) {
     qc[tid] = bf16_round(bf(cls[qoff + tid]) * scale);
     dc[tid] = bf(dcls[b * dcb + h * DH + tid]);
   }
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int wk = warp * 16;  // the warp's first key in the chunk
+  uint32_t ka[DH / 16][4], va[DH / 16][4];  // loaded while the copies run
+  load_a(ka, krows, sl, wk, keys, lane);
+  load_a(va, vrows, sl, wk, keys, lane);
+  warp_mma::cp_async_wait_all();
   __syncthreads();
+  if (wk >= keys) return;  // warp-uniform; no barrier follows
 
-  bf16* obase = dqkv + b * ob + g * og;
-  // a. a warp per query row r, lane t for keys t, t + 32, ...
-  for (int r = warp; r < L; r += LONG_WARPS) {
-    const bf16* qrow = qs + r * KVLD;
-    const bf16* drow = dos + r * KVLD;
-    float p[LONG_NT], ds[LONG_NT];
-    float mx = -INFINITY;
+  // the CLS row's terms for this thread's two keys, from launch 1's scalars:
+  // q~_cls . k and d_cls . v over the key's fragments, summed over its 4 lanes
+  float cp[2], cdl[2];
+  {
+    float lr[2] = {0.0f, 0.0f}, dp[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < LONG_NT; ++j) {
-      const int t = lane + 32 * j;
-      float s = -INFINITY;
-      if (t < T) {
-        s = dot_bf16(qrow, ks + t * KVLD);
-        if (seq_bias != nullptr) s += seq_bias[(i64(b) * L + r) * T + t];
+    for (int k = 0; k < DH / 16; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = k * 16 + (i >> 1) * 8 + 2 * tig;
+        const float2 kf = __bfloat1622float2(*reinterpret_cast<const bf162*>(&ka[k][i]));
+        const float2 vf = __bfloat1622float2(*reinterpret_cast<const bf162*>(&va[k][i]));
+        lr[i & 1] = fmaf(qc[c], kf.x, fmaf(qc[c + 1], kf.y, lr[i & 1]));
+        dp[i & 1] = fmaf(dc[c], vf.x, fmaf(dc[c + 1], vf.y, dp[i & 1]));
       }
-      p[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
+    const float* st = stats + (size_t(b) * H + h) * 3;
 #pragma unroll
-    for (int j = 0; j < LONG_NT; ++j) {
-      const int t = lane + 32 * j;
-      const float e = t < T ? expf(p[j] - mx) : 0.0f;
-      p[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float sd = 0.0f;
+    for (int x = 0; x < 2; ++x) {
 #pragma unroll
-    for (int j = 0; j < LONG_NT; ++j) {
-      const int t = lane + 32 * j;
-      p[j] /= sum;
-      ds[j] = t < T ? dot_bf16(drow, vs + t * KVLD) : 0.0f;
-      sd += p[j] * ds[j];
-    }
-    sd = warp_sum(sd);
-#pragma unroll
-    for (int j = 0; j < LONG_NT; ++j) ds[j] = p[j] * (ds[j] - sd);
-
-    float a0 = 0.0f, a1 = 0.0f;  // dq of dimensions 2*lane, 2*lane + 1
-#pragma unroll
-    for (int j = 0; j < LONG_NT; ++j) {
-      if (32 * j >= T) continue;  // warp-uniform; j stays a constant index
-      for (int u = 0; u < 32 && 32 * j + u < T; ++u) {
-        const float w = __shfl_sync(0xffffffffu, ds[j], u);
-        const float2 k = pair(ks + (32 * j + u) * KVLD, lane);
-        a0 = fmaf(w, k.x, a0);
-        a1 = fmaf(w, k.y, a1);
+      for (int o = 1; o < 4; o <<= 1) {
+        lr[x] += __shfl_xor_sync(0xffffffffu, lr[x], o);
+        dp[x] += __shfl_xor_sync(0xffffffffu, dp[x], o);
       }
-    }
-    *reinterpret_cast<bf162*>(obase + r * ol + qoff + 2 * lane) =
-        __floats2bfloat162_rn(scale * a0, scale * a1);
-    if (lane == 0) {
-      rst[3 * r] = mx;
-      rst[3 * r + 1] = sum;
-      rst[3 * r + 2] = sd;
+      const int kk = min(wk + grp + 8 * x, keys - 1);
+      if (row_bias != nullptr) lr[x] += row_bias[b * rb_b + g * rb_g + (j0 + kk) * rb_l];
+      cp[x] = expf(lr[x] - st[0]) / st[1];
+      cdl[x] = cp[x] * (dp[x] - st[2]);
     }
   }
-  __syncthreads();
+  // this thread's two keys of [CLS; tokens]: grp and grp + 8 of the warp's 16
+  const int key[2] = {j0 + wk + grp + 1, j0 + wk + grp + 9};
+  float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.0f;
+  for (int rb = 0; rb < Lp; rb += 16) {
+    float s[2][4], dp[2][4];  // S^T and dP^T: keys x rows rb .. rb+15
+    float bias[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // issued before the products, to hide its latency
+        const int r = rb + n * 8 + 2 * tig + (i & 1);
+        const int t = key[i >> 1];
+        bias[n][i] = seq_bias != nullptr && r < L && t < T
+                         ? seq_bias[(i64(b) * L + r) * T + t] : 0.0f;
+      }
+    mma_rows_t(s, ka, qs, rb, lane);
+    mma_rows_t(dp, va, dos, rb, lane);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rb + n * 8 + 2 * tig + (i & 1);
+        const float p = r < L && key[i >> 1] < T
+                            ? __expf(fmaf(s[n][i], scale, bias[n][i]) - rm[r]) * rinv[r] : 0.0f;
+        dp[n][i] = p * (dp[n][i] - rsd[r]);  // dS^T
+        s[n][i] = p;                         // P^T
+      }
+    uint32_t hi[4], lo[4];
+    warp_mma::split_a(dp, hi, lo);
+    mma_split(dk, hi, lo, qs, rb, lane);
+    warp_mma::split_a(s, hi, lo);
+    mma_split(dv, hi, lo, dos, rb, lane);
+  }
 
-  // b. a warp per key t (0 = the CLS key), lane r for rows r, r + 32, ...
-  const float* st = stats + (size_t(b) * H + h) * 3;
-  for (int t = warp; t < T; t += LONG_WARPS) {
-    const bf16* krow = ks + t * KVLD;
-    const bf16* vrow = vs + t * KVLD;
-    float p[LONG_NT], ds[LONG_NT];
+  bf16* obase = dqkv + b * ob + g * og;
 #pragma unroll
-    for (int j = 0; j < LONG_NT; ++j) {
-      const int r = lane + 32 * j;
-      p[j] = ds[j] = 0.0f;
-      if (r < L) {
-        float s = dot_bf16(qs + r * KVLD, krow);
-        if (seq_bias != nullptr) s += seq_bias[(i64(b) * L + r) * T + t];
-        const float pr = expf(s - rst[3 * r]) / rst[3 * r + 1];
-        p[j] = pr;
-        ds[j] = pr * (dot_bf16(dos + r * KVLD, vrow) - rst[3 * r + 2]);
-      }
-    }
-    float ak0 = 0.0f, ak1 = 0.0f, av0 = 0.0f, av1 = 0.0f;
-    const float2 q2 = make_float2(qc[2 * lane], qc[2 * lane + 1]);
-    const float2 d2 = make_float2(dc[2 * lane], dc[2 * lane + 1]);
-    if (t > 0) {  // the CLS row's terms for key t, from launch 1's scalars
-      const float2 k = pair(krow, lane);
-      const float2 v = pair(vrow, lane);
-      float lr = warp_sum(q2.x * k.x + q2.y * k.y);
-      const float dp = warp_sum(d2.x * v.x + d2.y * v.y);
-      if (row_bias != nullptr) lr += row_bias[b * rb_b + g * rb_g + (t - 1) * rb_l];
-      const float cp = expf(lr - st[0]) / st[1];
-      const float cdl = cp * (dp - st[2]);
-      ak0 = cdl * q2.x;
-      ak1 = cdl * q2.y;
-      av0 = cp * d2.x;
-      av1 = cp * d2.y;
-    }
+  for (int x = 0; x < 2; ++x) {
+    const int kk = wk + grp + 8 * x;  // key in the chunk
+    if (kk >= keys) continue;
+    bf16* orow = obase + (j0 + kk) * ol;
 #pragma unroll
-    for (int j = 0; j < LONG_NT; ++j) {
-      if (32 * j >= L) continue;  // warp-uniform; j stays a constant index
-      for (int u = 0; u < 32 && 32 * j + u < L; ++u) {
-        const float ws = __shfl_sync(0xffffffffu, ds[j], u);
-        const float wp = __shfl_sync(0xffffffffu, p[j], u);
-        const float2 q = pair(qs + (32 * j + u) * KVLD, lane);
-        const float2 o = pair(dos + (32 * j + u) * KVLD, lane);
-        ak0 = fmaf(ws, q.x, ak0);
-        ak1 = fmaf(ws, q.y, ak1);
-        av0 = fmaf(wp, o.x, av0);
-        av1 = fmaf(wp, o.y, av1);
-      }
-    }
-    if (t == 0) {
-      float* part = kv_part + ((size_t(b) * G + g) * H + h) * 2 * DH;
-      part[2 * lane] = ak0;
-      part[2 * lane + 1] = ak1;
-      part[DH + 2 * lane] = av0;
-      part[DH + 2 * lane + 1] = av1;
-    } else {
-      bf16* orow = obase + (t - 1) * ol;
-      *reinterpret_cast<bf162*>(orow + koff + 2 * lane) = __floats2bfloat162_rn(ak0, ak1);
-      *reinterpret_cast<bf162*>(orow + voff + 2 * lane) = __floats2bfloat162_rn(av0, av1);
+    for (int n = 0; n < DH / 8; ++n) {
+      const int d = n * 8 + 2 * tig;
+      *reinterpret_cast<bf162*>(orow + koff + d) = __floats2bfloat162_rn(
+          fmaf(cdl[x], qc[d], scale * dk[n][2 * x]),
+          fmaf(cdl[x], qc[d + 1], scale * dk[n][2 * x + 1]));
+      *reinterpret_cast<bf162*>(orow + voff + d) = __floats2bfloat162_rn(
+          fmaf(cp[x], dc[d], dv[n][2 * x]), fmaf(cp[x], dc[d + 1], dv[n][2 * x + 1]));
     }
   }
 }
@@ -570,64 +809,89 @@ size_t token_smem(int L) {
   return sizeof(float) * ((2 * size_t(L) + 2 * T) * KLD + 2 * size_t(L) * T + 2 * size_t(L) + 2 * DH);
 }
 
-size_t long_smem(int L) {
-  const size_t T = size_t(L) + 1;
-  return sizeof(bf16) * (2 * T + 2 * size_t(L)) * KVLD + sizeof(float) * (3 * size_t(L) + 2 * DH);
+size_t long_rows_smem(int L) {
+  return sizeof(bf16) * 2 * size_t(pad16(L + 1)) * DH + sizeof(float) * 2 * TILE;
 }
+
+size_t long_cols_smem(int L) {
+  const size_t Lp = pad16(L);
+  return sizeof(bf16) * 2 * Lp * DH + sizeof(float) * (3 * Lp + 2 * DH);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// Scratch from the caller, fp32: stats (B*H*3), cls_kv (B*H*2*dh),
-// kv_part (B*G*H*2*dh).
+// Scratch from the caller, fp32: stats (B*H*3), cls_kv (B*H*2*dh), kv_part
+// (B*G*C*H*2*dh) and, for 64 < L, row_stats (B*G*H*L*3), where C is 1 for L
+// <= 64 and ceil(L / 64) above. Above L = 64 the three bf16 inputs and their
+// strides (but the last) must be 16-byte aligned.
 extern "C" int divided_attention_bwd(const void* qkv, i64 sb, i64 sg, i64 sl, const void* qkvc,
                                      i64 scb, const void* seq_bias, const void* row_bias,
                                      i64 rb_b, i64 rb_g, i64 rb_l, const void* dtok, i64 db,
                                      i64 dg, i64 dl, const void* dcls, i64 dcb, void* dqkv,
                                      i64 ob, i64 og, i64 ol, void* dqkvc, i64 ocb, void* stats,
-                                     void* cls_kv, void* kv_part, int B, int G, int L, int H,
-                                     int dh, void* stream) {
+                                     void* cls_kv, void* kv_part, void* row_stats, int B, int G,
+                                     int L, int H, int dh, void* stream) {
   if (dh != DH || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1 || G > 65535 || B > 65535)
     return int(cudaErrorInvalidValue);
   const size_t cls_smem = 2 * size_t(G) * L * sizeof(float);
   if (cls_smem > 96 * 1024) return int(cudaErrorInvalidValue);
   const bool long_rows = L > SHORT_MAXL;
-  const size_t tok_smem = long_rows ? long_smem(L) : token_smem(L);
+  if (long_rows && (!aligned16(qkv) || !aligned16(qkvc) || !aligned16(dtok) || row_stats == nullptr
+                    || (sb | sg | sl | scb | db | dg | dl) % 8 != 0))
+    return int(cudaErrorMisalignedAddress);
+  const int chunks = long_rows ? (L + TILE - 1) / TILE : 1;
+  if (G * chunks > 65535) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_cls_row_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(cls_smem));
   if (err != cudaSuccess) return int(err);
-  err = long_rows ? cudaFuncSetAttribute(attn_bwd_token_rows_long_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(tok_smem))
-                  : cudaFuncSetAttribute(attn_bwd_token_rows_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(tok_smem));
+  if (long_rows) {
+    err = cudaFuncSetAttribute(attn_bwd_long_rows_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(long_rows_smem(L)));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_long_cols_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 int(long_cols_smem(L)));
+  } else {
+    err = cudaFuncSetAttribute(attn_bwd_token_rows_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(token_smem(L)));
+  }
   if (err != cudaSuccess) return int(err);
   const float scale = 1.0f / sqrtf(float(DH));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* qc = static_cast<const bf16*>(qkvc);
+  const float* sqb = static_cast<const float*>(seq_bias);
   const float* rb = static_cast<const float*>(row_bias);
+  const bf16* dt = static_cast<const bf16*>(dtok);
   const bf16* dc = static_cast<const bf16*>(dcls);
+  bf16* dq = static_cast<bf16*>(dqkv);
   bf16* dqc = static_cast<bf16*>(dqkvc);
   float* st = static_cast<float*>(stats);
   float* ckv = static_cast<float*>(cls_kv);
   float* part = static_cast<float*>(kv_part);
+  float* rst = static_cast<float*>(row_stats);
 
   attn_bwd_cls_row_kernel<<<dim3(H, B), CLS_THREADS, cls_smem, s>>>(
       q, sb, sg, sl, qc, scb, rb, rb_b, rb_g, rb_l, dc, dcb, dqc, ocb, st, ckv, G, L, H, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  if (long_rows)
-    attn_bwd_token_rows_long_kernel<<<dim3(H, G, B), LONG_WARPS * 32, tok_smem, s>>>(
-        q, sb, sg, sl, qc, scb, static_cast<const float*>(seq_bias), rb, rb_b, rb_g, rb_l,
-        static_cast<const bf16*>(dtok), db, dg, dl, dc, dcb, st, static_cast<bf16*>(dqkv), ob, og,
-        ol, part, G, L, H, scale);
-  else
-    attn_bwd_token_rows_kernel<<<dim3(H, G, B), TOK_THREADS, tok_smem, s>>>(
-        q, sb, sg, sl, qc, scb, static_cast<const float*>(seq_bias), rb, rb_b, rb_g, rb_l,
-        static_cast<const bf16*>(dtok), db, dg, dl, dc, dcb, st, static_cast<bf16*>(dqkv), ob, og,
-        ol, part, G, L, H, scale);
+  if (long_rows) {
+    attn_bwd_long_rows_kernel<<<dim3(H, G * chunks, B), TILE_WARPS * 32, long_rows_smem(L), s>>>(
+        q, sb, sg, sl, qc, scb, sqb, dt, db, dg, dl, dq, ob, og, ol, rst, part, G, L, H, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+    attn_bwd_long_cols_kernel<<<dim3(H, G * ((L + TILE - 1) / TILE), B), TILE_WARPS * 32,
+                                long_cols_smem(L), s>>>(
+        q, sb, sg, sl, qc, scb, sqb, rb, rb_b, rb_g, rb_l, dt, db, dg, dl, dc, dcb, st, rst, dq,
+        ob, og, ol, G, L, H, scale);
+  } else {
+    attn_bwd_token_rows_kernel<<<dim3(H, G, B), TOK_THREADS, token_smem(L), s>>>(
+        q, sb, sg, sl, qc, scb, sqb, rb, rb_b, rb_g, rb_l, dt, db, dg, dl, dc, dcb, st, dq, ob,
+        og, ol, part, G, L, H, scale);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  attn_bwd_cls_reduce_kernel<<<dim3(H, B), 2 * DH, 0, s>>>(ckv, part, dqc, ocb, G, H);
+  // the partials of every group and row chunk, in order
+  attn_bwd_cls_reduce_kernel<<<dim3(H, B), 2 * DH, 0, s>>>(ckv, part, dqc, ocb, G * chunks, H);
   return int(cudaGetLastError());
 }

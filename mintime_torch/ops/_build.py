@@ -3,9 +3,11 @@
 Each ``mintime_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. Libraries land in ``mintime_torch/.build/<name>-<hash>.so``, keyed
-on a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. :func:`build_all` starts one ``nvcc`` per source, all
-at once. Nothing here runs at import time: the CPU tests import every module.
+on a hash of the source, the headers it includes with ``#include "..."``
+(``csrc/warp_mma.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. :func:`build_all` starts one
+``nvcc`` per source, all at once. Nothing here runs at import time: the CPU
+tests import every module.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,6 +28,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: per-source ``nvcc`` output (register and shared-memory use from ``-Xptxas -v``)
 BUILD_LOG: dict[str, str] = {}
@@ -41,8 +45,22 @@ def _flags(defines: tuple[str, ...]) -> list[str]:
     return NVCC_FLAGS + [f"-D{d}" for d in defines]
 
 
+def _sources(path: Path) -> list[Path]:
+    """``path`` and every file it includes with ``#include "..."``, in the
+    order first met, through includes of includes."""
+    found, todo = [], [path]
+    while todo:
+        p = todo.pop(0)
+        if p not in found:
+            found.append(p)
+            todo += [p.parent / inc for inc in _INCLUDE.findall(p.read_text())]
+    return found
+
+
 def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest = hashlib.sha256()
+    for src in _sources(CSRC / f"{name}.cu"):
+        digest.update(src.read_bytes())
     digest.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

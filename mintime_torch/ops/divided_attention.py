@@ -55,6 +55,10 @@ _KERNEL_DH = 64
 #: (``mintime_tpu/models/timesformer.py:152``)
 _KERNEL_MAX_L = 256
 _KERNEL_MAX_KEYS = 12 * 1024  # G*L fp32 CLS-row logits in 48 KB of shared memory
+#: above this L the backward's token rows take the tensor-core launches, a
+#: block per chunk of ``_LONG_TILE`` query rows and one per chunk of as many keys
+_SHORT_MAX_L = 64
+_LONG_TILE = 64
 
 #: largest packed qkv slice (G*L*3*inner bytes) of the whole-slice kernels
 #: (``pallas_attention.py:770``); larger slices take the token rows
@@ -234,6 +238,17 @@ def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, di
     return out, out_cls
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its start and every stride but the last are 16-byte aligned,
+    else a copy in its stride order (a model's views always are aligned)."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in t.stride()[:-1]):
+        return t
+    out = _empty_grouped(t, t.shape[-1]) if t.dim() == 4 else torch.empty_like(
+        t, memory_format=torch.contiguous_format)
+    return out.copy_(t)
+
+
 def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls, *,
                                heads: int, dim_head: int):
     """Launch the backward kernel; same results as
@@ -255,11 +270,16 @@ def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls,
             or d_tok.device != dev or d_cls.device != dev:
         raise ValueError(f"divided_attention: cotangents {tuple(d_tok.shape)} /"
                          f" {tuple(d_cls.shape)} do not match qkv {tuple(qkv_g.shape)}")
+    long_rows = L > _SHORT_MAX_L
+    if long_rows:  # the tensor-core launches stage rows by 16-byte copies
+        qkv_g, qkv_cls, d_tok = (_aligned16(t) for t in (qkv_g, qkv_cls, d_tok))
+    chunks = -(-L // _LONG_TILE) if long_rows else 1
     d_qkv = _empty_grouped(qkv_g, c3)
     d_qkvc = torch.empty((B, 1, c3), dtype=qkv_g.dtype, device=dev)
     stats = torch.empty((B, heads, 3), dtype=f32, device=dev)
     cls_kv = torch.empty((B, heads, 2, dim_head), dtype=f32, device=dev)
-    kv_part = torch.empty((B, G, heads, 2, dim_head), dtype=f32, device=dev)
+    kv_part = torch.empty((B, G * chunks, heads, 2, dim_head), dtype=f32, device=dev)
+    row_stats = torch.empty((B, G, heads, L, 3) if long_rows else (0,), dtype=f32, device=dev)
     if row_bias is not None:
         row_bias = row_bias.expand(B, G, L)
         rb_ptr, rb_strides = row_bias.data_ptr(), row_bias.stride()
@@ -269,7 +289,7 @@ def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls,
     fn = lib.divided_attention_bwd
     i64, ptr = ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = ([ptr, i64, i64, i64, ptr, i64, ptr, ptr, i64, i64, i64, ptr, i64, i64, i64,
-                    ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr]
+                    ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr]
                    + [ctypes.c_int] * 5 + [ptr])
     fn.restype = ctypes.c_int
     sb, sg, sl, _ = qkv_g.stride()
@@ -281,7 +301,7 @@ def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls,
             None if seq_bias is None else seq_bias.data_ptr(), rb_ptr, *rb_strides,
             d_tok.data_ptr(), tb, tg, tl, d_cls.data_ptr(), d_cls.stride(0),
             d_qkv.data_ptr(), ob, og, ol, d_qkvc.data_ptr(), d_qkvc.stride(0),
-            stats.data_ptr(), cls_kv.data_ptr(), kv_part.data_ptr(),
+            stats.data_ptr(), cls_kv.data_ptr(), kv_part.data_ptr(), row_stats.data_ptr(),
             B, G, L, heads, dim_head, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(status, "divided_attention_bwd")

@@ -114,10 +114,11 @@ def test_bias_gradients_are_zero_and_cpu_launches_nothing():
 
 
 @pytest.mark.parametrize("bias", ["row", "seq"])
-@pytest.mark.parametrize("L", [80, 112, 192])
+@pytest.mark.parametrize("L", [65, 80, 112, 129, 192])
 def test_grads_match_jax_at_long_axes(L, bias):
     """The backward in the whole-slice regime at 64 < L <= 256 (the conv
-    model's space axis at tap blocks 4-13): ``jax.grad`` through the Pallas
+    model's space axis at tap blocks 4-13, and 65 and 129, one past the
+    64-row tiles of the card's long-axis launches): ``jax.grad`` through the Pallas
     kernels in interpret mode against the port's autograd Function, fp32,
     1e-4, unit-scale cotangents."""
     from test_torch_attention import _long_axis_biases, _long_axis_case
@@ -146,3 +147,22 @@ def test_grads_match_jax_at_long_axes(L, bias):
         lead = got.shape[:-1]
         got = got.reshape(*lead, 3, h, dh).swapaxes(-3, -2).reshape(*lead, -1)  # → head-major
         np.testing.assert_allclose(got, np.asarray(w), atol=1e-4, rtol=1e-4, err_msg=f"L={L} {name}")
+
+
+def test_misaligned_views_are_copied_in_stride_order():
+    """The backward's long-axis launches read rows by 16-byte copies, so the
+    wrapper passes a view through when its start and strides are 16-byte
+    aligned and otherwise copies it, keeping its stride order."""
+    flat = torch.arange(2 * 3 * 5 * 24 + 8, dtype=torch.float32).bfloat16()
+    aligned = flat[:720].view(2, 3, 5, 24)
+    assert port._aligned16(aligned) is aligned
+    time_view = torch.zeros(2, 5, 3, 24, dtype=torch.bfloat16).transpose(1, 2)
+    assert port._aligned16(time_view) is time_view
+    shifted = flat[1:721].view(2, 3, 5, 24)  # starts 2 bytes past a 16-byte boundary
+    odd = torch.zeros(2, 5, 3, 25, dtype=torch.bfloat16)[..., :24].transpose(1, 2)  # 50-byte rows
+    cls = flat[1:49].view(2, 1, 24)
+    for view in (shifted, odd, cls):
+        out = port._aligned16(view)
+        assert out is not view and torch.equal(out, view)
+        assert out.data_ptr() % 16 == 0 and all(s * 2 % 16 == 0 for s in out.stride()[:-1])
+        assert (out.dim() < 4 or (out.stride(1) < out.stride(2)) == (view.stride(1) < view.stride(2)))

@@ -1,0 +1,36 @@
+"""The kernel build's cache key (``mintime_torch/ops/_build.py``): a library
+is keyed on its source, every header that source includes with
+``#include "..."`` and the flags, so an edited header rebuilds the kernels
+that include it. Needs no ``nvcc``: only the target paths are computed."""
+
+import pytest
+
+from mintime_torch.ops import _build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "a.cuh"\nint b;\n')
+    (tmp_path / "other.cuh").write_text("int other;\n")
+    return tmp_path
+
+
+def test_sources_follow_quoted_includes_once(csrc):
+    assert [p.name for p in _build._sources(csrc / "k.cu")] == ["k.cu", "a.cuh", "b.cuh"]
+
+
+@pytest.mark.parametrize("edited,changes", [("k.cu", True), ("a.cuh", True), ("b.cuh", True),
+                                            ("other.cuh", False)])
+def test_target_changes_when_an_included_file_changes(csrc, edited, changes):
+    before = _build._target("k")
+    (csrc / edited).write_text((csrc / edited).read_text() + "// edited\n")
+    assert (_build._target("k") != before) == changes
+    assert _build._target("k", ("X=1",)) != _build._target("k")
+
+
+def test_attention_backward_key_covers_the_mma_header():
+    names = [p.name for p in _build._sources(_build.CSRC / "divided_attention_bwd.cu")]
+    assert names == ["divided_attention_bwd.cu", "warp_mma.cuh"]

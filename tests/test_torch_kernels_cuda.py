@@ -250,37 +250,63 @@ def test_token_rows_forward_kernel_on_card_at_space_axis():
                                atol=2e-2, rtol=2e-2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("L", [80, 112, 192, 256])
-def test_divided_attention_kernels_on_card_at_long_axes(L):
-    """Both whole-slice kernels at 64 < L <= 256 (the conv model's space axis
-    at tap blocks 4-13: G = 8 frames of L = C channel tokens, 6 heads of 64)
-    against their plain versions in bf16, with a CLS-row bias that masks
-    frames and, on a strided view, a seq_bias (needs the card)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    gen = torch.Generator().manual_seed(9)
-    B, G, H, dh = 2, 8, 6, 64
+def _long_axis_inputs(L, gen, B=2, G=8, H=6, dh=64, masked=False):
+    """The conv model's space axis at L channel tokens on a strided view, a
+    CLS-row bias that masks frames and, if ``masked``, a seq_bias."""
     qkv = torch.randn(B, L, G, 3 * H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
     qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
     rb = torch.zeros(B, G, 1, device="cuda")
     rb[1, 5:] = port_divided.NEG
-    keep = torch.rand(B, L, 1 + L, generator=gen) > 0.1
-    keep[..., 0] = True
-    kw = dict(heads=H, dim_head=dh)
-    for sb in (None, port_divided.mask_to_bias(keep.cuda())):
-        got = port_divided.divided_attention_cuda(qkv, qkvc, sb, rb, **kw)
-        want = port_divided.divided_attention_plain(qkv, qkvc, sb, rb, **kw)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
-        d_tok = torch.randn(B, G, L, H * dh, generator=gen).cuda().bfloat16()
-        d_cls = torch.randn(B, 1, H * dh, generator=gen).cuda().bfloat16()
-        got = port_divided.divided_attention_bwd_cuda(qkv, qkvc, sb, rb, d_tok, d_cls, **kw)
-        torch.cuda.synchronize()
-        assert got[0].stride() == qkv.stride()
-        _close_per_gradient(
-            got, port_divided.divided_attention_bwd_plain(qkv, qkvc, sb, rb, d_tok, d_cls, **kw),
-            f"attention L={L} seq_bias={sb is not None}")
+    sb = None
+    if masked:
+        keep = torch.rand(B, L, 1 + L, generator=gen) > 0.1
+        keep[..., 0] = True
+        sb = port_divided.mask_to_bias(keep.cuda())
+    d_tok = torch.randn(B, G, L, H * dh, generator=gen).cuda().bfloat16()
+    d_cls = torch.randn(B, 1, H * dh, generator=gen).cuda().bfloat16()
+    return (qkv, qkvc, sb, rb), (d_tok, d_cls), dict(heads=H, dim_head=dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("L", [65, 80, 112, 129, 192, 200, 256])
+def test_divided_attention_kernels_on_card_at_long_axes(L, masked):
+    """Both whole-slice kernels at 64 < L <= 256 (the conv model's space axis
+    at tap blocks 4-13: G = 8 frames of L = C channel tokens, 6 heads of 64,
+    and 65, 129, 200 at the edges of the backward's 16-row tiles and 64-row
+    chunks) against their plain versions in bf16, on a strided view with a
+    CLS-row bias that masks frames, with and without a seq_bias (needs the
+    card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args, cots, kw = _long_axis_inputs(L, torch.Generator().manual_seed(9), masked=masked)
+    got = port_divided.divided_attention_cuda(*args, **kw)
+    want = port_divided.divided_attention_plain(*args, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+    got = port_divided.divided_attention_bwd_cuda(*args, *cots, **kw)
+    torch.cuda.synchronize()
+    assert got[0].stride() == args[0].stride()
+    want = port_divided.divided_attention_bwd_plain(*args, *cots, **kw)
+    _close_per_gradient(got, want, f"attention L={L} seq_bias={masked}")
+    # P and dS enter the tensor-core products as bf16 hi/lo pairs: few values
+    # round otherwise than the fp32 plain version's (about 40% would if P and
+    # dS were rounded once to bf16)
+    assert float((got[0] != want[0]).float().mean()) < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [49, 192])
+def test_divided_attention_backward_kernel_is_bitwise_stable(L):
+    """The backward kernel gives the same bits on reruns: every sum runs in a
+    fixed order and no atomics are used (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args, cots, kw = _long_axis_inputs(L, torch.Generator().manual_seed(11), masked=True)
+    first = port_divided.divided_attention_bwd_cuda(*args, *cots, **kw)
+    for _ in range(2):
+        again = port_divided.divided_attention_bwd_cuda(*args, *cots, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 @pytest.mark.cuda
