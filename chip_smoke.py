@@ -296,6 +296,7 @@ def phase_kernels(smi):
             "library_max_abs_err": lib_err,
         })
         del qkv, qkvc, sb, rbias, lq, lk, lv, lmask
+    _divided_fwd_rerun_and_launches(smi)
 
     rows["token_rows_attention"] = _token_rows_rows(gen)
     rows.update(_probe_kernel_rows(gen))
@@ -632,6 +633,31 @@ def _divided_bwd_rerun_and_launches(smi, gen, L=192):
     if not bitwise:
         raise AssertionError(f"divided_attention_bwd gave other bits on a rerun at {shape}")
     emit({"phase": "kernel_launches", "name": "divided_attention_bwd", "shape": shape,
+          "card": smi, **_profile(call)})
+
+
+def _divided_fwd_rerun_and_launches(smi, L=192):
+    """At the tap-10 space axis (G = 8 groups of L = 192, 6 x 64 heads): two
+    reruns of the forward must give the same bits, and one call's device
+    time by CUDA launch (the token rows and the CLS row's launches) under
+    ``torch.profiler``. Its inputs come from a generator of their own, so
+    the rows after it keep theirs."""
+    import torch
+
+    from mintime_torch.ops import divided_attention as da
+
+    qkv, qkvc, sb, rb = _edge_inputs(torch.Generator().manual_seed(8), L, False)
+    B, G, _, c3 = qkv.shape
+    H = c3 // (3 * 64)
+    call = lambda: da.divided_attention_cuda(qkv, qkvc, sb, rb, heads=H, dim_head=64)  # noqa: E731
+    first = call()
+    bitwise = all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
+    shape = f"B={B} G={G} L={L} H={H} dh=64"
+    emit({"phase": "kernel_bitwise", "name": "divided_attention", "shape": shape,
+          "card": smi, "reruns": 2, "out_and_out_cls_bitwise_equal": bitwise})
+    if not bitwise:
+        raise AssertionError(f"divided_attention gave other bits on a rerun at {shape}")
+    emit({"phase": "kernel_launches", "name": "divided_attention", "shape": shape,
           "card": smi, **_profile(call)})
 
 
