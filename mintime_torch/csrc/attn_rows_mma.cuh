@@ -1,0 +1,219 @@
+// The forward attention of one warp's 16 query rows over one group's keys
+// on Hopper's tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulators),
+// shared by csrc/grouped_attention.cu and csrc/divided_attention.cu.
+//
+// The group's T = 1 + L keys and values sit in shared memory in bf16, the
+// CLS pair as row 0, rows padded with zeros to a multiple of 16, each row
+// DH = 64 values (narrower heads padded with zeros), its 16-byte chunks
+// swizzled by the row (see sw) so that ldmatrix reads them conflict-free.
+// The warp's q rows arrive as A fragments in registers. Per row r:
+//   S = scale * q_r [k_cls; K]^T + bias_r        (fp32; padded keys at NEG)
+//   P = bf16(exp(S - max S) / sum exp(S - max S))  (normalised, then rounded)
+//   o = P[1:] V + P[0] v_cls                      (fp32 sums; the CLS term last)
+// which is what both TPU kernels compute (mintime_tpu/ops/
+// pallas_attention.py:58-67 for _kernel, :191-199 for _divided_kernel's
+// token rows). Two passes over S, each a 16-key tile at a time: the first
+// keeps each row's running max and sum, the second recomputes S, forms P
+// with the final max and sum and multiplies it into V. P's accumulator
+// fragments are P's A fragments as they stand, with the CLS column set to
+// zero; P[0] v_cls is added in fp32 after the token sum. An online softmax
+// that rescales o would round P elsewhere than the TPU kernels do.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "warp_mma.cuh"
+
+namespace attn_rows {
+
+typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
+typedef long long i64;
+
+constexpr int DH = 64;                          // row width in shared memory
+constexpr float NEG = -0.7f * 3.402823466e38f;  // the finite mask value
+
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
+
+// Offset of element (r, c) of a [.][DH] bf16 tile in shared memory whose
+// 16-byte chunks are swizzled by the row (chunk c/8 of row r at chunk
+// (c/8) ^ (r % 8)): eight rows' same chunk fall in eight bank groups, so
+// ldmatrix and the staging copies read and write conflict-free, unpadded.
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * DH + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+// Rows first .. end-1 of a swizzled tile: row first + r from src + r * stride
+// while r < rows, zeros after. With `width` = DH and src and stride 16-byte
+// aligned the rows go by 16-byte cp.async; otherwise (narrower heads) by
+// 4-byte loads, zeros from column `width` on (width even).
+__device__ __forceinline__ void stage_rows(bf16* tile, int first, const bf16* src, i64 stride,
+                                           int rows, int end, int width = DH) {
+  if (width == DH) {
+    for (int i = threadIdx.x; i < (end - first) * (DH / 8); i += blockDim.x) {
+      const int r = i / (DH / 8);
+      const int c = i % (DH / 8) * 8;
+      uint4* d = reinterpret_cast<uint4*>(tile + sw(first + r, c));
+      if (r < rows)
+        warp_mma::cp_async16(d, src + r * stride + c);
+      else
+        *d = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < (end - first) * (DH / 2); i += blockDim.x) {
+    const int r = i / (DH / 2);
+    const int c = i % (DH / 2) * 2;
+    *reinterpret_cast<uint32_t*>(tile + sw(first + r, c)) =
+        r < rows && c < width ? *reinterpret_cast<const uint32_t*>(src + r * stride + c) : 0u;
+  }
+}
+
+// The A fragments (16 x DH) of rows r0 .. r0+15 of a bf16 matrix in global
+// memory (row r at src + r * stride), rows from `rows` on and columns from
+// `width` on zero (width even): read once a warp, straight into registers.
+__device__ __forceinline__ void load_a(uint32_t a[DH / 16][4], const bf16* src, i64 stride,
+                                       int r0, int rows, int lane, int width = DH) {
+#pragma unroll
+  for (int k = 0; k < DH / 16; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + (lane >> 2) + (i & 1) * 8;
+      const int c = k * 16 + (i >> 1) * 8 + 2 * (lane & 3);
+      a[k][i] = r < rows && c < width ? *reinterpret_cast<const uint32_t*>(src + r * stride + c)
+                                      : 0u;
+    }
+}
+
+// s[n] (16 x 8, n = 0, 1) = A (16 x DH, fragments a[k]) times rows
+// n0 .. n0+15 of the swizzled tile m, transposed (16 x 16 of A m^T)
+__device__ __forceinline__ void mma_rows_t(float s[2][4], const uint32_t a[DH / 16][4],
+                                           const bf16* m, int n0, int lane) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < DH / 16; ++k) {
+    uint32_t b[4];
+    warp_mma::ldmatrix_x4(b, m + sw(n0 + (lane & 7) + ((lane >> 4) << 3),
+                                    k * 16 + ((lane >> 3) & 1) * 8));
+    warp_mma::mma_bf16(s[0], a[k], b[0], b[1]);
+    warp_mma::mma_bf16(s[1], a[k], b[2], b[3]);
+  }
+}
+
+// o (16 x DH, DH/8 tiles of 8 columns) += p (16 x 16) times rows k0 .. k0+15
+// of the swizzled tile m
+__device__ __forceinline__ void mma_pv(float o[DH / 8][4], const uint32_t p[4], const bf16* m,
+                                       int k0, int lane) {
+#pragma unroll
+  for (int n = 0; n < DH / 16; ++n) {
+    uint32_t b[4];
+    warp_mma::ldmatrix_x4_trans(b, m + sw(k0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                          n * 16 + (lane >> 4) * 8));
+    warp_mma::mma_bf16(o[2 * n], p, b[0], b[1]);
+    warp_mma::mma_bf16(o[2 * n + 1], p, b[2], b[3]);
+  }
+}
+
+// The warp's 16 rows (this thread's rows grp = lane / 4 and grp + 8, as in
+// the C fragments) against keys 0 .. T-1 of the swizzled tiles ks and vs
+// (row 0 the CLS pair, zeros from T to pad16(T)). q is the rows' A fragments;
+// brow[x] the row's bias over the T keys (fp32, column 0 the CLS key) or
+// null. Returns o (16 x DH) in C fragments, fp32. Padded query rows (zero
+// fragments) come out finite and are the caller's to drop.
+__device__ __forceinline__ void attend_rows(float o[DH / 8][4], const uint32_t q[DH / 16][4],
+                                            const bf16* ks, const bf16* vs, int T, float scale,
+                                            const float* const brow[2], int lane) {
+  const int tig = lane & 3;
+  const int Tp = pad16(T);
+  // S of keys kb .. kb+15, scaled and biased, padded keys at NEG
+  auto logits = [&](float s[2][4], int kb) {
+    float bias[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // issued before the products, to hide its latency
+        const int t = kb + n * 8 + 2 * tig + (i & 1);
+        bias[n][i] = brow[i >> 1] != nullptr && t < T ? brow[i >> 1][t] : 0.0f;
+      }
+    mma_rows_t(s, q, ks, kb, lane);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[n][i] = kb + n * 8 + 2 * tig + (i & 1) < T ? fmaf(s[n][i], scale, bias[n][i]) : NEG;
+  };
+
+  // pass 1: each row's max and sum, online
+  float m[2] = {NEG, NEG}, sum[2] = {0.0f, 0.0f};
+  for (int kb = 0; kb < Tp; kb += 16) {
+    float s[2][4];
+    logits(s, kb);
+    float mt[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mt[i >> 1] = fmaxf(mt[i >> 1], s[n][i]);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {  // the row's four lanes agree on its max
+      mt[x] = fmaxf(mt[x], __shfl_xor_sync(0xffffffffu, mt[x], 1));
+      mt[x] = fmaxf(mt[x], __shfl_xor_sync(0xffffffffu, mt[x], 2));
+      sum[x] *= __expf(m[x] - mt[x]);
+      m[x] = mt[x];
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (kb + n * 8 + 2 * tig + (i & 1) < T) sum[i >> 1] += __expf(s[n][i] - m[i >> 1]);
+  }
+  float inv[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 1);
+    sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 2);
+    inv[x] = 1.0f / sum[x];
+  }
+
+  // pass 2: P = bf16(exp(S - m) / sum), o = P[:, 1:] V
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.0f;
+  float pc[2] = {0.0f, 0.0f};  // P[r][0], held by the lanes with tig == 0
+  for (int kb = 0; kb < Tp; kb += 16) {
+    float s[2][4];
+    logits(s, kb);
+    uint32_t p[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // A fragment j: C tile j / 2, row half j % 2
+      const float* c = s[j >> 1] + (j & 1) * 2;
+      const int t = kb + (j >> 1) * 8 + 2 * tig;
+      const float p0 = t < T ? __expf(c[0] - m[j & 1]) * inv[j & 1] : 0.0f;
+      const float p1 = t + 1 < T ? __expf(c[1] - m[j & 1]) * inv[j & 1] : 0.0f;
+      __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
+      if (t == 0) {  // the CLS column: kept aside, zero in the product
+        pc[j & 1] = __low2float(pb);
+        pb = __floats2bfloat162_rn(0.0f, p1);
+      }
+      p[j] = warp_mma::as_u32(pb);
+    }
+    mma_pv(o, p, vs, kb, lane);
+  }
+
+  // o += P[:, 0] v_cls, in fp32 after the token sum
+#pragma unroll
+  for (int x = 0; x < 2; ++x) pc[x] = __shfl_sync(0xffffffffu, pc[x], lane & ~3);
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    const float2 vc = __bfloat1622float2(*reinterpret_cast<const bf162*>(vs + sw(0, n * 8 + 2 * tig)));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = fmaf(pc[i >> 1], (i & 1) ? vc.y : vc.x, o[n][i]);
+  }
+}
+
+}  // namespace attn_rows

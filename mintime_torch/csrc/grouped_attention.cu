@@ -12,120 +12,100 @@
 //
 // Bound on an H100: memory. At the flagship's B = 8, H = 8, G*L = 784,
 // D = 64 a call reads q, k, v once and writes out (4 * 6.4 MB): 7.7 us at
-// 3.35 TB/s; its arithmetic, 4*B*H*G*L*(1+L)*D, is at most 0.2 GFLOP.
+// 3.35 TB/s, plus the bias where there is one; its arithmetic,
+// 4*B*H*G*L*(1+L)*D, is at most 0.2 GFLOP.
 //
 // Design: the TPU kernel took a whole (b*h) slice per grid step and batched
-// its groups through the MXU. Here one 4-warp block owns one (b*h, g) (3136
-// blocks on the time axis, 1024 on the space axis), in the style of
-// csrc/token_rows_attention.cu: the group's K and V (the CLS pair as row 0)
-// sit in shared memory as fp32, each warp takes one query row at a time,
-// lane t computes the logit of key t (up to 65 keys, three a lane), shuffles
-// give the max and the sum, and the bf16 probabilities in shared memory feed
-// PV with each lane owning D/32 output dimensions.
+// its groups through the MXU. Here a block of WARPS warps takes as many
+// consecutive (b*h, g) groups as it has warps for: a warp per 16 query
+// rows, ceil(L / 16) warps a group (the time axis, L = 16: four groups a
+// block; the space axis, L = 49: one). The block stages its groups' K and
+// V (the CLS pair as row 0) in shared memory as swizzled bf16 rows of 64
+// (narrower heads padded with zeros; 16-byte cp.async when D is a multiple
+// of 8, 4-byte loads otherwise), each warp loads its q rows into A
+// fragments and runs attn_rows::attend_rows (csrc/attn_rows_mma.cuh): both
+// products on mma.sync tiles, two passes over S, P rounded to bf16 after
+// normalising. The bias is read per tile from device memory (at most
+// B*L*(1+L)*4 bytes, which stays in L2). Every output is written once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 
-typedef __nv_bfloat16 bf16;
-typedef long long i64;
+#include "attn_rows_mma.cuh"
+
+using attn_rows::bf16;
+using attn_rows::bf162;
+using attn_rows::DH;
+using attn_rows::i64;
 
 namespace {
 
-constexpr int MAXD = 64;        // widest head
-constexpr int MAXL = 64;        // longest group (the space axis' 49)
-constexpr int MAXT = (MAXL + 1 + 31) / 32;  // keys per lane (CLS + L)
-constexpr int WARPS = 4;
-constexpr int KLD = MAXD + 1;   // padded fp32 rows: lane t reads key t conflict-free
+#ifndef GROUPED_WARPS
+#define GROUPED_WARPS 4
+#endif
+constexpr int WARPS = GROUPED_WARPS;  // warps a block
+constexpr int MAXL = 64;              // longest group (the space axis' 49)
 
-__device__ __forceinline__ float bf(const bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
+// the block's groups n0 .. n0+gpb-1 of the N = B*H*G, each ceil(L/16) warps
 __global__ void __launch_bounds__(WARPS * 32)
 grouped_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ kc,
                          const bf16* __restrict__ vc, const float* __restrict__ bias,
-                         bf16* __restrict__ out, int G, int L, int D, int H) {
-  __shared__ float ks[MAXL + 1][KLD];
-  __shared__ float vs[MAXL + 1][MAXD];
-  __shared__ float qs[WARPS][MAXD];
-  __shared__ float ps[WARPS][MAXL + 1];
-
-  const int g = blockIdx.x;
-  const int p = blockIdx.y;  // b * H + h
-  const int b = p / H;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+                         bf16* __restrict__ out, int N, int G, int L, int D, int H, int gpb,
+                         int wide) {
+  extern __shared__ __align__(16) unsigned char gsm[];
   const int T = L + 1;  // CLS key + L keys
-  const i64 base = (i64(p) * G + g) * L * D;
-
-  for (int i = tid; i < T * D; i += WARPS * 32) {
-    const int r = i / D;
-    const int d = i % D;
-    ks[r][d] = bf(r == 0 ? kc[i64(p) * D + d] : k[base + (r - 1) * D + d]);
-    vs[r][d] = bf(r == 0 ? vc[i64(p) * D + d] : v[base + (r - 1) * D + d]);
+  const int Tp = attn_rows::pad16(T);
+  const int wpg = (L + 15) / 16;  // warps a group
+  const int n0 = blockIdx.x * gpb;
+  const int width = wide ? DH : D;  // DH: stage by 16-byte copies
+  bf16* ks = reinterpret_cast<bf16*>(gsm);  // [gpb][Tp][DH]  k_cls, K, zeros (swizzled)
+  bf16* vs = ks + gpb * Tp * DH;            // [gpb][Tp][DH]  v_cls, V, zeros (swizzled)
+  for (int j = 0; j < gpb && n0 + j < N; ++j) {
+    const int n = n0 + j;
+    const i64 p = n / G;  // b * H + h
+    bf16* kt = ks + j * Tp * DH;
+    bf16* vt = vs + j * Tp * DH;
+    attn_rows::stage_rows(kt, 0, kc + p * D, 0, 1, 1, width);
+    attn_rows::stage_rows(kt, 1, k + i64(n) * L * D, D, L, Tp, width);
+    attn_rows::stage_rows(vt, 0, vc + p * D, 0, 1, 1, width);
+    attn_rows::stage_rows(vt, 1, v + i64(n) * L * D, D, L, Tp, width);
   }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int j = warp / wpg;
+  const int n = n0 + j;
+  const int r0 = warp % wpg * 16;  // the warp's first row in the group
+  const bool active = j < gpb && n < N;  // warp-uniform
+  const i64 base = i64(active ? n : 0) * L * D;
+  uint32_t qa[DH / 16][4];  // loaded while the copies run
+  if (active) attn_rows::load_a(qa, q + base, D, r0, L, lane, D);
+  warp_mma::cp_async_wait_all();
   __syncthreads();
+  if (!active) return;
 
-  for (int r = warp; r < L; r += WARPS) {
-    for (int d = lane; d < D; d += 32) qs[warp][d] = bf(q[base + r * D + d]);
-    __syncwarp();
-
-    float logit[MAXT];
-    float mx = -INFINITY;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int row[2] = {r0 + grp, r0 + grp + 8};
+  const float* brow[2] = {nullptr, nullptr};
+  if (bias != nullptr) {
+    const i64 b = n / G / H;
 #pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
-      const int t = lane + 32 * j;
-      float s = -INFINITY;
-      if (t < T) {
-        float a = 0.0f;
-        for (int e = 0; e < D; ++e) a = fmaf(qs[warp][e], ks[t][e], a);
-        if (bias != nullptr) a += bias[(i64(b) * L + r) * T + t];
-        s = a;
-      }
-      logit[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
+    for (int x = 0; x < 2; ++x) brow[x] = bias + (b * L + min(row[x], L - 1)) * T;
+  }
+  float o[DH / 8][4];
+  attn_rows::attend_rows(o, qa, ks + j * Tp * DH, vs + j * Tp * DH, T, 1.0f, brow, lane);
 #pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
-      const int t = lane + 32 * j;
-      const float e = t < T ? expf(logit[j] - mx) : 0.0f;
-      logit[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
+  for (int x = 0; x < 2; ++x) {
+    if (row[x] >= L) continue;
+    bf16* orow = out + base + i64(row[x]) * D;
 #pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
-      const int t = lane + 32 * j;
-      if (t < T) ps[warp][t] = bf16_round(logit[j] / sum);
+    for (int c = 0; c < DH / 8; ++c) {
+      const int d = c * 8 + 2 * tig;
+      if (d < D)
+        *reinterpret_cast<bf162*>(orow + d) = __floats2bfloat162_rn(o[c][2 * x], o[c][2 * x + 1]);
     }
-    __syncwarp();
-
-    // P[1:] V first, then the CLS value, as the TPU kernel adds them
-    for (int d = lane; d < D; d += 32) {
-      float a = 0.0f;
-      for (int t = 1; t < T; ++t) a = fmaf(ps[warp][t], vs[t][d], a);
-      a = fmaf(ps[warp][0], vs[0][d], a);
-      out[base + r * D + d] = __float2bfloat16(a);
-    }
-    __syncwarp();  // qs and ps are rewritten for the next row
   }
 }
 
@@ -136,12 +116,25 @@ grouped_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 extern "C" int grouped_attention_fwd(const void* q, const void* k, const void* v, const void* kc,
                                      const void* vc, const void* bias, void* out, int B, int H,
                                      int G, int L, int D, void* stream) {
-  if (D < 2 || D > MAXD || D % 2 || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1 ||
-      i64(B) * H > 65535)
+  if (D < 2 || D > DH || D % 2 || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1)
     return int(cudaErrorInvalidValue);
-  grouped_attention_kernel<<<dim3(G, B * H), WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int wpg = (L + 15) / 16;
+  const int gpb = WARPS / wpg;  // L <= 64: at least one group a block
+  const i64 N = i64(B) * H * G;
+  const i64 blocks = (N + gpb - 1) / gpb;
+  if (blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
+  // 16-byte copies need D a multiple of 8 and 16-byte aligned starts
+  const void* ptrs[5] = {q, k, v, kc, vc};
+  bool wide = D == DH;
+  for (const void* p : ptrs) wide = wide && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const int smem = 2 * gpb * attn_rows::pad16(L + 1) * DH * int(sizeof(bf16));
+  cudaError_t err = cudaFuncSetAttribute(grouped_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  grouped_attention_kernel<<<unsigned(blocks), WARPS * 32, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(kc), static_cast<const bf16*>(vc), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), G, L, D, H);
+      static_cast<bf16*>(out), int(N), G, L, D, H, gpb, wide);
   return int(cudaGetLastError());
 }
