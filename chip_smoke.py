@@ -287,14 +287,25 @@ def phase_kernels(smi):
                           da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw))
         if not lib_err <= TOL:
             raise AssertionError(f"the one-call attention yardstick differs by {lib_err}")
-        rows["divided_attention"].append({
+        row = {
             "shape": shape, "calls": calls, "max_abs_err": err,
             "ms": time_ms(lambda: da.divided_attention_cuda(qkv, qkvc, sb, rbias, **kw)),
             "plain_ms": time_ms(lambda: da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
             "library": "scaled_dot_product_attention, one dense masked call",
             "library_max_abs_err": lib_err,
-        })
+        }
+        if L <= da._SCALAR_ROWS_MAX_L:
+            # both token-row kernels against the plain version, timed in turns
+            both = {m: (lambda m=m: da.divided_attention_cuda(  # noqa: E731
+                qkv, qkvc, sb, rbias, mma_rows=m, **kw)) for m in (False, True)}
+            plain = da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw)
+            row["max_abs_err"] = max(max_err(both[m](), plain) for m in both)
+            row["token_rows_ms"] = {name: time_ms(both[m]) for name, m in
+                                    (("scalar", False), ("mma", True), ("mma_again", True),
+                                     ("scalar_again", False))}
+            del plain
+        rows["divided_attention"].append(row)
         del qkv, qkvc, sb, rbias, lq, lk, lv, lmask
     _divided_fwd_rerun_and_launches(smi)
 
@@ -407,6 +418,85 @@ def _grouped_inputs(gen, G, L, masked, B=8, H=8, D=64):
     return (q, k, v, kc, vc, None if mask is None else mask_to_bias(mask)), mask
 
 
+def _grouped_row(args, mask, H, calls, tag=""):
+    """The grouped-attention kernel vs its plain version on ``args``, its
+    time, the plain version's, the bound and one SDPA call over the groups
+    with the CLS key prepended."""
+    import torch
+    import torch.nn.functional as F
+
+    from mintime_torch.ops import grouped_attention as ga
+
+    q, k, v, kc, vc, bias = args
+    B, _, G, L, D = q.shape
+    plain = ga.fused_grouped_attention_plain(*args, heads=H)
+    err = max_err(ga.fused_grouped_attention_cuda(*args, heads=H), plain)
+    # read q, k, v, k_cls, v_cls and the bias, write out
+    nbytes = 2 * (4 * q.numel() + 2 * kc.numel()) + 4 * _numel(bias)
+    b_ms, b_by = bound(nbytes, 4 * B * H * G * L * (1 + L) * D)
+    lq = q.reshape(B, H * G, L, D)
+    lk, lv = (torch.cat([c[:, :, None].expand(B, H, G, 1, D), t], dim=3)
+              .reshape(B, H * G, 1 + L, D) for c, t in ((kc, k), (vc, v)))
+    lmask = None if mask is None else mask[:, None]
+    sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask, scale=1.0)  # noqa: E731
+    return {
+        "shape": f"{tag}B={B} H={H} G={G} L={L} D={D}" + (" masked" if mask is not None else ""),
+        "calls": calls, "max_abs_err": err,
+        "ms": time_ms(lambda: ga.fused_grouped_attention_cuda(*args, heads=H)),
+        "plain_ms": time_ms(lambda: ga.fused_grouped_attention_plain(*args, heads=H)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+        "library": "scaled_dot_product_attention over (B, H*G, L, 1+L), CLS prepended",
+        "library_max_abs_err": max_err(sdpa().reshape(plain.shape), plain),
+    }
+
+
+def _grouped_reruns():
+    """At flagship width on both axes, masked, two reruns of the grouped
+    kernel must give the same bits."""
+    import torch
+
+    from mintime_torch.ops import grouped_attention as ga
+
+    gen = torch.Generator().manual_seed(13)
+    for G, L in ((49, 16), (16, 49)):
+        args, _ = _grouped_inputs(gen, G, L, True)
+        first = ga.fused_grouped_attention_cuda(*args, heads=8)
+        bitwise = all(torch.equal(ga.fused_grouped_attention_cuda(*args, heads=8), first)
+                      for _ in range(2))
+        shape = f"B=8 H=8 G={G} L={L} D=64 masked"
+        emit({"phase": "kernel_bitwise", "name": "grouped_attention", "shape": shape,
+              "reruns": 2, "out_bitwise_equal": bitwise})
+        if not bitwise:
+            raise AssertionError(f"grouped_attention gave other bits on a rerun at {shape}")
+
+
+#: (G, L, D, masked) of the grouped kernel's edges: one key, one past a
+#: 16-row tile, the longest group, and a head width that is no multiple of 8;
+#: masked ones also mask every token key of some rows
+GROUPED_EDGES = ((8, 1, 64, False), (8, 17, 64, True), (8, 33, 64, False), (4, 64, 64, True),
+                 (16, 49, 30, True))
+
+
+def _grouped_edge_inputs(gen, G, L, D, masked, B=2, H=8):
+    """As :func:`_grouped_inputs` at the edge shapes; a masked case drops
+    every token key of every third row of the first video (the CLS key
+    kept)."""
+    import torch
+
+    from mintime_torch.ops.divided_attention import mask_to_bias
+
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    q, k, v = r(B, H, G, L, D, sc=D ** -0.5), r(B, H, G, L, D), r(B, H, G, L, D, sc=0.5)
+    kc, vc = r(B, H, 1, D), r(B, H, 1, D)
+    mask = None
+    if masked:
+        mask = torch.rand(B, L, 1 + L, generator=gen) > 0.3
+        mask[..., 0] = True
+        mask[0, ::3, 1:] = False
+        mask = mask.cuda()
+    return (q, k, v, kc, vc, None if mask is None else mask_to_bias(mask)), mask
+
+
 def _probe_kernel_rows(gen):
     """The probes' kernels against their plain versions, with their times,
     bounds and library calls: the grouped attention at flagship width, the
@@ -422,34 +512,22 @@ def _probe_kernel_rows(gen):
     from mintime_torch.ops import chunked_attention as ca
     from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import dw_conv
-    from mintime_torch.ops import grouped_attention as ga
 
     rows = {"grouped_attention": [], "chunked_attention": [], "dw_conv": [], "dw_conv_wgrad": []}
     H = 8
     for (G, L) in ((49, 16), (16, 49)):
         for masked in (True, False):
             args, mask = _grouped_inputs(gen, G, L, masked)
-            q, k, v, kc, vc, bias = args
-            B, _, _, _, D = q.shape
-            plain = ga.fused_grouped_attention_plain(*args, heads=H)
-            err = max_err(ga.fused_grouped_attention_cuda(*args, heads=H), plain)
-            nbytes = 2 * (4 * q.numel() + 2 * kc.numel()) + 4 * (0 if bias is None else bias.numel())
-            b_ms, b_by = bound(nbytes, 4 * B * H * G * L * (1 + L) * D)
-            lq = q.reshape(B, H * G, L, D)
-            lk, lv = (torch.cat([c[:, :, None].expand(B, H, G, 1, D), t], dim=3)
-                      .reshape(B, H * G, 1 + L, D) for c, t in ((kc, k), (vc, v)))
-            lmask = None if mask is None else mask[:, None]
-            sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask, scale=1.0)  # noqa: E731
-            rows["grouped_attention"].append({
-                "shape": f"B={B} H={H} G={G} L={L} D={D}" + (" masked" if masked else ""),
-                "calls": 1, "max_abs_err": err,
-                "ms": time_ms(lambda: ga.fused_grouped_attention_cuda(*args, heads=H)),
-                "plain_ms": time_ms(lambda: ga.fused_grouped_attention_plain(*args, heads=H)),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
-                "library": "scaled_dot_product_attention over (B, H*G, L, 1+L), CLS prepended",
-                "library_max_abs_err": max_err(sdpa().reshape(plain.shape), plain),
-            })
-            del args, q, k, v, kc, vc, bias, lq, lk, lv, lmask, plain
+            rows["grouped_attention"].append(_grouped_row(args, mask, H, 1))
+            del args, mask
+    # the kernel's edges, held against the plain version only: no path
+    # launches these shapes
+    edge_gen = torch.Generator().manual_seed(12)
+    for G, L, D, masked in GROUPED_EDGES:
+        args, mask = _grouped_edge_inputs(edge_gen, G, L, D, masked)
+        rows["grouped_attention"].append(_grouped_row(args, mask, 8, 0, "edge "))
+        del args, mask
+    _grouped_reruns()
 
     for axis, (G, L) in attn_probe.GEOMS.items():
         P = attn_probe.P_BY_AXIS[axis]

@@ -54,11 +54,18 @@ _KERNEL_DH = 64
 #: sends every axis up to this length to :func:`divided_attention`
 #: (``mintime_tpu/models/timesformer.py:152``)
 _KERNEL_MAX_L = 256
-_KERNEL_MAX_KEYS = 12 * 1024  # G*L fp32 CLS-row logits in 48 KB of shared memory
+_KERNEL_MAX_KEYS = 12 * 1024  # the backward's G*L fp32 CLS-row logits in 48 KB of shared memory
 #: above this L the backward's token rows take the tensor-core launches, a
 #: block per chunk of ``_LONG_TILE`` query rows and one per chunk of as many keys
 _SHORT_MAX_L = 64
 _LONG_TILE = 64
+#: the forward's token rows: above this L on the tensor cores
+#: (``token_rows_mma_kernel``), a block of ``_MMA_WARPS`` warps per (b, g, h)
+#: and chunk of ``_MMA_WARPS`` 16-row tiles; at or below it the scalar kernel
+_SCALAR_ROWS_MAX_L = 64
+_MMA_WARPS = 4
+#: keys of a chunk of the forward's CLS row (one block of each CLS launch)
+_CLS_CHUNK_KEYS = 128
 
 #: largest packed qkv slice (G*L*3*inner bytes) of the whole-slice kernels
 #: (``pallas_attention.py:770``); larger slices take the token rows
@@ -176,6 +183,20 @@ def check_kernel_shape(G: int, L: int, dim_head: int) -> None:
         raise ValueError(f"divided_attention kernel takes G*L <= {_KERNEL_MAX_KEYS}, got {G * L}")
 
 
+def forward_plan(G: int, L: int, mma_rows: bool | None = None) -> tuple[bool, int, int]:
+    """How the forward kernel splits G groups of L positions: (token rows on
+    the tensor cores, blocks a (b, g, h) there, chunks of the CLS row's G*L
+    keys). ``mma_rows`` overrides the choice of token-row kernel at L <= 64,
+    to compare the two."""
+    if mma_rows is None:
+        mma_rows = L > _SCALAR_ROWS_MAX_L
+    if not mma_rows and L > _SCALAR_ROWS_MAX_L:
+        raise ValueError(f"the scalar token-row kernel takes L <= {_SCALAR_ROWS_MAX_L}, got {L}")
+    tiles = -(-L // 16)
+    row_chunks = -(-tiles // _MMA_WARPS) if mma_rows else 1
+    return mma_rows, row_chunks, -(-G * L // _CLS_CHUNK_KEYS)
+
+
 def _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
     B, G, L, c3 = qkv_g.shape
     inner = heads * dim_head
@@ -201,18 +222,24 @@ def _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
             raise ValueError("divided_attention kernel needs row_bias as 3-D fp32 on the card")
 
 
-def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, dim_head: int):
+def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, dim_head: int,
+                           mma_rows: bool | None = None):
     """Launch the CUDA kernel. ``qkv_g`` may be any strided view whose last
     axis is contiguous (the time axis passes the (B, n, F, ·) transpose of
     the natural layout); the token output gets the same stride order, so
-    transposing it back is free."""
+    transposing it back is free. ``mma_rows`` as in :func:`forward_plan`."""
     global launches
     _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head)
     B, G, L, _ = qkv_g.shape
     inner = heads * dim_head
     dev = qkv_g.device
+    mma_rows, row_chunks, cls_chunks = forward_plan(G, L, mma_rows)
+    # the launches read rows by 16-byte loads
+    qkv_g, qkv_cls = _aligned16(qkv_g), _aligned16(qkv_cls)
     out = _empty_grouped(qkv_g, inner)
     out_cls = torch.empty((B, 1, inner), dtype=qkv_g.dtype, device=dev)
+    cls_scratch = torch.empty((B, heads, G * L + cls_chunks * (dim_head + 2)),
+                              dtype=torch.float32, device=dev)
     if row_bias is not None:
         row_bias = row_bias.expand(B, G, L)
         rb_ptr, rb_strides = row_bias.data_ptr(), row_bias.stride()
@@ -222,7 +249,7 @@ def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, di
     fn = lib.divided_attention_fwd
     i64, ptr = ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr, ptr, i64, i64, i64,
-                   ptr, i64, i64, i64, ptr, i64] + [ctypes.c_int] * 5 + [ptr]
+                   ptr, i64, i64, i64, ptr, i64, ptr] + [ctypes.c_int] * 8 + [ptr]
     fn.restype = ctypes.c_int
     sb, sg, sl, _ = qkv_g.stride()
     ob, og, ol, _ = out.stride()
@@ -231,6 +258,7 @@ def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, di
             qkv_g.data_ptr(), sb, sg, sl, qkv_cls.data_ptr(), qkv_cls.stride(0),
             None if seq_bias is None else seq_bias.data_ptr(), rb_ptr, *rb_strides,
             out.data_ptr(), ob, og, ol, out_cls.data_ptr(), out_cls.stride(0),
+            cls_scratch.data_ptr(), int(mma_rows), row_chunks, cls_chunks,
             B, G, L, heads, dim_head, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(status, "divided_attention")
