@@ -27,7 +27,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    that masks part of the row; rows with no calls, so they leave the
    per-launch averages alone); at L = 192 two reruns must give the same
    bits of ``d_qkv`` and ``d_qkvc``, and one call is profiled by CUDA launch
-   (the CLS row, the token rows' row and column launches, the reduce);
+   (the CLS row, the token rows' row and column launches, the reduce). The
+   forward too: two reruns at L = 192 bitwise equal and one call profiled
+   by launch (the token rows and the CLS row's three launches); at L <= 64
+   both token-row kernels are timed. The grouped attention also at its
+   edges (L = 1, 17, 33, 64, a head width of 30, rows whose every token key
+   is masked; rows with no calls) and two reruns at each flagship axis
+   bitwise equal. The two attention forwards and their library calls are
+   timed by device time (``device_ms``: their launches finish quicker than
+   Python issues them), with the host's time per call beside it;
 3. slice: the flagship EfficientNet-B0 + Size-Invariant TimeSformer at full
    width (224 px, 1280 channels, dim 512, depth 9, 8 x 64 heads, F = 16,
    n = 49, two identities), seeded random weights, through the port's
@@ -132,6 +140,26 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: the summed durations of the CUDA kernels that
+    ``iters`` calls launch, under ``torch.profiler``, over ``iters``. The
+    host's time between launches is left out, so a call whose kernels finish
+    quicker than Python issues them reads its kernels' time, not the host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def max_err(got, want) -> float:
@@ -287,11 +315,14 @@ def phase_kernels(smi):
                           da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw))
         if not lib_err <= TOL:
             raise AssertionError(f"the one-call attention yardstick differs by {lib_err}")
+        kernel = lambda: da.divided_attention_cuda(qkv, qkvc, sb, rbias, **kw)  # noqa: E731
+        # device time: the call's four launches finish quicker than Python
+        # issues them, so a host clock over back-to-back calls reads the host
         row = {
             "shape": shape, "calls": calls, "max_abs_err": err,
-            "ms": time_ms(lambda: da.divided_attention_cuda(qkv, qkvc, sb, rbias, **kw)),
-            "plain_ms": time_ms(lambda: da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+            "ms": device_ms(kernel), "host_ms": time_ms(kernel),
+            "plain_ms": device_ms(lambda: da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(sdpa),
             "library": "scaled_dot_product_attention, one dense masked call",
             "library_max_abs_err": lib_err,
         }
@@ -301,7 +332,7 @@ def phase_kernels(smi):
                 qkv, qkvc, sb, rbias, mma_rows=m, **kw)) for m in (False, True)}
             plain = da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw)
             row["max_abs_err"] = max(max_err(both[m](), plain) for m in both)
-            row["token_rows_ms"] = {name: time_ms(both[m]) for name, m in
+            row["token_rows_ms"] = {name: device_ms(both[m]) for name, m in
                                     (("scalar", False), ("mma", True), ("mma_again", True),
                                      ("scalar_again", False))}
             del plain
@@ -439,12 +470,12 @@ def _grouped_row(args, mask, H, calls, tag=""):
               .reshape(B, H * G, 1 + L, D) for c, t in ((kc, k), (vc, v)))
     lmask = None if mask is None else mask[:, None]
     sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask, scale=1.0)  # noqa: E731
-    return {
+    kernel = lambda: ga.fused_grouped_attention_cuda(*args, heads=H)  # noqa: E731
+    return {  # device times, as for the divided attention
         "shape": f"{tag}B={B} H={H} G={G} L={L} D={D}" + (" masked" if mask is not None else ""),
-        "calls": calls, "max_abs_err": err,
-        "ms": time_ms(lambda: ga.fused_grouped_attention_cuda(*args, heads=H)),
-        "plain_ms": time_ms(lambda: ga.fused_grouped_attention_plain(*args, heads=H)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+        "calls": calls, "max_abs_err": err, "ms": device_ms(kernel), "host_ms": time_ms(kernel),
+        "plain_ms": device_ms(lambda: ga.fused_grouped_attention_plain(*args, heads=H)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(sdpa),
         "library": "scaled_dot_product_attention over (B, H*G, L, 1+L), CLS prepended",
         "library_max_abs_err": max_err(sdpa().reshape(plain.shape), plain),
     }

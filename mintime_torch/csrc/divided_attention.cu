@@ -22,16 +22,17 @@
 // Design: the TPU held a whole batch slice (2.4 MB) in VMEM; a GPU block
 // cannot, so the work splits into launches that each own what they write.
 //   * token rows, L > 64 (and L <= 64 where the wrapper asks for it):
-//     token_rows_mma_kernel, a block of MMA_WARPS warps per (b, g, h) and
-//     chunk of rows, stages the group's K and V (CLS as row 0) by 16-byte
-//     cp.async into swizzled bf16 rows (68 KB at L = 256), and each warp
-//     runs attn_rows::attend_rows (csrc/attn_rows_mma.cuh) over 16 query
-//     rows at a time: S and PV on mma.sync tiles, two passes over S, P
-//     rounded after normalising. With dh = 64 the scale 1/8 is a power of
-//     two, so bf16(q / 8) = q / 8 exactly: q is read as it is, straight into
-//     A fragments, and the scale is applied to S. The wrapper picks the
-//     chunks (row_chunks): one 16-row tile a warp, or every tile of the
-//     group in one block;
+//     token_rows_mma_kernel, a block of up to MMA_WARPS warps per (b, g, h),
+//     stages the group's K and V (CLS as row 0) by 16-byte cp.async into
+//     swizzled bf16 rows (68 KB at L = 256), and each warp runs
+//     attn_rows::attend_rows (csrc/attn_rows_mma.cuh) over 16 query rows at
+//     a time: S and PV on mma.sync tiles, two passes over S, P rounded after
+//     normalising. With dh = 64 the scale 1/8 is a power of two, so
+//     bf16(q / 8) = q / 8 exactly: q is read as it is, straight into A
+//     fragments, and the scale is applied to S. One block a group, its warps
+//     looping over the 16-row tiles, was as fast as or faster than a block
+//     per four tiles or 8-warp blocks at L = 80-256 (H100, device time by
+//     chip_smoke.device_ms), and reads K and V once;
 //   * token rows, L <= 64: token_rows_kernel, the scalar kernel: one 4-warp
 //     block per (b, g, h), K and V in bf16 rows padded to 66 values, a warp
 //     per query row, lane t computing the logits of keys t, t + 32, t + 64;
@@ -195,20 +196,18 @@ cudaError_t launch_token_rows(dim3 grid, cudaStream_t s, const bf16* qkv, i64 sb
   return cudaGetLastError();
 }
 
-// Token rows on the tensor cores: the block owns (b, g, h) and, of the
-// group's 16-row tiles, those with index chunk * MMA_WARPS + warp + k *
-// MMA_WARPS * chunks.
+// Token rows on the tensor cores: a block of min(MMA_WARPS, tiles) warps per
+// (b, g, h), warp w taking the group's 16-row tiles w, w + warps, ...
 __global__ void __launch_bounds__(MMA_WARPS * 32)
 token_rows_mma_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
                       const bf16* __restrict__ qkvc, i64 scb,
                       const float* __restrict__ seq_bias, bf16* __restrict__ out, i64 ob,
-                      i64 og, i64 ol, int L, int H, int chunks, float scale) {
+                      i64 og, i64 ol, int L, int H, float scale) {
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const int T = L + 1;  // CLS key + L keys
   const int Tp = attn_rows::pad16(T);
   const int h = blockIdx.x;
-  const int g = blockIdx.y / chunks;
-  const int chunk = blockIdx.y % chunks;
+  const int g = blockIdx.y;
   const int b = blockIdx.z;
   bf16* ks = reinterpret_cast<bf16*>(mma_smem);  // [Tp][DH]  k_cls, K, zeros (swizzled)
   bf16* vs = ks + Tp * DH;                       // [Tp][DH]  v_cls, V, zeros (swizzled)
@@ -226,18 +225,16 @@ token_rows_mma_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tiles = (L + 15) / 16;
-  const int step = MMA_WARPS * chunks;
-  int tile = chunk * MMA_WARPS + warp;
+  const int warps = blockDim.x / 32;
   uint32_t qa[DH / 16][4];  // the first tile's q, loaded while the copies run
-  if (tile < tiles) attn_rows::load_a(qa, base + qoff, sl, tile * 16, L, lane);
+  attn_rows::load_a(qa, base + qoff, sl, warp * 16, L, lane);
   warp_mma::cp_async_wait_all();
   __syncthreads();
 
   const int grp = lane >> 2;
   const int tig = lane & 3;
-  for (; tile < tiles; tile += step) {  // warp-uniform
-    if (tile != chunk * MMA_WARPS + warp)
-      attn_rows::load_a(qa, base + qoff, sl, tile * 16, L, lane);
+  for (int tile = warp; tile < tiles; tile += warps) {  // warp-uniform
+    if (tile != warp) attn_rows::load_a(qa, base + qoff, sl, tile * 16, L, lane);
     const int row[2] = {tile * 16 + grp, tile * 16 + grp + 8};
     const float* brow[2] = {nullptr, nullptr};
     if (seq_bias != nullptr)
@@ -444,19 +441,17 @@ bool aligned16(const void* p, i64 elems) {
 }  // namespace
 
 // mma_rows: token rows on the tensor cores (required above L = 64);
-// row_chunks: blocks a (b, g, h) on that path; cls_chunks: chunks of the
+// cls_chunks: chunks of the
 // G*L keys of the CLS row; cls_scratch: fp32 (B, H, G*L + cls_chunks *
 // (dh + 2)).
 extern "C" int divided_attention_fwd(const void* qkv, i64 sb, i64 sg, i64 sl, const void* qkvc,
                                      i64 scb, const void* seq_bias, const void* row_bias,
                                      i64 rb_b, i64 rb_g, i64 rb_l, void* out, i64 ob, i64 og,
                                      i64 ol, void* out_cls, i64 ocb, void* cls_scratch,
-                                     int mma_rows, int row_chunks, int cls_chunks, int B, int G,
+                                     int mma_rows, int cls_chunks, int B, int G,
                                      int L, int H, int dh, void* stream) {
-  const int tiles = (L + 15) / 16;
   if (dh != DH || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1 || B > 65535 ||
-      (!mma_rows && L > SCALAR_MAXL) || row_chunks < 1 || row_chunks > tiles ||
-      i64(G) * (mma_rows ? row_chunks : 1) > 65535 || cls_chunks < 1 || cls_chunks > G * L ||
+      G > 65535 || (!mma_rows && L > SCALAR_MAXL) || cls_chunks < 1 || cls_chunks > G * L ||
       cls_chunks > 65535)
     return int(cudaErrorInvalidValue);
   // 16-byte loads: aligned starts and strides
@@ -476,8 +471,10 @@ extern "C" int divided_attention_fwd(const void* qkv, i64 sb, i64 sg, i64 sl, co
     err = cudaFuncSetAttribute(token_rows_mma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return int(err);
-    token_rows_mma_kernel<<<dim3(H, G * row_chunks, B), MMA_WARPS * 32, smem, s>>>(
-        q, sb, sg, sl, qc, scb, sbias, o, ob, og, ol, L, H, row_chunks, scale);
+    const int tiles = (L + 15) / 16;
+    const int warps = tiles < MMA_WARPS ? tiles : MMA_WARPS;
+    token_rows_mma_kernel<<<dim3(H, G, B), warps * 32, smem, s>>>(q, sb, sg, sl, qc, scb, sbias,
+                                                                  o, ob, og, ol, L, H, scale);
     err = cudaGetLastError();
   } else {
     err = launch_token_rows<keys_per_lane(SCALAR_MAXL)>(dim3(H, G, B), s, q, sb, sg, sl, qc, scb,

@@ -16,17 +16,19 @@
 // 4*B*H*G*L*(1+L)*D, is at most 0.2 GFLOP.
 //
 // Design: the TPU kernel took a whole (b*h) slice per grid step and batched
-// its groups through the MXU. Here a block of WARPS warps takes as many
-// consecutive (b*h, g) groups as it has warps for: a warp per 16 query
-// rows, ceil(L / 16) warps a group (the time axis, L = 16: four groups a
-// block; the space axis, L = 49: one). The block stages its groups' K and
-// V (the CLS pair as row 0) in shared memory as swizzled bf16 rows of 64
-// (narrower heads padded with zeros; 16-byte cp.async when D is a multiple
-// of 8, 4-byte loads otherwise), each warp loads its q rows into A
-// fragments and runs attn_rows::attend_rows (csrc/attn_rows_mma.cuh): both
-// products on mma.sync tiles, two passes over S, P rounded to bf16 after
-// normalising. The bias is read per tile from device memory (at most
-// B*L*(1+L)*4 bytes, which stays in L2). Every output is written once.
+// its groups through the MXU. Here a block takes one (b*h, g) group, a warp
+// per 16 query rows: one warp on the time axis (L = 16, 3136 blocks at the
+// flagship's B = 8), four on the space axis (L = 49, 1024 blocks). Blocks
+// of 2, 4 or 8 warps carrying several groups were no faster (H100, device
+// time by chip_smoke.device_ms: at L = 16, 0.013 ms against 0.013, 0.015
+// and 0.019; level at L = 49). The block stages its group's K and V (the
+// CLS pair as row 0) in shared memory as swizzled bf16 rows of 64 (narrower
+// heads padded with zeros; 16-byte cp.async when D = 64, 4-byte loads
+// otherwise); each warp loads its q rows into A fragments and runs
+// attn_rows::attend_rows (csrc/attn_rows_mma.cuh): both products on
+// mma.sync tiles, two passes over S, P rounded to bf16 after normalising.
+// The bias is read per tile from device memory (at most B*L*(1+L)*4 bytes,
+// which stays in L2). Every output is written once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,62 +42,44 @@ using attn_rows::i64;
 
 namespace {
 
-#ifndef GROUPED_WARPS
-#define GROUPED_WARPS 4
-#endif
-constexpr int WARPS = GROUPED_WARPS;  // warps a block
-constexpr int MAXL = 64;              // longest group (the space axis' 49)
+constexpr int MAXL = 64;  // longest group (the space axis' 49)
 
-// the block's groups n0 .. n0+gpb-1 of the N = B*H*G, each ceil(L/16) warps
-__global__ void __launch_bounds__(WARPS * 32)
+// one (b*h, g) group of the N = B*H*G a block, a warp per 16 query rows
+__global__ void __launch_bounds__(MAXL / 16 * 32)
 grouped_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ kc,
                          const bf16* __restrict__ vc, const float* __restrict__ bias,
-                         bf16* __restrict__ out, int N, int G, int L, int D, int H, int gpb,
-                         int wide) {
+                         bf16* __restrict__ out, int G, int L, int D, int H, int wide) {
   extern __shared__ __align__(16) unsigned char gsm[];
   const int T = L + 1;  // CLS key + L keys
   const int Tp = attn_rows::pad16(T);
-  const int wpg = (L + 15) / 16;  // warps a group
-  const int n0 = blockIdx.x * gpb;
+  const int n = blockIdx.x;
+  const i64 p = n / G;  // b * H + h
+  const i64 base = i64(n) * L * D;
   const int width = wide ? DH : D;  // DH: stage by 16-byte copies
-  bf16* ks = reinterpret_cast<bf16*>(gsm);  // [gpb][Tp][DH]  k_cls, K, zeros (swizzled)
-  bf16* vs = ks + gpb * Tp * DH;            // [gpb][Tp][DH]  v_cls, V, zeros (swizzled)
-  for (int j = 0; j < gpb && n0 + j < N; ++j) {
-    const int n = n0 + j;
-    const i64 p = n / G;  // b * H + h
-    bf16* kt = ks + j * Tp * DH;
-    bf16* vt = vs + j * Tp * DH;
-    attn_rows::stage_rows(kt, 0, kc + p * D, 0, 1, 1, width);
-    attn_rows::stage_rows(kt, 1, k + i64(n) * L * D, D, L, Tp, width);
-    attn_rows::stage_rows(vt, 0, vc + p * D, 0, 1, 1, width);
-    attn_rows::stage_rows(vt, 1, v + i64(n) * L * D, D, L, Tp, width);
-  }
+  bf16* ks = reinterpret_cast<bf16*>(gsm);  // [Tp][DH]  k_cls, K, zeros (swizzled)
+  bf16* vs = ks + Tp * DH;                  // [Tp][DH]  v_cls, V, zeros (swizzled)
+  attn_rows::stage_rows(ks, 0, kc + p * D, 0, 1, 1, width);
+  attn_rows::stage_rows(ks, 1, k + base, D, L, Tp, width);
+  attn_rows::stage_rows(vs, 0, vc + p * D, 0, 1, 1, width);
+  attn_rows::stage_rows(vs, 1, v + base, D, L, Tp, width);
 
-  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int j = warp / wpg;
-  const int n = n0 + j;
-  const int r0 = warp % wpg * 16;  // the warp's first row in the group
-  const bool active = j < gpb && n < N;  // warp-uniform
-  const i64 base = i64(active ? n : 0) * L * D;
+  const int r0 = threadIdx.x / 32 * 16;  // the warp's first row
   uint32_t qa[DH / 16][4];  // loaded while the copies run
-  if (active) attn_rows::load_a(qa, q + base, D, r0, L, lane, D);
+  attn_rows::load_a(qa, q + base, D, r0, L, lane, D);
   warp_mma::cp_async_wait_all();
   __syncthreads();
-  if (!active) return;
 
   const int grp = lane >> 2;
   const int tig = lane & 3;
   const int row[2] = {r0 + grp, r0 + grp + 8};
   const float* brow[2] = {nullptr, nullptr};
-  if (bias != nullptr) {
-    const i64 b = n / G / H;
+  if (bias != nullptr)
 #pragma unroll
-    for (int x = 0; x < 2; ++x) brow[x] = bias + (b * L + min(row[x], L - 1)) * T;
-  }
+    for (int x = 0; x < 2; ++x) brow[x] = bias + (p / H * L + min(row[x], L - 1)) * T;
   float o[DH / 8][4];
-  attn_rows::attend_rows(o, qa, ks + j * Tp * DH, vs + j * Tp * DH, T, 1.0f, brow, lane);
+  attn_rows::attend_rows(o, qa, ks, vs, T, 1.0f, brow, lane);
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     if (row[x] >= L) continue;
@@ -118,23 +102,17 @@ extern "C" int grouped_attention_fwd(const void* q, const void* k, const void* v
                                      int G, int L, int D, void* stream) {
   if (D < 2 || D > DH || D % 2 || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1)
     return int(cudaErrorInvalidValue);
-  const int wpg = (L + 15) / 16;
-  const int gpb = WARPS / wpg;  // L <= 64: at least one group a block
   const i64 N = i64(B) * H * G;
-  const i64 blocks = (N + gpb - 1) / gpb;
-  if (blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
-  // 16-byte copies need D a multiple of 8 and 16-byte aligned starts
+  if (N > 0x7fffffff) return int(cudaErrorInvalidValue);
+  // 16-byte copies need whole rows of 64 and 16-byte aligned starts
   const void* ptrs[5] = {q, k, v, kc, vc};
   bool wide = D == DH;
   for (const void* p : ptrs) wide = wide && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  const int smem = 2 * gpb * attn_rows::pad16(L + 1) * DH * int(sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(grouped_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
-  grouped_attention_kernel<<<unsigned(blocks), WARPS * 32, smem,
+  const int smem = 2 * attn_rows::pad16(L + 1) * DH * int(sizeof(bf16));  // <= 20 KB
+  grouped_attention_kernel<<<unsigned(N), (L + 15) / 16 * 32, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(kc), static_cast<const bf16*>(vc), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), int(N), G, L, D, H, gpb, wide);
+      static_cast<bf16*>(out), G, L, D, H, wide);
   return int(cudaGetLastError());
 }

@@ -187,6 +187,50 @@ def test_grouped_attention_kernel_on_card(G, L, masked):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G,L,D,masked", [(8, 1, 64, False), (8, 17, 64, True),
+                                          (8, 33, 64, False), (4, 64, 64, True),
+                                          (16, 49, 30, True)])
+def test_grouped_attention_kernel_on_card_at_edges(G, L, D, masked):
+    """The grouped-attention kernel at its edges: one key, one row past a
+    16-row tile, the longest group, a head width that is no multiple of 8
+    (staged by 4-byte loads), and masks that drop every token key of some
+    rows (the CLS key kept), against its plain version in bf16 (needs the
+    card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(6)
+    B, H = 2, 8
+    r = lambda *s: (torch.randn(*s, generator=gen) * 0.5).cuda().bfloat16()  # noqa: E731
+    q, k, v, kc, vc = r(B, H, G, L, D), r(B, H, G, L, D), r(B, H, G, L, D), r(B, H, 1, D), r(B, H, 1, D)
+    bias = None
+    if masked:
+        keep = torch.rand(B, L, 1 + L, generator=gen) > 0.3
+        keep[..., 0] = True
+        keep[0, ::3, 1:] = False
+        bias = port_grouped.mask_to_bias(keep.cuda())
+    got = port_grouped.fused_grouped_attention_cuda(q, k, v, kc, vc, bias, heads=H)
+    want = port_grouped.fused_grouped_attention_plain(q, k, v, kc, vc, bias, heads=H)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,L", [(49, 16), (16, 49)])
+def test_grouped_attention_kernel_is_bitwise_stable(G, L):
+    """The grouped kernel gives the same bits on reruns: each output is
+    written once, with no atomics (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(7)
+    r = lambda *s: (torch.randn(*s, generator=gen) * 0.5).cuda().bfloat16()  # noqa: E731
+    B, H, D = 2, 8, 64
+    args = (r(B, H, G, L, D), r(B, H, G, L, D), r(B, H, G, L, D), r(B, H, 1, D), r(B, H, 1, D),
+            port_grouped.mask_to_bias((torch.rand(B, L, 1 + L, generator=gen) > 0.3).cuda()))
+    first = port_grouped.fused_grouped_attention_cuda(*args, heads=H)
+    for _ in range(2):
+        assert torch.equal(port_grouped.fused_grouped_attention_cuda(*args, heads=H), first)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G,L,P", [(49, 16, 4), (16, 49, 2), (49, 16, 8), (7, 5, 3)])
 def test_chunked_attention_kernel_on_card(G, L, P):
     """The chunked-dense kernel against its plain version in bf16 on both
@@ -293,6 +337,36 @@ def test_divided_attention_kernels_on_card_at_long_axes(L, masked):
     # round otherwise than the fp32 plain version's (about 40% would if P and
     # dS were rounded once to bf16)
     assert float((got[0] != want[0]).float().mean()) < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [49, 192])
+def test_divided_attention_forward_kernel_is_bitwise_stable(L):
+    """The forward kernel gives the same bits on reruns: the CLS row's chunks
+    are summed in a fixed order and no atomics are used (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args, _, kw = _long_axis_inputs(L, torch.Generator().manual_seed(12), masked=True)
+    first = port_divided.divided_attention_cuda(*args, **kw)
+    for _ in range(2):
+        again = port_divided.divided_attention_cuda(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("L", [1, 8, 16, 17, 49, 64])
+def test_divided_attention_forward_on_tensor_cores_at_short_axes(L, masked):
+    """The tensor-core token rows at L <= 64 (the flagship's 16 and 49, the
+    conv time axis' 8, and the edges of a 16-row tile) against the plain
+    version in bf16, on a strided view with a CLS-row bias (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args, _, kw = _long_axis_inputs(L, torch.Generator().manual_seed(13), masked=masked)
+    got = port_divided.divided_attention_cuda(*args, mma_rows=True, **kw)
+    want = port_divided.divided_attention_plain(*args, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
