@@ -29,8 +29,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    bits of ``d_qkv`` and ``d_qkvc``, and one call is profiled by CUDA launch
    (the CLS row, the token rows' row and column launches, the reduce). The
    forward too: two reruns at L = 192 bitwise equal and one call profiled
-   by launch (the token rows and the CLS row's three launches); at L <= 64
-   both token-row kernels are timed. The grouped attention also at its
+   by launch (the token rows and the CLS row's three launches). The grouped
+   attention also at its
    edges (L = 1, 17, 33, 64, a head width of 30, rows whose every token key
    is masked; rows with no calls) and two reruns at each flagship axis
    bitwise equal. The two attention forwards and their library calls are
@@ -326,16 +326,6 @@ def phase_kernels(smi):
             "library": "scaled_dot_product_attention, one dense masked call",
             "library_max_abs_err": lib_err,
         }
-        if L <= da._SCALAR_ROWS_MAX_L:
-            # both token-row kernels against the plain version, timed in turns
-            both = {m: (lambda m=m: da.divided_attention_cuda(  # noqa: E731
-                qkv, qkvc, sb, rbias, mma_rows=m, **kw)) for m in (False, True)}
-            plain = da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw)
-            row["max_abs_err"] = max(max_err(both[m](), plain) for m in both)
-            row["token_rows_ms"] = {name: device_ms(both[m]) for name, m in
-                                    (("scalar", False), ("mma", True), ("mma_again", True),
-                                     ("scalar_again", False))}
-            del plain
         rows["divided_attention"].append(row)
         del qkv, qkvc, sb, rbias, lq, lk, lv, lmask
     _divided_fwd_rerun_and_launches(smi)

@@ -21,21 +21,19 @@
 //
 // Design: the TPU held a whole batch slice (2.4 MB) in VMEM; a GPU block
 // cannot, so the work splits into launches that each own what they write.
-//   * token rows, L > 64 (and L <= 64 where the wrapper asks for it):
-//     token_rows_mma_kernel, a block of up to MMA_WARPS warps per (b, g, h),
-//     stages the group's K and V (CLS as row 0) by 16-byte cp.async into
-//     swizzled bf16 rows (68 KB at L = 256), and each warp runs
-//     attn_rows::attend_rows (csrc/attn_rows_mma.cuh) over 16 query rows at
-//     a time: S and PV on mma.sync tiles, two passes over S, P rounded after
-//     normalising. With dh = 64 the scale 1/8 is a power of two, so
-//     bf16(q / 8) = q / 8 exactly: q is read as it is, straight into A
-//     fragments, and the scale is applied to S. One block a group, its warps
-//     looping over the 16-row tiles, was as fast as or faster than a block
-//     per four tiles or 8-warp blocks at L = 80-256 (H100, device time by
-//     chip_smoke.device_ms), and reads K and V once;
-//   * token rows, L <= 64: token_rows_kernel, the scalar kernel: one 4-warp
-//     block per (b, g, h), K and V in bf16 rows padded to 66 values, a warp
-//     per query row, lane t computing the logits of keys t, t + 32, t + 64;
+//   * token rows: token_rows_mma_kernel, a block of up to MMA_WARPS warps
+//     per (b, g, h), stages the group's K and V (CLS as row 0) by 16-byte
+//     cp.async into swizzled bf16 rows (68 KB at L = 256), and each warp
+//     runs attn_rows::attend_rows (csrc/attn_rows_mma.cuh) over 16 query
+//     rows at a time: S and PV on mma.sync tiles, two passes over S, P
+//     rounded after normalising. With dh = 64 the scale 1/8 is a power of
+//     two, so bf16(q / 8) = q / 8 exactly: q is read as it is, straight into
+//     A fragments, and the scale is applied to S. One block a group, its
+//     warps looping over the 16-row tiles, was as fast as or faster than a
+//     block per four tiles or 8-warp blocks at L = 80-256, and reads K and
+//     V once; at L <= 64 it took half to a third of the time of the scalar
+//     kernel it replaced (a warp per query row, a lane per key; H100, device
+//     time by chip_smoke.device_ms);
 //   * CLS row, in three launches over cls_chunks chunks of the G*L keys
 //     (fp32 scratch (B, H, G*L + chunks * (dh + 2)) from the wrapper):
 //     cls_row_logits_kernel writes each key's logit (8 lanes a key, 16-byte
@@ -58,20 +56,11 @@ typedef long long i64;
 
 namespace {
 
-#ifndef MMA_WARPS
-#define MMA_WARPS 4
-#endif
-
 constexpr int DH = 64;          // head width
 constexpr int MAXL = 256;       // longest attended sequence of the token rows
-constexpr int SCALAR_MAXL = 64; // longest of the scalar token-row kernel
-constexpr int TOK_WARPS = 4;
+constexpr int MMA_WARPS = 4;    // most warps a block of the token rows
 constexpr int CLS_THREADS = 256;
-constexpr int KVLD = DH + 2;    // padded bf16 rows (33 words): lane t reads key t conflict-free
 constexpr int PART = DH + 2;    // a CLS chunk's scratch: sum bf16(p) v (DH), sum p, max
-
-// keys a lane takes in the scalar token rows (CLS + L keys over 32 lanes)
-constexpr int keys_per_lane(int L) { return (L + 1 + 31) / 32; }
 
 __device__ __forceinline__ float bf(const bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float bf16_round(float v) {
@@ -88,112 +77,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-template <int NT>
-__global__ void __launch_bounds__(TOK_WARPS * 32)
-token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
-                  const bf16* __restrict__ qkvc, i64 scb,
-                  const float* __restrict__ seq_bias, bf16* __restrict__ out, i64 ob,
-                  i64 og, i64 ol, int L, int H, float scale) {
-  extern __shared__ __align__(16) unsigned char tok_smem[];
-  __shared__ float qs[TOK_WARPS][DH];
-  __shared__ float ps[TOK_WARPS][NT * 32];
-
-  const int h = blockIdx.x;
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int inner = H * DH;
-  const int T = L + 1;  // CLS key + L keys
-  bf16* ks = reinterpret_cast<bf16*>(tok_smem);  // [T][KVLD]
-  bf16* vs = ks + T * KVLD;                      // [T][KVLD]
-  const bf16* base = qkv + b * sb + g * sg;
-  const bf16* cls = qkvc + b * scb;
-  const int qoff = h * DH;
-  const int koff = inner + h * DH;
-  const int voff = 2 * inner + h * DH;
-
-  for (int i = tid; i < T * DH; i += TOK_WARPS * 32) {
-    const int r = i / DH;
-    const int d = i % DH;
-    const bf16* row = r == 0 ? cls : base + (r - 1) * sl;
-    ks[r * KVLD + d] = row[koff + d];
-    vs[r * KVLD + d] = row[voff + d];
-  }
-  __syncthreads();
-
-  for (int r = warp; r < L; r += TOK_WARPS) {
-    const bf16* qrow = base + r * sl + qoff;
-    qs[warp][lane] = bf16_round(bf(qrow[lane]) * scale);
-    qs[warp][lane + 32] = bf16_round(bf(qrow[lane + 32]) * scale);
-    __syncwarp();
-
-    float logit[NT];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int t = lane + 32 * j;
-      float s = -INFINITY;
-      if (t < T) {
-        const bf162* krow = reinterpret_cast<const bf162*>(ks + t * KVLD);
-        float a = 0.0f;
-#pragma unroll 8
-        for (int d2 = 0; d2 < DH / 2; ++d2) {
-          const float2 kv = __bfloat1622float2(krow[d2]);
-          a = fmaf(qs[warp][2 * d2], kv.x, a);
-          a = fmaf(qs[warp][2 * d2 + 1], kv.y, a);
-        }
-        if (seq_bias != nullptr) a += seq_bias[(i64(b) * L + r) * T + t];
-        s = a;
-      }
-      logit[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int t = lane + 32 * j;
-      const float e = t < T ? expf(logit[j] - mx) : 0.0f;
-      logit[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int t = lane + 32 * j;
-      if (t < T) ps[warp][t] = bf16_round(logit[j] / sum);
-    }
-    __syncwarp();
-
-    // lane owns dimensions 2*lane and 2*lane + 1
-    float a0 = 0.0f, a1 = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      const float p = ps[warp][t];
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const bf162*>(vs + t * KVLD + 2 * lane));
-      a0 = fmaf(p, v.x, a0);
-      a1 = fmaf(p, v.y, a1);
-    }
-    bf16* orow = out + b * ob + g * og + r * ol + h * DH;
-    *reinterpret_cast<bf162*>(orow + 2 * lane) = __floats2bfloat162_rn(a0, a1);
-    __syncwarp();
-  }
-}
-
-template <int NT>
-cudaError_t launch_token_rows(dim3 grid, cudaStream_t s, const bf16* qkv, i64 sb, i64 sg, i64 sl,
-                              const bf16* qkvc, i64 scb, const float* seq_bias, bf16* out,
-                              i64 ob, i64 og, i64 ol, int L, int H, float scale) {
-  const int smem = 2 * (L + 1) * KVLD * int(sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(token_rows_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  token_rows_kernel<NT><<<grid, TOK_WARPS * 32, smem, s>>>(qkv, sb, sg, sl, qkvc, scb, seq_bias,
-                                                           out, ob, og, ol, L, H, scale);
-  return cudaGetLastError();
 }
 
 // Token rows on the tensor cores: a block of min(MMA_WARPS, tiles) warps per
@@ -440,19 +323,16 @@ bool aligned16(const void* p, i64 elems) {
 
 }  // namespace
 
-// mma_rows: token rows on the tensor cores (required above L = 64);
-// cls_chunks: chunks of the
-// G*L keys of the CLS row; cls_scratch: fp32 (B, H, G*L + cls_chunks *
-// (dh + 2)).
+// cls_chunks: chunks of the G*L keys of the CLS row; cls_scratch: fp32
+// (B, H, G*L + cls_chunks * (dh + 2)).
 extern "C" int divided_attention_fwd(const void* qkv, i64 sb, i64 sg, i64 sl, const void* qkvc,
                                      i64 scb, const void* seq_bias, const void* row_bias,
                                      i64 rb_b, i64 rb_g, i64 rb_l, void* out, i64 ob, i64 og,
                                      i64 ol, void* out_cls, i64 ocb, void* cls_scratch,
-                                     int mma_rows, int cls_chunks, int B, int G,
-                                     int L, int H, int dh, void* stream) {
-  if (dh != DH || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1 || B > 65535 ||
-      G > 65535 || (!mma_rows && L > SCALAR_MAXL) || cls_chunks < 1 || cls_chunks > G * L ||
-      cls_chunks > 65535)
+                                     int cls_chunks, int B, int G, int L, int H, int dh,
+                                     void* stream) {
+  if (dh != DH || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1 || B > 65535 || G > 65535 ||
+      cls_chunks < 1 || cls_chunks > G * L || cls_chunks > 65535)
     return int(cudaErrorInvalidValue);
   // 16-byte loads: aligned starts and strides
   if (!aligned16(qkv, sb) || !aligned16(qkv, sg) || !aligned16(qkv, sl) || !aligned16(qkvc, scb))
@@ -465,21 +345,15 @@ extern "C" int divided_attention_fwd(const void* qkv, i64 sb, i64 sg, i64 sl, co
   const float* rbias = static_cast<const float*>(row_bias);
   float* scratch = static_cast<float*>(cls_scratch);
   bf16* o = static_cast<bf16*>(out);
-  cudaError_t err;
-  if (mma_rows) {
-    const int smem = 2 * attn_rows::pad16(L + 1) * DH * int(sizeof(bf16));
-    err = cudaFuncSetAttribute(token_rows_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return int(err);
-    const int tiles = (L + 15) / 16;
-    const int warps = tiles < MMA_WARPS ? tiles : MMA_WARPS;
-    token_rows_mma_kernel<<<dim3(H, G, B), warps * 32, smem, s>>>(q, sb, sg, sl, qc, scb, sbias,
-                                                                  o, ob, og, ol, L, H, scale);
-    err = cudaGetLastError();
-  } else {
-    err = launch_token_rows<keys_per_lane(SCALAR_MAXL)>(dim3(H, G, B), s, q, sb, sg, sl, qc, scb,
-                                                         sbias, o, ob, og, ol, L, H, scale);
-  }
+  const int smem = 2 * attn_rows::pad16(L + 1) * DH * int(sizeof(bf16));
+  cudaError_t err = cudaFuncSetAttribute(token_rows_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  const int tiles = (L + 15) / 16;
+  const int warps = tiles < MMA_WARPS ? tiles : MMA_WARPS;
+  token_rows_mma_kernel<<<dim3(H, G, B), warps * 32, smem, s>>>(q, sb, sg, sl, qc, scb, sbias, o,
+                                                                ob, og, ol, L, H, scale);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   cls_row_logits_kernel<<<dim3(H, cls_chunks, B), CLS_THREADS, 0, s>>>(
       q, sb, sg, sl, qc, scb, rbias, rb_b, rb_g, rb_l, scratch, G, L, H, cls_chunks, scale);

@@ -59,9 +59,6 @@ _KERNEL_MAX_KEYS = 12 * 1024  # the backward's G*L fp32 CLS-row logits in 48 KB 
 #: block per chunk of ``_LONG_TILE`` query rows and one per chunk of as many keys
 _SHORT_MAX_L = 64
 _LONG_TILE = 64
-#: the forward's token rows: above this L on the tensor cores
-#: (``token_rows_mma_kernel``), at or below it the scalar kernel
-_SCALAR_ROWS_MAX_L = 64
 #: keys of a chunk of the forward's CLS row (one block of each CLS launch)
 _CLS_CHUNK_KEYS = 128
 
@@ -181,15 +178,10 @@ def check_kernel_shape(G: int, L: int, dim_head: int) -> None:
         raise ValueError(f"divided_attention kernel takes G*L <= {_KERNEL_MAX_KEYS}, got {G * L}")
 
 
-def forward_plan(G: int, L: int, mma_rows: bool | None = None) -> tuple[bool, int]:
-    """How the forward kernel splits G groups of L positions: (token rows on
-    the tensor cores, chunks of the CLS row's G*L keys). ``mma_rows``
-    overrides the choice of token-row kernel at L <= 64, to compare the two."""
-    if mma_rows is None:
-        mma_rows = L > _SCALAR_ROWS_MAX_L
-    if not mma_rows and L > _SCALAR_ROWS_MAX_L:
-        raise ValueError(f"the scalar token-row kernel takes L <= {_SCALAR_ROWS_MAX_L}, got {L}")
-    return mma_rows, -(-G * L // _CLS_CHUNK_KEYS)
+def cls_row_chunks(G: int, L: int) -> int:
+    """Chunks of the forward's CLS row over G groups of L keys: one block of
+    each of its launches a chunk."""
+    return -(-G * L // _CLS_CHUNK_KEYS)
 
 
 def _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
@@ -217,18 +209,17 @@ def _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
             raise ValueError("divided_attention kernel needs row_bias as 3-D fp32 on the card")
 
 
-def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, dim_head: int,
-                           mma_rows: bool | None = None):
+def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, dim_head: int):
     """Launch the CUDA kernel. ``qkv_g`` may be any strided view whose last
     axis is contiguous (the time axis passes the (B, n, F, ·) transpose of
     the natural layout); the token output gets the same stride order, so
-    transposing it back is free. ``mma_rows`` as in :func:`forward_plan`."""
+    transposing it back is free."""
     global launches
     _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head)
     B, G, L, _ = qkv_g.shape
     inner = heads * dim_head
     dev = qkv_g.device
-    mma_rows, cls_chunks = forward_plan(G, L, mma_rows)
+    cls_chunks = cls_row_chunks(G, L)
     # the launches read rows by 16-byte loads
     qkv_g, qkv_cls = _aligned16(qkv_g), _aligned16(qkv_cls)
     out = _empty_grouped(qkv_g, inner)
@@ -244,7 +235,7 @@ def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, di
     fn = lib.divided_attention_fwd
     i64, ptr = ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr, ptr, i64, i64, i64,
-                   ptr, i64, i64, i64, ptr, i64, ptr] + [ctypes.c_int] * 7 + [ptr]
+                   ptr, i64, i64, i64, ptr, i64, ptr] + [ctypes.c_int] * 6 + [ptr]
     fn.restype = ctypes.c_int
     sb, sg, sl, _ = qkv_g.stride()
     ob, og, ol, _ = out.stride()
@@ -253,7 +244,7 @@ def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, di
             qkv_g.data_ptr(), sb, sg, sl, qkv_cls.data_ptr(), qkv_cls.stride(0),
             None if seq_bias is None else seq_bias.data_ptr(), rb_ptr, *rb_strides,
             out.data_ptr(), ob, og, ol, out_cls.data_ptr(), out_cls.stride(0),
-            cls_scratch.data_ptr(), int(mma_rows), cls_chunks,
+            cls_scratch.data_ptr(), cls_chunks,
             B, G, L, heads, dim_head, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(status, "divided_attention")

@@ -85,21 +85,10 @@ def test_the_shape_check_refuses_what_the_kernels_do_not_take():
         da.check_kernel_shape(8, 16, 32)
 
 
-@pytest.mark.parametrize("L", [1, 8, 16, 49, 64, 65, 192, 256])
-def test_forward_token_rows_take_the_tensor_cores_above_64(L):
-    mma_rows, _ = da.forward_plan(8, L)
-    assert mma_rows == (L > 64)
-    assert da.forward_plan(8, L, mma_rows=True)[0]
-    if L > 64:
-        with pytest.raises(ValueError, match="scalar"):
-            da.forward_plan(8, L, mma_rows=False)
-
-
 @pytest.mark.parametrize("G,L,chunks", [(16, 49, 7), (49, 16, 7), (192, 8, 12), (8, 80, 5),
                                         (8, 192, 12), (8, 256, 16), (1, 1, 1), (48, 256, 96)])
 def test_forward_cls_row_chunks_hold_at_most_128_keys(G, L, chunks):
     """The CLS row's G*L keys split into chunks of at most 128, one block of
     each CLS launch a chunk: 7 at the flagship (784 keys), 12 at tap 10."""
-    _, got = da.forward_plan(G, L)
-    assert got == chunks
+    assert da.cls_row_chunks(G, L) == chunks
     assert (chunks - 1) * 128 < G * L <= chunks * 128

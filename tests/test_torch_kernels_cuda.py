@@ -356,14 +356,14 @@ def test_divided_attention_forward_kernel_is_bitwise_stable(L):
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("L", [1, 8, 16, 17, 49, 64])
-def test_divided_attention_forward_on_tensor_cores_at_short_axes(L, masked):
+def test_divided_attention_forward_kernel_on_card_at_short_axes(L, masked):
     """The tensor-core token rows at L <= 64 (the flagship's 16 and 49, the
     conv time axis' 8, and the edges of a 16-row tile) against the plain
     version in bf16, on a strided view with a CLS-row bias (needs the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     args, _, kw = _long_axis_inputs(L, torch.Generator().manual_seed(13), masked=masked)
-    got = port_divided.divided_attention_cuda(*args, mma_rows=True, **kw)
+    got = port_divided.divided_attention_cuda(*args, **kw)
     want = port_divided.divided_attention_plain(*args, **kw)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
