@@ -83,7 +83,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "warp_mma.cuh"
+#include "attn_rows_mma.cuh"
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
@@ -395,47 +395,13 @@ using warp_mma::ldmatrix_x4;
 using warp_mma::ldmatrix_x4_trans;
 using warp_mma::mma_bf16;
 
-__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
-
-// Offset of element (r, c) of a [.][DH] bf16 tile in shared memory whose
-// 16-byte chunks are swizzled by the row (chunk c/8 of row r at chunk
-// (c/8) ^ (r % 8)): eight rows' same chunk fall in eight bank groups, so
-// ldmatrix and the staging copies read and write conflict-free, unpadded.
-__device__ __forceinline__ int sw(int r, int c) {
-  return r * DH + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
-}
-
-// Rows first .. end-1 of a swizzled tile: row first + r from src + r * stride
-// (16-byte aligned) by cp.async while r < rows, zeros after.
-__device__ void stage_rows(bf16* tile, int first, const bf16* src, i64 stride, int rows,
-                           int end) {
-  for (int i = threadIdx.x; i < (end - first) * (DH / 8); i += blockDim.x) {
-    const int r = i / (DH / 8);
-    const int c = i % (DH / 8) * 8;
-    uint4* d = reinterpret_cast<uint4*>(tile + sw(first + r, c));
-    if (r < rows)
-      warp_mma::cp_async16(d, src + r * stride + c);
-    else
-      *d = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// acc[n] (16 x 8, n = 0, 1) = A (16 x DH, fragments a[k]) times rows
-// n0 .. n0+15 of the swizzled tile m, transposed (16 x 16 of A m^T)
-__device__ __forceinline__ void mma_rows_t(float acc[2][4], const uint32_t a[DH / 16][4],
-                                           const bf16* m, int n0, int lane) {
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < DH / 16; ++k) {
-    uint32_t b[4];
-    ldmatrix_x4(b, m + sw(n0 + (lane & 7) + ((lane >> 4) << 3), k * 16 + ((lane >> 3) & 1) * 8));
-    mma_bf16(acc[0], a[k], b[0], b[1]);
-    mma_bf16(acc[1], a[k], b[2], b[3]);
-  }
-}
+// the swizzled tiles, their staging and the A fragments of
+// csrc/attn_rows_mma.cuh, shared with the forward
+using attn_rows::load_a;
+using attn_rows::mma_rows_t;
+using attn_rows::pad16;
+using attn_rows::stage_rows;
+using attn_rows::sw;
 
 // acc (16 x DH, 8 tiles of 8 columns) += (hi + lo) (16 x 16) times rows
 // k0 .. k0+15 of the swizzled tile m
@@ -450,21 +416,6 @@ __device__ __forceinline__ void mma_split(float acc[DH / 8][4], const uint32_t h
     mma_bf16(acc[2 * n], lo, b[0], b[1]);
     mma_bf16(acc[2 * n + 1], lo, b[2], b[3]);
   }
-}
-
-// The A fragments (16 x DH) of rows r0 .. r0+15 of a bf16 matrix in global
-// memory (row r at src + r * stride), rows from `rows` on zero: read once a
-// warp, straight into registers.
-__device__ __forceinline__ void load_a(uint32_t a[DH / 16][4], const bf16* src, i64 stride,
-                                       int r0, int rows, int lane) {
-#pragma unroll
-  for (int k = 0; k < DH / 16; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + (lane >> 2) + (i & 1) * 8;
-      const int c = k * 16 + (i >> 1) * 8 + 2 * (lane & 3);
-      a[k][i] = r < rows ? *reinterpret_cast<const uint32_t*>(src + r * stride + c) : 0u;
-    }
 }
 
 // Launch 2a for 64 < L <= 256: dq of a chunk of TILE query rows, the rows'

@@ -33,4 +33,12 @@ def test_target_changes_when_an_included_file_changes(csrc, edited, changes):
 
 def test_attention_backward_key_covers_the_mma_header():
     names = [p.name for p in _build._sources(_build.CSRC / "divided_attention_bwd.cu")]
-    assert names == ["divided_attention_bwd.cu", "warp_mma.cuh"]
+    assert names == ["divided_attention_bwd.cu", "attn_rows_mma.cuh", "warp_mma.cuh"]
+
+
+@pytest.mark.parametrize("name", ["divided_attention", "grouped_attention"])
+def test_forward_keys_cover_the_row_tile_header(name):
+    """Both tensor-core forwards rebuild when the row-tile routine or the
+    mma helpers under it change."""
+    names = [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
+    assert names == [f"{name}.cu", "attn_rows_mma.cuh", "warp_mma.cuh"]
