@@ -29,11 +29,10 @@
 //     rounded after normalising. With dh = 64 the scale 1/8 is a power of
 //     two, so bf16(q / 8) = q / 8 exactly: q is read as it is, straight into
 //     A fragments, and the scale is applied to S. One block a group, its
-//     warps looping over the 16-row tiles, was as fast as or faster than a
-//     block per four tiles or 8-warp blocks at L = 80-256, and reads K and
-//     V once; at L <= 64 it took half to a third of the time of the scalar
-//     kernel it replaced (a warp per query row, a lane per key; H100, device
-//     time by chip_smoke.device_ms);
+//     warps looping over the 16-row tiles, reads K and V once and was as
+//     fast as a block per four tiles at L = 80-256; at L <= 64 it took half
+//     to a third of the time of the scalar kernel it replaced (a warp per
+//     query row, a lane per key; H100, device time by chip_smoke.device_ms);
 //   * CLS row, in three launches over cls_chunks chunks of the G*L keys
 //     (fp32 scratch (B, H, G*L + chunks * (dh + 2)) from the wrapper):
 //     cls_row_logits_kernel writes each key's logit (8 lanes a key, 16-byte

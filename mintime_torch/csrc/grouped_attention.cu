@@ -19,12 +19,11 @@
 // its groups through the MXU. Here a block takes one (b*h, g) group, a warp
 // per 16 query rows: one warp on the time axis (L = 16, 3136 blocks at the
 // flagship's B = 8), four on the space axis (L = 49, 1024 blocks). Blocks
-// of 2, 4 or 8 warps carrying several groups were no faster (H100, device
-// time by chip_smoke.device_ms: at L = 16, 0.013 ms against 0.013, 0.015
-// and 0.019; level at L = 49). The block stages its group's K and V (the
-// CLS pair as row 0) in shared memory as swizzled bf16 rows of 64 (narrower
-// heads padded with zeros; 16-byte cp.async when D = 64, 4-byte loads
-// otherwise); each warp loads its q rows into A fragments and runs
+// of 2, 4 or 8 warps carrying several groups were no faster on an H100
+// (device time, chip_smoke.device_ms). The block stages its group's K and
+// V (the CLS pair as row 0) in shared memory as swizzled bf16 rows of 64
+// (narrower heads padded with zeros; 16-byte cp.async when D = 64, 4-byte
+// loads otherwise); each warp loads its q rows into A fragments and runs
 // attn_rows::attend_rows (csrc/attn_rows_mma.cuh): both products on
 // mma.sync tiles, two passes over S, P rounded to bf16 after normalising.
 // The bias is read per tile from device memory (at most B*L*(1+L)*4 bytes,
