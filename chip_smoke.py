@@ -153,7 +153,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then comes back without its device events
+    for _ in range(3):  # a profile now and then comes back without its device events
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -162,7 +162,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / iters
-    raise RuntimeError("torch.profiler recorded no device time in three sessions")
+    raise RuntimeError("torch.profiler recorded no device time in three profiles")
 
 
 def max_err(got, want) -> float:
