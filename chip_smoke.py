@@ -29,7 +29,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    bits of ``d_qkv`` and ``d_qkvc``, and one call is profiled by CUDA launch
    (the CLS row, the token rows' row and column launches, the reduce). The
    forward too: two reruns at L = 192 bitwise equal and one call profiled
-   by launch (the token rows and the CLS row's three launches). The grouped
+   by launch (the token rows and the CLS row's three launches). The FFN
+   backward also at row counts off its 128-row tiles (M = 1, 100 and, at
+   width 512, 6272 + 8; rows with no calls), two reruns at the flagship's
+   and the conv model's token rows bitwise equal and one call each profiled
+   by launch (the dh kernel, the three products in one launch, the ordered
+   reduce); its ``ms`` is device time too, ``host_ms`` beside it. The grouped
    attention also at its
    edges (L = 1, 17, 33, 64, a head width of 30, rows whose every token key
    is masked; rows with no calls) and two reruns at each flagship axis
@@ -763,36 +768,91 @@ def _divided_fwd_rerun_and_launches(smi, L=192):
           "card": smi, **_profile(call)})
 
 
+#: the FFN backward's row counts off its 128-row tiles, by model width
+#: (no main path launches them): one row, a ragged tile with split
+#: weight-gradient products, and one tile past the flagship's token rows
+FFN_BWD_EDGE_ROWS = {512: (1, 100, 6272 + 8), 256: (1, 100)}
+#: the row counts whose backward is rerun for bits and profiled by launch:
+#: the flagship's and the conv model's token rows
+FFN_BWD_PROFILED = (8 * 16 * 49, 8 * 8 * 1280)
+
+
+def _ffn_bwd_row(args, calls, tag=""):
+    """The FFN backward vs its plain version (per gradient), its device time
+    (``ms``: the kernels' durations under ``torch.profiler``; ``host_ms``, by
+    CUDA events over back-to-back calls, reads the host where the kernels
+    finish sooner than the wrapper issues them), the plain version's and the
+    bound."""
+    import torch
+
+    from mintime_torch.ops import geglu_ffn as ffn
+
+    x, w0, b0, w1, dout = args
+    m, dim = x.shape
+    grads = _grad_err(("dx", "dw0", "db0", "dw1", "db1"), ffn.geglu_ffn_bwd_cuda(*args),
+                      ffn.geglu_ffn_bwd_plain(*args))
+    # read x, W0, b0, W1, dout; write dx (bf16) and the fp32 weight and bias gradients
+    nbytes = (2 * (2 * m * dim + w0.numel() + b0.numel() + w1.numel() + m * dim)
+              + 4 * (w0.numel() + b0.numel() + w1.numel() + dim))
+    flops = 2 * m * dim * 8 * w1.shape[1]  # h, dprod, dx, dW0 (2H wide) and dW1 (H wide)
+    b_ms, b_by = bound(nbytes, flops)
+    call = lambda: ffn.geglu_ffn_bwd_cuda(*args)  # noqa: E731
+    dev = device_ms(call)
+    return {
+        "shape": f"{tag}D={dim} H={w1.shape[1]} M={m}", "calls": calls,
+        "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
+        "ms": dev, "device_ms": dev, "host_ms": time_ms(call),
+        "plain_ms": device_ms(lambda: ffn.geglu_ffn_bwd_plain(*args)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "splits": ffn.product_splits(m, dim, w1.shape[1],
+                                     torch.cuda.get_device_properties(0).multi_processor_count),
+    }
+
+
+def _ffn_bwd_rerun_and_launches(smi, args):
+    """Two reruns of the FFN backward must give the same bits of every
+    gradient, and three calls' device time by CUDA launch (the dh kernel,
+    the products, the reduce) under ``torch.profiler``."""
+    import torch
+
+    from mintime_torch.ops import geglu_ffn as ffn
+
+    call = lambda: ffn.geglu_ffn_bwd_cuda(*args)  # noqa: E731
+    first = call()
+    bitwise = all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
+    x, w1 = args[0], args[3]
+    shape = f"D={x.shape[1]} H={w1.shape[1]} M={x.shape[0]}"
+    emit({"phase": "kernel_bitwise", "name": "geglu_ffn_bwd", "shape": shape, "card": smi,
+          "reruns": 2, "dx_dw0_db0_dw1_db1_bitwise_equal": bitwise})
+    if not bitwise:
+        raise AssertionError(f"geglu_ffn_bwd gave other bits on a rerun at {shape}")
+    # three calls in the window: the profiler has been seen to drop the first
+    # kernel of a window (the backward lines' first launch), so each launch's
+    # time is its total over the launches recorded
+    emit({"phase": "kernel_launches", "name": "geglu_ffn_bwd", "shape": shape, "card": smi,
+          "calls_in_window": 3, **_profile(lambda: [call() for _ in range(3)])})
+
+
 def _backward_kernels(smi, gen):
     """Each backward kernel vs its plain version at the flagship shapes of a
     train step at batch 8, with seeded unit-scale cotangents, so that every
     gradient's largest value exceeds 1 and the limit is 2e-2 of it."""
     import torch
 
-    from mintime_torch.ops import geglu_ffn as ffn
-
     rows = {"geglu_ffn_bwd": [], "divided_attention_bwd": []}
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
     # launches per train step: the last layer's token FFN gets no gradient
     for dim, hidden, shapes in FFN_SHAPES:
         w0, b0, w1, _ = _ffn_weights(r, dim, hidden)
-        for m, _, calls in shapes:
+        # the split-K edges (row counts off the 128-row tiles), no calls
+        edges = [(m, 0) for m in FFN_BWD_EDGE_ROWS[dim]]
+        for m, calls in [(m, c) for m, _, c in shapes] + edges:
             x, dout = r(m, dim), r(m, dim)
             args = (x, w0, b0, w1, dout)
-            grads = _grad_err(("dx", "dw0", "db0", "dw1", "db1"), ffn.geglu_ffn_bwd_cuda(*args),
-                              ffn.geglu_ffn_bwd_plain(*args))
-            # read x, W0, b0, W1, dout; write dx (bf16) and the fp32 weight and bias gradients
-            nbytes = (2 * (2 * m * dim + w0.numel() + b0.numel() + w1.numel() + m * dim)
-                      + 4 * (w0.numel() + b0.numel() + w1.numel() + dim))
-            flops = 2 * m * dim * 8 * hidden  # h, dprod, dx, dW0 (2H wide) and dW1 (H wide)
-            b_ms, b_by = bound(nbytes, flops)
-            rows["geglu_ffn_bwd"].append({
-                "shape": f"D={dim} H={hidden} M={m}", "calls": calls,
-                "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
-                "ms": time_ms(lambda: ffn.geglu_ffn_bwd_cuda(*args)),
-                "plain_ms": time_ms(lambda: ffn.geglu_ffn_bwd_plain(*args)),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            })
+            rows["geglu_ffn_bwd"].append(_ffn_bwd_row(args, calls, "" if calls else "edge "))
+            if m in FFN_BWD_PROFILED:
+                _ffn_bwd_rerun_and_launches(smi, args)
+            del x, dout, args
 
     for shape, args, H, _, calls in _divided_cases(gen):
         rows["divided_attention_bwd"].append(_divided_bwd_row(shape, args, H, calls, gen))

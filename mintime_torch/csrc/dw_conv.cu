@@ -13,136 +13,196 @@
 // 3.35 TB/s; its 2*K*K*N*H*W*C fp32 operations (3.7 GFLOP) take 0.055 ms at
 // the 67 TFLOP/s of the CUDA cores.
 //
-// Design: the TPU kernel flattened (W, C) into its 128-wide lanes so that
-// C = 32 or 144 filled them, and shifted whole rows by kw*C. On Hopper the
-// natural layout is channel-innermost already: one 256-thread block owns
-// (image, tile of TH output rows, tile of up to 64 channels) and stages the
-// tile's TH + K - 1 input rows with their halo in shared memory (zeros
-// outside the image), so each input element is read from device memory
-// about (TH + K - 1) / TH times. A thread owns one channel pair (bf16x2
-// loads and stores when C is even) and walks the tile's pixels, with its
-// pair's K*K weights in registers; lanes of a warp read neighbouring pairs,
-// so shared-memory reads are conflict-free. TH is the most rows whose halo
-// tile fits 48 KB. A ragged last channel tile is masked.
+// Design. One block owns (image, tile of ct channels) and walks the image's
+// height. It holds a ring of K + 1 padded input rows in dynamic shared memory
+// ([K + 1][WP][ct] bf16, WP = the row with its K - 1 halo columns, rounded up
+// to whole column groups): while it computes output row r from ring rows
+// r .. r + K - 1, it stages input row r + K by 16-byte cp.async, eight
+// channels a copy, zero-filled above and below the image. Every input element
+// is read from device memory once. The halo columns are zeroed once and never
+// written again; the first row's barrier orders that before any read. A thread owns one channel pair and R consecutive output
+// columns: for each kernel row it reads the K + R - 1 inputs its columns see
+// into registers and slides over them, so shared-memory reads per output fall
+// from K*K to K*(K + R - 1)/R; its pair's K*K weights stay in registers. Each
+// output sums its taps in the order the plain version does (kh outer, kw
+// inner, one fmaf chain from 0), then bias, SiLU (__expf: a few ulp of fp32,
+// far below the one bf16 rounding that follows) and one rounding to bf16.
+// The plan (ct, R, threads) comes from the caller (ops/dw_conv.py::plan).
+// Channel counts that are not a multiple of 8 are staged element by element
+// and masked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
+#include <stdint.h>
+
+#include "warp_mma.cuh"
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int CT = 64;                  // channels of a block's tile
-constexpr int SMEM_BYTES = 48 * 1024;   // the halo tile's budget
+constexpr int MAX_THREADS = 512;
+constexpr int MAX_SMEM = 227 * 1024;
 
-// channels of a tile: all of C (rounded up to a pair) when C <= CT
-int tile_channels(int C) { return C >= CT ? CT : (C + 1) / 2 * 2; }
-
-// a channel pair of x as floats; the second is 0 past C
-__device__ __forceinline__ float2 load_pair(const bf16* p, int c, int C, bool even) {
-  if (even) return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
-  return make_float2(c < C ? __bfloat162float(p[0]) : 0.0f,
-                     c + 1 < C ? __bfloat162float(p[1]) : 0.0f);
+__device__ __forceinline__ float2 pair_at(const bf16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
 
-template <int K>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ float silu(float y) { return y * (1.0f / (1.0f + __expf(-y))); }
+
+template <int K, int R>
+__global__ void __launch_bounds__(MAX_THREADS)
 dw_conv_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, bf16* __restrict__ out, int H, int W, int C,
-               int TH, int ct) {
+               int ct, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf162* xs = reinterpret_cast<bf162*>(smem);  // [TH + K - 1][W + K - 1][ct / 2]
+  bf16* ring = reinterpret_cast<bf16*>(smem);
   constexpr int PAD = K / 2;
-  const int n = blockIdx.z;
-  const int c0 = blockIdx.y * ct;
-  const int h0 = blockIdx.x * TH;
-  const int WP = W + K - 1;
-  const int NP = ct / 2;                // channel pairs of the tile
-  const int PIX = THREADS / NP;         // pixel lanes
+  constexpr int SLOTS = K + 1;
+  const int n = blockIdx.y;
+  const int c0 = blockIdx.x * ct;
+  const int groups = (W + R - 1) / R;  // column groups of a row
+  const int WP = groups * R + K - 1;
+  const int row_elems = WP * ct;
+  const int np = ct / 2;               // channel pairs of the tile
   const int tid = threadIdx.x;
-  const int pp = tid % NP;
-  const int lane_pix = tid / NP;
-  const bool even = C % 2 == 0;
+  const int nt = blockDim.x;
   const size_t row_stride = size_t(W) * C;
   const bf16* img = x + size_t(n) * H * row_stride;
 
-  const int rows = min(TH, H - h0) + K - 1;
-  for (int i = tid; i < rows * WP * NP; i += THREADS) {
-    const int p = i % NP;
-    const int col = i / NP % WP;
-    const int r = i / NP / WP;
-    const int ih = h0 + r - PAD;
-    const int iw = col - PAD;
-    const int c = c0 + 2 * p;
-    float2 v = make_float2(0.0f, 0.0f);
-    if (ih >= 0 && ih < H && iw >= 0 && iw < W && c < C)
-      v = load_pair(img + ih * row_stride + size_t(iw) * C + c, c, C, even);
-    xs[(r * WP + col) * NP + p] = __floats2bfloat162_rn(v.x, v.y);
+  // zero the halo columns of every slot once: staging never writes them
+  const int halo = WP - W;  // PAD on the left, the rest on the right
+  for (int i = tid; i < SLOTS * halo * ct / 2; i += nt) {
+    const int c2 = i % (ct / 2);
+    const int col = i / (ct / 2) % halo;
+    const int slot = i / (ct / 2) / halo;
+    reinterpret_cast<uint32_t*>(ring + slot * row_elems + (col < PAD ? col : col + W) * ct)[c2] = 0u;
   }
 
-  const int c = c0 + 2 * pp;
-  float2 wr[K * K];
-#pragma unroll
-  for (int t = 0; t < K * K; ++t)
-    wr[t] = make_float2(c < C ? w[t * C + c] : 0.0f, c + 1 < C ? w[t * C + c + 1] : 0.0f);
-  const float b0 = c < C ? bias[c] : 0.0f;
-  const float b1 = c + 1 < C ? bias[c + 1] : 0.0f;
-  __syncthreads();
-  if (lane_pix >= PIX || c >= C) return;
-
-  const int npix = (rows - K + 1) * W;
-  for (int q = lane_pix; q < npix; q += PIX) {
-    const int r = q / W;
-    const int col = q % W;
-    float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-    for (int kh = 0; kh < K; ++kh)
-#pragma unroll
-      for (int kw = 0; kw < K; ++kw) {
-        const float2 v = __bfloat1622float2(xs[((r + kh) * WP + col + kw) * NP + pp]);
-        a0 = fmaf(v.x, wr[kh * K + kw].x, a0);
-        a1 = fmaf(v.y, wr[kh * K + kw].y, a1);
+  // padded row pr (input row pr - PAD) into its slot, interior columns only
+  auto stage = [&](int pr) {
+    const int ih = pr - PAD;
+    const bool in_image = ih >= 0 && ih < H;
+    bf16* dst = ring + (pr % SLOTS) * row_elems + PAD * ct;
+    const bf16* src = img + size_t(in_image ? ih : 0) * row_stride + c0;
+    if (vec) {
+      const int cpr = ct / 8;  // 16-byte copies per pixel
+      for (int i = tid; i < W * cpr; i += nt) {
+        const int col = i / cpr;
+        const int q = i - col * cpr;
+        const bool live = in_image && c0 + 8 * q < C;
+        warp_mma::cp_async16_zfill(dst + col * ct + 8 * q,
+                                   live ? src + size_t(col) * C + 8 * q : img, live ? 16 : 0);
       }
-    const float y0 = a0 + b0;
-    const float y1 = a1 + b1;
-    const float s0 = y0 * (1.0f / (1.0f + expf(-y0)));
-    const float s1 = y1 * (1.0f / (1.0f + expf(-y1)));
-    bf16* o = out + (size_t(n) * H + h0 + r) * row_stride + size_t(col) * C + c;
-    if (even) {
-      *reinterpret_cast<bf162*>(o) = __floats2bfloat162_rn(s0, s1);
     } else {
-      o[0] = __float2bfloat16(s0);
-      if (c + 1 < C) o[1] = __float2bfloat16(s1);
+      for (int i = tid; i < W * ct; i += nt) {
+        const int col = i / ct;
+        const int c = i - col * ct;
+        dst[col * ct + c] = in_image && c0 + c < C ? src[size_t(col) * C + c] : __float2bfloat16(0.0f);
+      }
     }
+  };
+
+  for (int pr = 0; pr < K; ++pr) {
+    stage(pr);
+    warp_mma::cp_async_commit();
   }
+
+  const int items = groups * np;
+  int wp = -1;  // the channel pair whose weights and bias the registers hold
+  float2 wr[K * K];
+  float b0 = 0.0f, b1 = 0.0f;
+  for (int r = 0; r < H; ++r) {
+    if (r + 1 < H) stage(r + K);  // the last padded row is r + K = H + K - 2 at r = H - 2
+    warp_mma::cp_async_commit();
+    warp_mma::cp_async_wait<1>();
+    __syncthreads();
+
+    for (int it = tid; it < items; it += nt) {
+      const int p = it % np;
+      const int g = it / np;
+      const int c = c0 + 2 * p;
+      if (c >= C) continue;
+      if (p != wp) {
+#pragma unroll
+        for (int t = 0; t < K * K; ++t)
+          wr[t] = make_float2(w[t * C + c], c + 1 < C ? w[t * C + c + 1] : 0.0f);
+        b0 = bias[c];
+        b1 = c + 1 < C ? bias[c + 1] : 0.0f;
+        wp = p;
+      }
+      float a0[R], a1[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) a0[j] = a1[j] = 0.0f;
+#pragma unroll
+      for (int kh = 0; kh < K; ++kh) {
+        const bf16* src = ring + ((r + kh) % SLOTS) * row_elems + (g * R) * ct + 2 * p;
+        float2 v[K + R - 1];
+#pragma unroll
+        for (int t = 0; t < K + R - 1; ++t) v[t] = pair_at(src + t * ct);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+#pragma unroll
+          for (int kw = 0; kw < K; ++kw) {
+            a0[j] = fmaf(v[j + kw].x, wr[kh * K + kw].x, a0[j]);
+            a1[j] = fmaf(v[j + kw].y, wr[kh * K + kw].y, a1[j]);
+          }
+      }
+      bf16* o = out + (size_t(n) * H + r) * row_stride + size_t(g * R) * C + c;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (g * R + j >= W) break;
+        const float s0 = silu(a0[j] + b0);
+        const float s1 = silu(a1[j] + b1);
+        if (C % 2 == 0) {
+          *reinterpret_cast<bf162*>(o + size_t(j) * C) = __floats2bfloat162_rn(s0, s1);
+        } else {
+          o[size_t(j) * C] = __float2bfloat16(s0);
+          if (c + 1 < C) o[size_t(j) * C + 1] = __float2bfloat16(s1);
+        }
+      }
+    }
+    __syncthreads();  // the next stage overwrites the slot row r just read
+  }
+}
+
+template <int K, int R>
+int launch(const bf16* x, const float* w, const float* b, bf16* out, int N, int H, int W, int C,
+           int ct, int threads, bool vec, cudaStream_t s) {
+  const int groups = (W + R - 1) / R;
+  const size_t smem = size_t(K + 1) * (groups * R + K - 1) * ct * sizeof(bf16);
+  if (smem > size_t(MAX_SMEM)) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(dw_conv_kernel<K, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((C + ct - 1) / ct, N);
+  dw_conv_kernel<K, R><<<grid, threads, smem, s>>>(x, w, b, out, H, W, C, ct, vec);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // x, out (N, H, W, C) bf16 and w (K, K, C), b (C,) fp32, all contiguous.
+// The plan: ct channels a block (even; a multiple of 8 when C is), R output
+// columns a thread (4 or 7), threads a block (a multiple of 32, at most 512).
 extern "C" int dw_conv_bias_silu_fwd(const void* x, const void* w, const void* b, void* out,
-                                     int N, int H, int W, int C, int K, void* stream) {
-  if ((K != 3 && K != 5) || N < 1 || H < 1 || W < 1 || C < 1 || N > 65535)
+                                     int N, int H, int W, int C, int K, int ct, int R,
+                                     int threads, void* stream) {
+  if ((K != 3 && K != 5) || (R != 4 && R != 7) || N < 1 || H < 1 || W < 1 || C < 1 ||
+      N > 65535 || ct < 2 || ct % 2 || (C + ct - 1) / ct > 65535 || threads < 32 ||
+      threads % 32 || threads > MAX_THREADS)
     return int(cudaErrorInvalidValue);
-  const int ct = tile_channels(C);
-  const int tiles = (C + ct - 1) / ct;
-  const size_t row_bytes = size_t(W + K - 1) * ct * sizeof(bf16);
-  const int fit = int(SMEM_BYTES / row_bytes) - (K - 1);  // output rows whose halo tile fits
-  if (fit < 1 || tiles > 65535) return int(cudaErrorInvalidValue);
-  const int TH = fit < H ? fit : H;
-  const size_t smem = size_t(TH + K - 1) * row_bytes;
-  const dim3 grid((H + TH - 1) / TH, tiles, N);
+  const bool vec = C % 8 == 0 && ct % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const float* wf = static_cast<const float*>(w);
   const float* bfp = static_cast<const float*>(b);
   bf16* ob = static_cast<bf16*>(out);
   if (K == 3)
-    dw_conv_kernel<3><<<grid, THREADS, smem, s>>>(xb, wf, bfp, ob, H, W, C, TH, ct);
-  else
-    dw_conv_kernel<5><<<grid, THREADS, smem, s>>>(xb, wf, bfp, ob, H, W, C, TH, ct);
-  return int(cudaGetLastError());
+    return R == 4 ? launch<3, 4>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s)
+                  : launch<3, 7>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s);
+  return R == 4 ? launch<5, 4>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s)
+                : launch<5, 7>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s);
 }

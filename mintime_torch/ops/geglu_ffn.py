@@ -32,7 +32,10 @@ bwd_launches = 0
 
 _KERNEL_DIMS = (256, 512)  # the model widths the kernels are instantiated for
 _KERNEL_CHUNK = 64
-_KERNEL_ROWS = 32  # rows per block
+_KERNEL_ROWS = 32  # rows per block of the forward kernel
+_BWD_ROWS = 128  # rows per block of the backward's dh kernel (its column-sum tiles)
+_TILE = 128  # output tile of the backward's products, rows and columns
+_TILE_K = 32  # k depth of a product's stage; split slices are whole stages
 
 
 def reset_launches() -> None:
@@ -82,6 +85,37 @@ def split_count(m: int, hidden: int, sms: int) -> int:
     if tiles >= sms:
         return 1
     return min(hidden // _KERNEL_CHUNK, -(-2 * sms // tiles))
+
+
+def _split(rows: int, cols: int, k: int, sms: int) -> tuple[int, int]:
+    """(slices, slice length) for one product with a ``rows x cols`` output
+    reduced over ``k``: one slice while its 128 x 128 tiles alone give every
+    SM a block, else as many as keep its blocks within one wave of two
+    blocks an SM (a second, part-filled wave would leave SMs idle), in
+    slices of whole 32-deep stages, none empty."""
+    tiles = -(-rows // _TILE) * -(-cols // _TILE)
+    if tiles >= sms or k <= _TILE_K:
+        return 1, k
+    s = min(max(1, 2 * sms // tiles), -(-k // _TILE_K))
+    chunk = _TILE_K * -(-(-(-k // s)) // _TILE_K)
+    return -(-k // chunk), chunk
+
+
+def product_splits(m: int, dim: int, hidden: int, sms: int) -> dict[str, tuple[int, int]]:
+    """How the backward's three products split their reductions:
+    ``{"dw0": (S, chunk), "dw1": ..., "dx": ...}``. dW0 = dh^T x (2H x D) and
+    dW1 = dout^T prod (D x H) reduce over the M rows, dx = dh W0 (M x D)
+    over 2H; slice s covers ``[s * chunk, min(K, (s + 1) * chunk))``. Each
+    product with S > 1 needs ``S * its output`` fp32 scratch
+    (:func:`split_scratch`)."""
+    return {"dw0": _split(2 * hidden, dim, m, sms), "dw1": _split(dim, hidden, m, sms),
+            "dx": _split(m, dim, 2 * hidden, sms)}
+
+
+def split_scratch(m: int, dim: int, hidden: int, splits: dict) -> dict[str, int]:
+    """fp32 elements of each product's split-K partials (0 when S = 1)."""
+    out = {"dw0": 2 * hidden * dim, "dw1": dim * hidden, "dx": m * dim}
+    return {k: (splits[k][0] * n if splits[k][0] > 1 else 0) for k, n in out.items()}
 
 
 def _check_kernel_args(x2, w0, b0, w1, b1=None, dout=None):
@@ -139,10 +173,11 @@ def geglu_ffn_cuda(x, w0, b0, w1, b1):
 
 
 def geglu_ffn_bwd_cuda(x, w0, b0, w1, dout):
-    """Launch the backward kernel; same results as :func:`geglu_ffn_bwd_plain`.
+    """Launch the backward kernels; same results as :func:`geglu_ffn_bwd_plain`.
 
-    Scratch it allocates: ``dh (M, 2H)`` and ``prod (M, H)`` in bf16 and the
-    per-row-tile column sums of ``dh`` and ``dout`` in fp32.
+    Scratch it allocates: ``dh (M, 2H)`` and ``prod (M, H)`` in bf16, the
+    per-row-tile column sums of ``dh`` and ``dout`` and the split products'
+    partials (:func:`product_splits`) in fp32.
     """
     global bwd_launches
     x2 = x.reshape(-1, x.shape[-1])
@@ -160,21 +195,27 @@ def geglu_ffn_bwd_cuda(x, w0, b0, w1, dout):
     db1 = torch.empty(dim, dtype=f32, device=dev)
     if m == 0:
         return dx.reshape(x.shape), dw0.zero_(), db0.zero_(), dw1.zero_(), db1.zero_()
-    tiles = -(-m // _KERNEL_ROWS)
+    tiles = -(-m // _BWD_ROWS)
     dh = torch.empty((m, 2 * hidden), dtype=x.dtype, device=dev)
     prod = torch.empty((m, hidden), dtype=x.dtype, device=dev)
     db0_part = torch.empty((tiles, 2 * hidden), dtype=f32, device=dev)
     db1_part = torch.empty((tiles, dim), dtype=f32, device=dev)
-    splits = split_count(m, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
+    splits = product_splits(m, dim, hidden,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
+    parts = {k: torch.empty(n, dtype=f32, device=dev) if n else None
+             for k, n in split_scratch(m, dim, hidden, splits).items()}
     lib = _build.load("geglu_ffn_bwd")
     fn = lib.geglu_ffn_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         status = fn(x2.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), d2.data_ptr(),
                     dx.data_ptr(), dw0.data_ptr(), db0.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
                     dh.data_ptr(), prod.data_ptr(), db0_part.data_ptr(), db1_part.data_ptr(),
-                    m, dim, hidden, splits, torch.cuda.current_stream(dev).cuda_stream)
+                    ptr(parts["dx"]), ptr(parts["dw0"]), ptr(parts["dw1"]), m, dim, hidden,
+                    *splits["dx"], *splits["dw0"], *splits["dw1"],
+                    torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "geglu_ffn_bwd")
     bwd_launches += 1
     return dx.reshape(x.shape), dw0, db0, dw1, db1

@@ -42,3 +42,15 @@ def test_forward_keys_cover_the_row_tile_header(name):
     mma helpers under it change."""
     names = [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
     assert names == [f"{name}.cu", "attn_rows_mma.cuh", "warp_mma.cuh"]
+
+
+def test_ffn_backward_key_covers_the_product_header():
+    """The FFN backward rebuilds when the product core or the mma helpers
+    under it change."""
+    names = [p.name for p in _build._sources(_build.CSRC / "geglu_ffn_bwd.cu")]
+    assert names == ["geglu_ffn_bwd.cu", "gemm_mma.cuh", "warp_mma.cuh"]
+
+
+def test_dw_conv_key_covers_the_copy_helpers():
+    names = [p.name for p in _build._sources(_build.CSRC / "dw_conv.cu")]
+    assert names == ["dw_conv.cu", "warp_mma.cuh"]

@@ -253,7 +253,8 @@ def test_chunked_attention_kernel_on_card(G, L, P):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,W,C,K", [(112, 112, 32, 3), (14, 14, 672, 5), (9, 7, 17, 3),
-                                     (7, 7, 150, 5)])
+                                     (7, 7, 150, 5), (56, 56, 144, 3), (28, 28, 144, 5),
+                                     (7, 7, 1152, 5), (7, 7, 1152, 3), (10, 9, 24, 5)])
 def test_dw_conv_kernels_on_card(H, W, C, K):
     """The depthwise forward (+bias+SiLU) and weight-gradient kernels against
     their plain versions in bf16, with even and odd C and a ragged channel
@@ -274,6 +275,42 @@ def test_dw_conv_kernels_on_card(H, W, C, K):
     assert got.shape == (K, K, 1, C) and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
     assert torch.equal(port_dw.dw_conv_wgrad_cuda(x, dy, K=K), got)
+
+
+def _ffn_bwd_args(dim, hidden, m, seed):
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    return (r(m, dim), r(2 * hidden, dim, sc=dim ** -0.5), r(2 * hidden, sc=0.02),
+            r(dim, hidden, sc=hidden ** -0.5), r(m, dim))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,hidden", [(512, 2048), (256, 1024)])
+@pytest.mark.parametrize("m", [1, 8, 100, 6272])
+def test_geglu_backward_kernel_on_card_split_k(dim, hidden, m):
+    """The FFN backward at both model widths and row counts that split its
+    products' reductions differently (dx over 2H at few rows, the weight
+    gradients over M), against its plain version with unit-scale cotangents
+    (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args = _ffn_bwd_args(dim, hidden, m, seed=11)
+    got = port.geglu_ffn_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    _close_per_gradient(got, port.geglu_ffn_bwd_plain(*args), f"ffn D={dim} M={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,hidden,m", [(512, 2048, 6272), (256, 1024, 8), (512, 2048, 100)])
+def test_geglu_backward_kernel_is_bitwise_stable(dim, hidden, m):
+    """Split-K partials are summed in slice order, without atomics: a rerun
+    gives the same bits of every gradient (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args = _ffn_bwd_args(dim, hidden, m, seed=12)
+    first = port.geglu_ffn_bwd_cuda(*args)
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(port.geglu_ffn_bwd_cuda(*args), first))
 
 
 @pytest.mark.cuda
