@@ -111,6 +111,7 @@ The line before the last holds ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -147,27 +148,58 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+LEAD_IN = "spin_kernel"  # the kernel ``torch.cuda._sleep`` launches
+
+
+def _lead_in() -> None:
+    """Open a profiled window with a short spin kernel, finished before the
+    measured work starts: the profiler has been seen to drop a window's
+    first kernels, and then this one goes first. It does not stop every loss
+    (windows have come back short or empty), so the callers also count what
+    a window recorded and profile again. :func:`_window_kernels` leaves the
+    spin kernel out."""
+    import torch
+
+    torch.cuda._sleep(20000)
+    torch.cuda.synchronize()
+
+
+def _window_kernels(prof) -> list:
+    """The CUDA kernels a profile recorded, the lead-in left out."""
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and LEAD_IN not in e.name]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int | None = None) -> float:
     """Device time of one call: the summed durations of the CUDA kernels that
     ``iters`` calls launch, under ``torch.profiler``, over ``iters``. The
     host's time between launches is left out, so a call whose kernels finish
-    quicker than Python issues them reads its kernels' time, not the host's."""
+    quicker than Python issues them reads its kernels' time, not the host's.
+    The window must hold ``launches`` kernels a call where that is given,
+    else a whole number a call; a window that does not is profiled again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profile now and then comes back without its device events
+    counts = []
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _lead_in()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    raise RuntimeError("torch.profiler recorded no device time in three profiles")
+        kernels = _window_kernels(prof)
+        counts.append(len(kernels))
+        whole = (len(kernels) == launches * iters if launches is not None
+                 else len(kernels) % iters == 0)
+        if kernels and whole:
+            return sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / iters
+    raise RuntimeError(f"torch.profiler recorded {counts} kernels in three windows of {iters}"
+                       f" calls{'' if launches is None else f' of {launches} launches'}")
 
 
 def max_err(got, want) -> float:
@@ -775,16 +807,16 @@ FFN_BWD_EDGE_ROWS = {512: (1, 100, 6272 + 8), 256: (1, 100)}
 #: the row counts whose backward is rerun for bits and profiled by launch:
 #: the flagship's and the conv model's token rows
 FFN_BWD_PROFILED = (8 * 16 * 49, 8 * 8 * 1280)
+#: CUDA kernels a backward call launches: dh, the three products, the reduce
+FFN_BWD_LAUNCHES = 3
 
 
-def _ffn_bwd_row(args, calls, tag=""):
+def _ffn_bwd_row(args, calls, tag="", launches=FFN_BWD_LAUNCHES):
     """The FFN backward vs its plain version (per gradient), its device time
-    (``ms``: the kernels' durations under ``torch.profiler``; ``host_ms``, by
-    CUDA events over back-to-back calls, reads the host where the kernels
-    finish sooner than the wrapper issues them), the plain version's and the
-    bound."""
-    import torch
-
+    (``ms``: the kernels' durations under ``torch.profiler``, ``launches``
+    kernels a call; ``host_ms``, by CUDA events over back-to-back calls,
+    reads the host where the kernels finish sooner than the wrapper issues
+    them), the plain version's and the bound."""
     from mintime_torch.ops import geglu_ffn as ffn
 
     x, w0, b0, w1, dout = args
@@ -797,15 +829,13 @@ def _ffn_bwd_row(args, calls, tag=""):
     flops = 2 * m * dim * 8 * w1.shape[1]  # h, dprod, dx, dW0 (2H wide) and dW1 (H wide)
     b_ms, b_by = bound(nbytes, flops)
     call = lambda: ffn.geglu_ffn_bwd_cuda(*args)  # noqa: E731
-    dev = device_ms(call)
+    dev = device_ms(call, launches=launches)
     return {
         "shape": f"{tag}D={dim} H={w1.shape[1]} M={m}", "calls": calls,
         "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
         "ms": dev, "device_ms": dev, "host_ms": time_ms(call),
         "plain_ms": device_ms(lambda: ffn.geglu_ffn_bwd_plain(*args)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "splits": ffn.product_splits(m, dim, w1.shape[1],
-                                     torch.cuda.get_device_properties(0).multi_processor_count),
     }
 
 
@@ -826,11 +856,10 @@ def _ffn_bwd_rerun_and_launches(smi, args):
           "reruns": 2, "dx_dw0_db0_dw1_db1_bitwise_equal": bitwise})
     if not bitwise:
         raise AssertionError(f"geglu_ffn_bwd gave other bits on a rerun at {shape}")
-    # three calls in the window: the profiler has been seen to drop the first
-    # kernel of a window (the backward lines' first launch), so each launch's
-    # time is its total over the launches recorded
+    # each launch's time is its total over the three calls in the window
     emit({"phase": "kernel_launches", "name": "geglu_ffn_bwd", "shape": shape, "card": smi,
-          "calls_in_window": 3, **_profile(lambda: [call() for _ in range(3)])})
+          "calls_in_window": 3,
+          **_profile(lambda: [call() for _ in range(3)], launches=3 * FFN_BWD_LAUNCHES, calls=3)})
 
 
 def _backward_kernels(smi, gen):
@@ -839,8 +868,11 @@ def _backward_kernels(smi, gen):
     gradient's largest value exceeds 1 and the limit is 2e-2 of it."""
     import torch
 
+    from mintime_torch.ops import geglu_ffn as ffn
+
     rows = {"geglu_ffn_bwd": [], "divided_attention_bwd": []}
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # launches per train step: the last layer's token FFN gets no gradient
     for dim, hidden, shapes in FFN_SHAPES:
         w0, b0, w1, _ = _ffn_weights(r, dim, hidden)
@@ -849,7 +881,8 @@ def _backward_kernels(smi, gen):
         for m, calls in [(m, c) for m, _, c in shapes] + edges:
             x, dout = r(m, dim), r(m, dim)
             args = (x, w0, b0, w1, dout)
-            rows["geglu_ffn_bwd"].append(_ffn_bwd_row(args, calls, "" if calls else "edge "))
+            rows["geglu_ffn_bwd"].append({**_ffn_bwd_row(args, calls, "" if calls else "edge "),
+                                          "splits": ffn.product_splits(m, dim, hidden, sms)})
             if m in FFN_BWD_PROFILED:
                 _ffn_bwd_rerun_and_launches(smi, args)
             del x, dout, args
@@ -1098,20 +1131,36 @@ def _kind(name: str) -> str:
     return "elementwise"
 
 
-def _profile(fn) -> dict:
+def _profile(fn, launches: int | None = None, calls: int = 1) -> dict:
     """Device busy and idle share of the host window of one ``fn()`` under
-    ``torch.profiler``, device time by layer and the top kernels."""
+    ``torch.profiler``, device time by layer and the top kernels. A window
+    must hold kernels, each name a multiple of ``calls`` times (``fn`` makes
+    that many calls) and ``launches`` in all where that is given; one that
+    does not is profiled again, up to three times, and then raises where
+    ``launches`` is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _lead_in()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = _window_kernels(prof)
+        counts.append(len(kernels))
+        names = collections.Counter(e.name for e in kernels)
+        if (kernels and all(n % calls == 0 for n in names.values())
+                and (launches is None or len(kernels) == launches)):
+            break
+    else:
+        if launches is not None:
+            raise RuntimeError(f"torch.profiler recorded {counts} kernels in three windows,"
+                               f" not {launches}")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for a, b in spans:  # union of the kernels' intervals

@@ -20,14 +20,15 @@
 // r .. r + K - 1, it stages input row r + K by 16-byte cp.async, eight
 // channels a copy, zero-filled above and below the image. Every input element
 // is read from device memory once. The halo columns are zeroed once and never
-// written again; the first row's barrier orders that before any read. A thread owns one channel pair and R consecutive output
-// columns: for each kernel row it reads the K + R - 1 inputs its columns see
+// written again; the first row's barrier orders that before any read. A
+// thread owns one channel pair and R = 7 consecutive output columns (the last
+// group of a row masked where 7 does not divide W): for each kernel row it reads the K + R - 1 inputs its columns see
 // into registers and slides over them, so shared-memory reads per output fall
 // from K*K to K*(K + R - 1)/R; its pair's K*K weights stay in registers. Each
 // output sums its taps in the order the plain version does (kh outer, kw
 // inner, one fmaf chain from 0), then bias, SiLU (__expf: a few ulp of fp32,
 // far below the one bf16 rounding that follows) and one rounding to bf16.
-// The plan (ct, R, threads) comes from the caller (ops/dw_conv.py::plan).
+// The plan (ct, threads) comes from the caller (ops/dw_conv.py::plan).
 // Channel counts that are not a multiple of 8 are staged element by element
 // and masked.
 
@@ -44,6 +45,7 @@ namespace {
 
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_SMEM = 227 * 1024;
+constexpr int R = 7;  // output columns a thread
 
 __device__ __forceinline__ float2 pair_at(const bf16* p) {
   const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
@@ -52,7 +54,7 @@ __device__ __forceinline__ float2 pair_at(const bf16* p) {
 
 __device__ __forceinline__ float silu(float y) { return y * (1.0f / (1.0f + __expf(-y))); }
 
-template <int K, int R>
+template <int K>
 __global__ void __launch_bounds__(MAX_THREADS)
 dw_conv_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, bf16* __restrict__ out, int H, int W, int C,
@@ -168,29 +170,29 @@ dw_conv_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int K, int R>
+template <int K>
 int launch(const bf16* x, const float* w, const float* b, bf16* out, int N, int H, int W, int C,
            int ct, int threads, bool vec, cudaStream_t s) {
   const int groups = (W + R - 1) / R;
   const size_t smem = size_t(K + 1) * (groups * R + K - 1) * ct * sizeof(bf16);
   if (smem > size_t(MAX_SMEM)) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(dw_conv_kernel<K, R>,
+  cudaError_t err = cudaFuncSetAttribute(dw_conv_kernel<K>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((C + ct - 1) / ct, N);
-  dw_conv_kernel<K, R><<<grid, threads, smem, s>>>(x, w, b, out, H, W, C, ct, vec);
+  dw_conv_kernel<K><<<grid, threads, smem, s>>>(x, w, b, out, H, W, C, ct, vec);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // x, out (N, H, W, C) bf16 and w (K, K, C), b (C,) fp32, all contiguous.
-// The plan: ct channels a block (even; a multiple of 8 when C is), R output
-// columns a thread (4 or 7), threads a block (a multiple of 32, at most 512).
+// The plan: ct channels a block (even; a multiple of 8 when C is), threads a
+// block (a multiple of 32, at most 512).
 extern "C" int dw_conv_bias_silu_fwd(const void* x, const void* w, const void* b, void* out,
-                                     int N, int H, int W, int C, int K, int ct, int R,
+                                     int N, int H, int W, int C, int K, int ct,
                                      int threads, void* stream) {
-  if ((K != 3 && K != 5) || (R != 4 && R != 7) || N < 1 || H < 1 || W < 1 || C < 1 ||
+  if ((K != 3 && K != 5) || N < 1 || H < 1 || W < 1 || C < 1 ||
       N > 65535 || ct < 2 || ct % 2 || (C + ct - 1) / ct > 65535 || threads < 32 ||
       threads % 32 || threads > MAX_THREADS)
     return int(cudaErrorInvalidValue);
@@ -200,9 +202,6 @@ extern "C" int dw_conv_bias_silu_fwd(const void* x, const void* w, const void* b
   const float* wf = static_cast<const float*>(w);
   const float* bfp = static_cast<const float*>(b);
   bf16* ob = static_cast<bf16*>(out);
-  if (K == 3)
-    return R == 4 ? launch<3, 4>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s)
-                  : launch<3, 7>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s);
-  return R == 4 ? launch<5, 4>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s)
-                : launch<5, 7>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s);
+  return K == 3 ? launch<3>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s)
+                : launch<5>(xb, wf, bfp, ob, N, H, W, C, ct, threads, vec, s);
 }

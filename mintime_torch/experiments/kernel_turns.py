@@ -5,22 +5,20 @@ Each tree is measured by a process of its own (its ``mintime_torch`` on
 ``PYTHONPATH``, its kernels built into its own ``mintime_torch/.build/``), in
 the order other, this, this, other, so that a drift of the card's clocks
 falls on both alike. Without ``--other`` this tree alone is measured, once.
+Both trees are measured by this tree's harness: ``chip_smoke.py``'s FFN
+backward row, profiler and timers, and the depthwise probe's ``run``.
 
 For each tree:
 
-  geglu_ffn_bwd  at the FFN's main-path shapes (``FFN_SHAPES``: widths 512
-                 and 256, the token and CLS rows of a batch of 8), seeded
-                 unit-scale inputs: each gradient's max abs error against
-                 the plain version (limit 2e-2 * max(1, max |plain|)), two
-                 reruns bitwise equal or not, one call's CUDA launches by
-                 name and device time under ``torch.profiler``, the device
-                 time of a call (``device_ms``: the kernels' summed
-                 durations over 20 calls) and the time by CUDA events
-                 (``ms``, which reads the host's issue time when the kernels
-                 finish sooner than the wrapper issues them);
-  dw_conv        at the depthwise probe's eight geometries (512 images):
-                 relative max error against the plain version, ms by CUDA
-                 events, cuDNN's ``conv2d(groups=C)`` + ``F.silu`` beside it.
+  geglu_ffn_bwd  at ``chip_smoke.FFN_SHAPES`` (widths 512 and 256, the token
+                 and CLS rows of a batch of 8): ``chip_smoke._ffn_bwd_row``
+                 (each gradient against the plain version, device and host
+                 ms), two reruns bitwise equal or not, and three calls'
+                 CUDA launches by name under ``torch.profiler``;
+  dw_conv        ``dw_conv_cuda_vs_cudnn.run(check=True)``: the probe's
+                 eight geometries at 512 images, ms by CUDA events beside
+                 cuDNN's ``conv2d(groups=C)`` + ``F.silu``, relative error
+                 against the plain version.
 
 Run on a machine with a card, from the root of a checkout, with another
 checkout unpacked in a directory (for example by ``git archive``):
@@ -30,6 +28,7 @@ checkout unpacked in a directory (for example by ``git archive``):
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -37,105 +36,51 @@ import sys
 import time
 from pathlib import Path
 
-#: (model width, hidden width, row counts): the flagship's token and CLS rows
-#: of 8 videos, then the Convolutional TimeSformer's
-FFN_SHAPES = ((512, 2048, (8 * 16 * 49, 8)), (256, 1024, (8 * 8 * 1280, 8)))
-TOL = 2e-2
+ROOT = Path(__file__).resolve().parents[2]  # this tree, whose harness measures both
 TAG = "kernel_turns "  # prefix of the lines a measuring process prints
 
 
-def _device_ms(fn, iters=20, warmup=3):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a profile now and then comes back without its device events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    return "not measured"
-
-
-def _launches(fn):
-    """One call's CUDA kernels in launch order: (name, device ms)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ks = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-        if ks:
-            return [[e.name[:60], (e.time_range.end - e.time_range.start) / 1e3] for e in ks]
-    return "not measured"
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def measure(label: str) -> None:
     """Measure the ``mintime_torch`` this process imports; print one line a row."""
     import torch
 
-    from mintime_torch.experiments import card, time_ms
+    from mintime_torch.experiments import card
     from mintime_torch.experiments import dw_conv_cuda_vs_cudnn as dwf
-    from mintime_torch.ops import dw_conv
     from mintime_torch.ops import geglu_ffn as ffn
 
+    cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = card()
     out = lambda row: print(TAG + json.dumps({"tree": label, "card": smi, **row}), flush=True)  # noqa: E731
-    gen = torch.Generator("cuda").manual_seed(0)
-    r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen, device="cuda") * sc).bfloat16()  # noqa: E731
-    for dim, hidden, ms_rows in FFN_SHAPES:
-        w0, b0, w1 = r(2 * hidden, dim, sc=dim ** -0.5), r(2 * hidden, sc=0.02), r(dim, hidden, sc=hidden ** -0.5)
-        for m in ms_rows:
-            x, dout = r(m, dim), r(m, dim)
-            args = (x, w0, b0, w1, dout)
+    gen = torch.Generator().manual_seed(0)
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    for dim, hidden, shapes in cs.FFN_SHAPES:
+        w0, b0, w1, _ = cs._ffn_weights(r, dim, hidden)
+        for m, _, calls in shapes:
+            args = (r(m, dim), w0, b0, w1, r(m, dim))
+            # the other tree's backward may launch another number of kernels a call
+            row = cs._ffn_bwd_row(args, calls, launches=None)
             call = lambda: ffn.geglu_ffn_bwd_cuda(*args)  # noqa: E731
-            got = call()
-            want = ffn.geglu_ffn_bwd_plain(*args)
-            errs = {n: [float((g.float() - w.float()).abs().max()),
-                        TOL * max(1.0, float(w.float().abs().max()))]
-                    for n, g, w in zip(("dx", "dw0", "db0", "dw1", "db1"), got, want)}
-            del want
-            bitwise = all(all(torch.equal(a, b) for a, b in zip(call(), got)) for _ in range(2))
-            del got
-            out({"kernel": "geglu_ffn_bwd", "shape": f"D={dim} H={hidden} M={m}",
-                 "errors_and_limits": errs, "within": all(e <= lim for e, lim in errs.values()),
-                 "bitwise_reruns": bitwise, "launches": _launches(call),
-                 "device_ms": _device_ms(call), "ms": time_ms(call)})
-            del x, dout, args
+            first = call()
+            bitwise = all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
+            prof = cs._profile(lambda: [call() for _ in range(3)], calls=3)
+            out({"kernel": "geglu_ffn_bwd", **row, "bitwise_reruns": bitwise,
+                 "within": all(g["max_abs_err"] <= g["limit"] for g in row["grads"]),
+                 "launches_3_calls": [[k["name"][:60], k["launches"], k["ms"]]
+                                      for k in prof["top_kernels"]]})
+            del args, first
         torch.cuda.empty_cache()
-    for H, W, C, K, _ in dwf.GEOMS:
-        x, w, b = dwf.make_inputs(H, W, C, K)
-        plain = dw_conv.dw_conv_bias_silu_plain(x, w, b, K=K).float()
-        got = dw_conv.dw_conv_bias_silu_cuda(x, w, b, K=K).float()
-        top = float(plain.abs().max())
-        err = float((got - plain).abs().max())
-        del plain, got
-        w_lib = w.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous()
-        b_lib = b.to(torch.bfloat16)
-        out({"kernel": "dw_conv", "shape": f"N={x.shape[0]} {H}x{W} C={C} K={K}",
-             "max_abs_err": err, "limit": TOL * max(1.0, top), "within": err <= TOL * max(1.0, top),
-             "ms": time_ms(lambda: dw_conv.dw_conv_bias_silu_cuda(x, w, b, K=K)),
-             "library_ms": time_ms(lambda: dwf.cudnn_dwconv(x, w_lib, b_lib, K))})
-        del x, w, b, w_lib, b_lib
-        torch.cuda.empty_cache()
-    from mintime_torch.ops import _build
-
-    for name, log in getattr(_build, "BUILD_LOG", {}).items():
-        out({"kernel": "ptxas", "shape": name, "within": True,
-             "lines": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]})
+    for row in dwf.run(check=True):
+        out({"kernel": "dw_conv", **row, "shape": f"N={row['N']} {row['H']}x{row['W']}"
+             f" C={row['C']} K={row['K']}", "within": row["check_rel_err"] <= dwf.CHECK_REL})
 
 
 def _run_tree(root: Path, label: str) -> list[dict]:
@@ -159,9 +104,8 @@ def main() -> None:
     if args.measure:
         measure(args.measure)
         return
-    this = Path(__file__).resolve().parents[2]
-    order = [("this", this)] if args.other is None else [
-        ("other", args.other.resolve()), ("this", this), ("this", this), ("other", args.other.resolve())]
+    order = [("this", ROOT)] if args.other is None else [
+        ("other", args.other.resolve()), ("this", ROOT), ("this", ROOT), ("other", args.other.resolve())]
     rows, failed = [], []
     for turn, (label, root) in enumerate(order):
         try:
@@ -174,17 +118,13 @@ def main() -> None:
         args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
     bad = [r for r in rows if not r["within"] or r.get("bitwise_reruns") is False]
     for r in rows:
-        if r["kernel"] == "ptxas":
-            print(f"turn {r['turn']} {r['tree']:5s} ptxas {r['shape']}: " + " | ".join(r["lines"]))
-            continue
-        t = r.get("device_ms")
         print(f"turn {r['turn']} {r['tree']:5s} {r['kernel']:13s} {r['shape']:26s} ms {r['ms']:.4f}"
-              + (f" device_ms {t:.4f}" if isinstance(t, float) else "")
-              + (f" library_ms {r['library_ms']:.4f}" if "library_ms" in r else "")
+              + (f" host_ms {r['host_ms']:.4f}" if "host_ms" in r else "")
+              + (f" library_ms {r['library_ms']:.4f}" if r.get("library_ms") else "")
               + ("" if r["within"] else " OFF")
               + (" NOT-BITWISE" if r.get("bitwise_reruns") is False else ""))
-        if isinstance(r.get("launches"), list):
-            print("    " + "; ".join(f"{n} {ms:.4f}" for n, ms in r["launches"]))
+        if "launches_3_calls" in r:
+            print("    " + "; ".join(f"{n} x{k} {ms:.4f}" for n, k, ms in r["launches_3_calls"]))
     if bad or failed:
         raise SystemExit(f"{len(bad)} rows off their limits or not bitwise on reruns;"
                          f" turns that failed: {failed}")

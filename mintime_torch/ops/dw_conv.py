@@ -43,6 +43,7 @@ _KERNEL_K = (3, 5)  # the kernel sizes the kernels are instantiated for (Efficie
 _MAX_CT = 128  # channels of a forward block's tile, at most
 _MAX_THREADS = 512
 _RING_BYTES = 200 * 1024  # the forward's row ring, at most (the card gives a block 227 KB)
+_COLS = 7  # output columns a forward thread slides over (R in csrc/dw_conv.cu)
 
 
 def reset_launches() -> None:
@@ -50,21 +51,20 @@ def reset_launches() -> None:
     launches = wgrad_launches = 0
 
 
-def plan(H: int, W: int, C: int, K: int) -> tuple[int, int, int]:
-    """The forward kernel's launch plan, ``(ct, R, threads)``.
+def plan(H: int, W: int, C: int, K: int) -> tuple[int, int]:
+    """The forward kernel's launch plan, ``(ct, threads)``.
 
     A block owns ``ct`` channels of one image and a ring of K + 1 padded rows
-    of them; a thread owns a channel pair and ``R`` consecutive output
-    columns (7 where W allows, else 4, the last group masked), so a row is
-    ``ceil(W / R) * ct / 2`` items. When C is a multiple of 8 (16-byte
+    of them; a thread owns a channel pair and 7 consecutive output columns
+    (the last group of a row masked where 7 does not divide W), so a row is
+    ``ceil(W / 7) * ct / 2`` items. When C is a multiple of 8 (16-byte
     staging), ``ct`` is the divisor of C, a multiple of 8 and at most 128,
     whose items fill whole warps best, the larger on a tie; otherwise C
     rounded up to even (at most 128), the last tile masked. ``threads`` is
     the row's items rounded up to a warp, at most 512 (threads then take
     several items a row). ``ct`` halves while the ring would pass 200 KB.
     """
-    R = 7 if W % 7 == 0 else 4
-    groups = -(-W // R)
+    groups = -(-W // _COLS)
 
     def warps_filled(ct):
         items = groups * ct // 2
@@ -75,10 +75,10 @@ def plan(H: int, W: int, C: int, K: int) -> tuple[int, int, int]:
                  key=lambda d: (warps_filled(d), d))
     else:
         ct = min(_MAX_CT, C + C % 2)
-    while ct > 8 and (K + 1) * (groups * R + K - 1) * ct * 2 > _RING_BYTES:
+    while ct > 8 and (K + 1) * (groups * _COLS + K - 1) * ct * 2 > _RING_BYTES:
         ct = ct // 2 + (ct // 2) % (8 if C % 8 == 0 else 2)
     items = groups * ct // 2
-    return ct, R, min(_MAX_THREADS, 32 * -(-items // 32))
+    return ct, min(_MAX_THREADS, 32 * -(-items // 32))
 
 
 def _pad(x, K):
@@ -145,14 +145,14 @@ def dw_conv_bias_silu_cuda(x, w, b, *, K: int):
         raise ValueError(f"dw_conv_bias_silu: w {tuple(w.shape)} / b {tuple(b.shape)} do not"
                          f" match (K, K, C) = {(K, K, C)}")
     out = torch.empty_like(x)
-    ct, R, threads = plan(H, W, C, K)
+    ct, threads = plan(H, W, C, K)
     fn = _build.load("dw_conv").dw_conv_bias_silu_fwd
     ptr = ctypes.c_void_p
-    fn.argtypes = [ptr] * 4 + [ctypes.c_int] * 8 + [ptr]
+    fn.argtypes = [ptr] * 4 + [ctypes.c_int] * 7 + [ptr]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         status = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W, C, K,
-                    ct, R, threads, torch.cuda.current_stream(x.device).cuda_stream)
+                    ct, threads, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "dw_conv_bias_silu")
     launches += 1
     return out

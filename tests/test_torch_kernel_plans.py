@@ -66,12 +66,14 @@ def test_split_k_at_the_main_path_shapes():
         == 2 * 4096 * 512
 
 
-#: (H, W, C, K) -> (ct, R, threads) at the depthwise probe's geometries:
+COLS = 7  # output columns a depthwise forward thread owns
+
+#: (H, W, C, K) -> (ct, threads) at the depthwise probe's geometries:
 #: channel tiles that divide C and fill whole warps
-GEOM_PLANS = {(112, 112, 32, 3): (32, 7, 256), (56, 56, 144, 3): (72, 7, 288),
-              (28, 28, 240, 5): (80, 7, 160), (14, 14, 480, 3): (96, 7, 96),
-              (14, 14, 480, 5): (96, 7, 96), (14, 14, 672, 5): (96, 7, 96),
-              (7, 7, 1152, 5): (128, 7, 64), (7, 7, 1152, 3): (128, 7, 64)}
+GEOM_PLANS = {(112, 112, 32, 3): (32, 256), (56, 56, 144, 3): (72, 288),
+              (28, 28, 240, 5): (80, 160), (14, 14, 480, 3): (96, 96),
+              (14, 14, 480, 5): (96, 96), (14, 14, 672, 5): (96, 96),
+              (7, 7, 1152, 5): (128, 64), (7, 7, 1152, 3): (128, 64)}
 
 
 def test_dw_plan_covers_every_probe_geometry():
@@ -81,25 +83,24 @@ def test_dw_plan_covers_every_probe_geometry():
 @pytest.mark.parametrize("geom,want", sorted(GEOM_PLANS.items()))
 def test_dw_plan_at_the_probe_geometries(geom, want):
     H, W, C, K = geom
-    ct, R, threads = dw_conv.plan(H, W, C, K)
-    assert (ct, R, threads) == want
-    assert C % ct == 0 and ct % 8 == 0 and W % R == 0
-    assert threads == W // R * ct // 2  # one item a thread, whole warps
+    ct, threads = dw_conv.plan(H, W, C, K)
+    assert (ct, threads) == want
+    assert C % ct == 0 and ct % 8 == 0 and W % COLS == 0
+    assert threads == W // COLS * ct // 2  # one item a thread, whole warps
 
 
 @pytest.mark.parametrize("H,W,C,K", [(9, 7, 17, 3), (5, 9, 13, 5), (6, 6, 3, 3), (1, 1, 1, 5),
                                      (4, 300, 1000, 5), (12, 14, 200, 3), (3, 600, 1152, 5),
                                      (8, 10, 130, 3)])
 def test_dw_plan_invariants(H, W, C, K):
-    ct, R, threads = dw_conv.plan(H, W, C, K)
+    ct, threads = dw_conv.plan(H, W, C, K)
     assert ct % 2 == 0 and 2 <= ct <= 128
     if C % 8 == 0:
         assert ct % 8 == 0  # 16-byte staging
     else:
         assert ct >= min(C, 128)  # one masked tile where C allows
-    assert R in (4, 7) and (R == 7) == (W % 7 == 0)
-    groups = -(-W // R)
+    groups = -(-W // COLS)  # the last group masked where 7 does not divide W
     assert threads % 32 == 0 and 32 <= threads <= 512
     assert threads >= min(512, groups * ct // 2)
-    ring = (K + 1) * (groups * R + K - 1) * ct * 2
+    ring = (K + 1) * (groups * COLS + K - 1) * ct * 2
     assert ring <= 200 * 1024, ring
