@@ -149,27 +149,65 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 LEAD_IN = "spin_kernel"  # the kernel ``torch.cuda._sleep`` launches
+#: spin kernels that open each profiled window: the profiler drops a
+#: window's first kernel or two, and then they are these
+LEAD_INS = 4
+#: host seconds between a profile's start and its lead-in, and between the
+#: window's last kernel and the profile's stop: the profiler keeps only the
+#: kernels whose device times fall inside its window, and on the card some
+#: windows' device times read milliseconds early against the host's clock,
+#: which dropped the kernels the window began with
+PAD_S = 0.05
+#: windows profiled before a short one is given up on
+TRIES = 5
 
 
 def _lead_in() -> None:
-    """Open a profiled window with a short spin kernel, finished before the
-    measured work starts: the profiler has been seen to drop a window's
-    first kernels, and then this one goes first. It does not stop every loss
-    (windows have come back short or empty), so the callers also count what
-    a window recorded and profile again. :func:`_window_kernels` leaves the
-    spin kernel out."""
+    """Open a profiled window with short spin kernels, finished before the
+    measured work starts. :func:`_window_kernels` leaves them out."""
     import torch
 
-    torch.cuda._sleep(20000)
+    for _ in range(LEAD_INS):
+        torch.cuda._sleep(5000)
     torch.cuda.synchronize()
 
 
-def _window_kernels(prof) -> list:
-    """The CUDA kernels a profile recorded, the lead-in left out."""
+def _profiled(fn):
+    """One ``fn()`` under ``torch.profiler``, padded with host time and opened
+    by the lead-in; returns the profile and the host ms of ``fn()`` and its
+    synchronisation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PAD_S)
+        _lead_in()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PAD_S)
+    return prof, wall_ms
+
+
+def _window_kernels(prof) -> tuple[list, int, float]:
+    """The CUDA kernels a profile recorded, the lead-in left out; how many
+    kernels the window launched that it holds no record of (each launch on
+    the host has a correlation id that its kernel's record carries); and the
+    most ms by which a kernel's recorded start precedes its launch (at or
+    under 0 where the device's and the host's clocks agree)."""
     import torch
 
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and LEAD_IN not in e.name]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and LEAD_IN not in e.name]
+    raw = prof.profiler.kineto_results.events()
+    launch_ns = {e.correlation_id(): e.start_ns() for e in raw
+                 if e.device_type() == torch.autograd.DeviceType.CPU and "LaunchKernel" in e.name()}
+    start_ns = {e.correlation_id(): e.start_ns() for e in raw
+                if e.device_type() == torch.autograd.DeviceType.CUDA and LEAD_IN not in e.name()}
+    lost = len(launch_ns.keys() - start_ns.keys()) - LEAD_INS
+    early = [launch_ns[c] - t for c, t in start_ns.items() if c in launch_ns]
+    return kernels, lost, max(early, default=0) / 1e6
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int | None = None) -> float:
@@ -177,29 +215,26 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int | None = None)
     ``iters`` calls launch, under ``torch.profiler``, over ``iters``. The
     host's time between launches is left out, so a call whose kernels finish
     quicker than Python issues them reads its kernels' time, not the host's.
-    The window must hold ``launches`` kernels a call where that is given,
-    else a whole number a call; a window that does not is profiled again."""
+    The window must hold a record of every kernel it launched, and
+    ``launches`` kernels a call where that is given, else a whole number a
+    call; a window that does not is profiled again."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     counts = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _lead_in()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        kernels = _window_kernels(prof)
-        counts.append(len(kernels))
+    for _ in range(TRIES):
+        prof, _ = _profiled(lambda: [fn() for _ in range(iters)])
+        kernels, lost, early_ms = _window_kernels(prof)
+        counts.append((len(kernels), lost, round(early_ms, 3)))
         whole = (len(kernels) == launches * iters if launches is not None
                  else len(kernels) % iters == 0)
-        if kernels and whole:
+        if kernels and whole and not lost:
             return sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / iters
-    raise RuntimeError(f"torch.profiler recorded {counts} kernels in three windows of {iters}"
-                       f" calls{'' if launches is None else f' of {launches} launches'}")
+    raise RuntimeError(f"torch.profiler recorded (kernels, lost, device clock early ms) {counts}"
+                       f" in {TRIES} windows of {iters} calls"
+                       f"{'' if launches is None else f' of {launches} launches'}")
 
 
 def max_err(got, want) -> float:
@@ -1134,33 +1169,28 @@ def _kind(name: str) -> str:
 def _profile(fn, launches: int | None = None, calls: int = 1) -> dict:
     """Device busy and idle share of the host window of one ``fn()`` under
     ``torch.profiler``, device time by layer and the top kernels. A window
-    must hold kernels, each name a multiple of ``calls`` times (``fn`` makes
-    that many calls) and ``launches`` in all where that is given; one that
-    does not is profiled again, up to three times, and then raises where
-    ``launches`` is given."""
+    must hold kernels, a record of every kernel it launched, each name a
+    multiple of ``calls`` times (``fn`` makes that many calls) and
+    ``launches`` in all where that is given; one that does not is profiled
+    again, up to ``TRIES`` times, and then raises where ``launches`` is
+    given, else reports the kernels it lost."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     counts = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _lead_in()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = _window_kernels(prof)
-        counts.append(len(kernels))
+    for _ in range(TRIES):
+        prof, wall_ms = _profiled(fn)
+        kernels, lost, early_ms = _window_kernels(prof)
+        counts.append((len(kernels), lost, round(early_ms, 3)))
         names = collections.Counter(e.name for e in kernels)
-        if (kernels and all(n % calls == 0 for n in names.values())
+        if (kernels and not lost and all(n % calls == 0 for n in names.values())
                 and (launches is None or len(kernels) == launches)):
             break
     else:
         if launches is not None:
-            raise RuntimeError(f"torch.profiler recorded {counts} kernels in three windows,"
-                               f" not {launches}")
+            raise RuntimeError(f"torch.profiler recorded (kernels, lost, device clock early ms)"
+                               f" {counts} in {TRIES} windows, not {launches} kernels")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for a, b in spans:  # union of the kernels' intervals
@@ -1174,9 +1204,10 @@ def _profile(fn, launches: int | None = None, calls: int = 1) -> dict:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + us / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"host_window_ms": wall_us / 1e3, "kernels": len(kernels),
+    return {"host_window_ms": wall_ms, "kernels": len(kernels), "kernels_lost": lost,
+            "device_clock_early_ms": early_ms,
             "device_busy_ms": busy / 1e3 if kernels else "not measured",
-            "device_idle_share": 1 - busy / wall_us if kernels else "not measured",
+            "device_idle_share": 1 - busy / 1e3 / wall_ms if kernels else "not measured",
             "ms_by_layer": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": k[:90], "launches": n, "ms": t} for k, (n, t) in top]}
 
