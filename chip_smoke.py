@@ -22,12 +22,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    with its time, the plain version's time, the card's bound for the work
    and one library call's time as a yardstick the port never calls
    (``scaled_dot_product_attention``, forward and backward, or cuDNN). The
-   divided-attention backward also at the edges of its long-axis tiles
-   (L = 65 and 129, and L = 200 with a sequence mask and a CLS-row bias
-   that masks part of the row; rows with no calls, so they leave the
-   per-launch averages alone); at L = 192 two reruns must give the same
-   bits of ``d_qkv`` and ``d_qkvc``, and one call is profiled by CUDA launch
-   (the CLS row, the token rows' row and column launches, the reduce). The
+   divided-attention backward also at the edges of its token-row tiles
+   (L = 1, 17 and 33: four, two and one groups a block; L = 63 masked;
+   L = 65 and 129 past a 64-row chunk; L = 200 masked; a masked row has a
+   sequence mask and a CLS-row bias that masks part of the row; rows with
+   no calls, so they leave the per-launch averages alone), under 5% of its
+   bf16 d_qkv differing from the plain version's at every L; at L = 192
+   and at the flagship space axis two reruns must give the same bits of
+   ``d_qkv`` and ``d_qkvc``, and one call is profiled by CUDA launch (the
+   CLS row's logits, chunk sums and finish, the token rows' row and column
+   launches, the reduce). The
    forward too: two reruns at L = 192 bitwise equal and one call profiled
    by launch (the token rows and the CLS row's three launches). The FFN
    backward also at row counts off its 128-row tiles (M = 1, 100 and, at
@@ -38,9 +42,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    attention also at its
    edges (L = 1, 17, 33, 64, a head width of 30, rows whose every token key
    is masked; rows with no calls) and two reruns at each flagship axis
-   bitwise equal. The two attention forwards and their library calls are
-   timed by device time (``device_ms``: their launches finish quicker than
-   Python issues them), with the host's time per call beside it;
+   bitwise equal. The attention forwards, the attention backward and their
+   library calls are timed by device time (``device_ms``: their launches
+   finish quicker than Python issues them), with the host's time per call
+   beside it;
 3. slice: the flagship EfficientNet-B0 + Size-Invariant TimeSformer at full
    width (224 px, 1280 channels, dim 512, depth 9, 8 x 64 heads, F = 16,
    n = 49, two identities), seeded random weights, through the port's
@@ -708,10 +713,14 @@ def _grad_err(names, got, want) -> list[dict]:
     return rows
 
 
-def _divided_bwd_row(shape, args, H, calls, gen):
+def _divided_bwd_row(shape, args, H, calls, gen, launches=None):
     """The backward kernel vs its plain version (per gradient, unit-scale
-    cotangents), its time, the plain version's, the bound and the backward of
-    one dense masked SDPA call."""
+    cotangents), its device time (``ms``: the kernels' durations under
+    ``torch.profiler``, ``launches`` kernels a call where that is given;
+    ``host_ms`` by CUDA events over back-to-back calls, which reads the host
+    where the kernels finish sooner than the wrapper issues them), the plain
+    version's, the bound and the backward of one dense masked SDPA call, by
+    device time too (``library_host_ms`` beside it)."""
     import torch
     import torch.nn.functional as F
 
@@ -741,27 +750,36 @@ def _divided_bwd_row(shape, args, H, calls, gen):
     lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
     lgrad = r(*lout.shape)
     sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
+    kernel = lambda: da.divided_attention_bwd_cuda(*fwd_args, **kw)  # noqa: E731
+    dev = device_ms(kernel, launches=launches)
     return {
         "shape": shape, "calls": calls,
         "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
-        "ms": time_ms(lambda: da.divided_attention_bwd_cuda(*fwd_args, **kw)),
-        "plain_ms": time_ms(lambda: da.divided_attention_bwd_plain(*fwd_args, **kw)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa_bwd),
+        "ms": dev, "device_ms": dev, "host_ms": time_ms(kernel),
+        "plain_ms": device_ms(lambda: da.divided_attention_bwd_plain(*fwd_args, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(sdpa_bwd), "library_host_ms": time_ms(sdpa_bwd),
         "library": "backward of one dense masked scaled_dot_product_attention call",
-        # above L = 64, P and dS enter the tensor-core products as bf16 hi/lo
-        # pairs: few bf16 values of d_qkv differ from the fp32 plain version's
-        # (about 40% would if P and dS were rounded once to bf16)
-        "d_qkv_differing": differing, "differing_limit": DIFFERING_LIMIT if L > 64 else None,
+        # P and dS enter the tensor-core products as bf16 hi/lo pairs: few
+        # bf16 values of d_qkv differ from the fp32 plain version's (about
+        # 40% would if P and dS were rounded once to bf16)
+        "d_qkv_differing": differing, "differing_limit": DIFFERING_LIMIT,
     }
 
 
-#: largest share of the long-axis backward's bf16 d_qkv values that may
-#: differ from the fp32 plain version's
+#: largest share of the backward's bf16 d_qkv values that may differ from
+#: the fp32 plain version's
 DIFFERING_LIMIT = 0.05
+#: CUDA kernels a backward call launches: the CLS row's logits, chunk sums
+#: and finish, the token rows' row and column launches, the reduce
+DIVIDED_BWD_LAUNCHES = 6
 
-#: (L, seq mask) of the backward's edge rows: one past a 64-row chunk (65,
-#: 129) and, masked, a ragged last tile (200)
-BWD_EDGE_AXES = ((65, False), (129, False), (200, True))
+#: (L, seq mask) of the backward's edge rows: one key (four groups a
+#: block), one past a 16-row tile (17: two groups a block; 33: one group on
+#: three warps), masked one short of a full 64-row tile (63), one past a
+#: 64-row chunk (65, 129) and, masked, a ragged last tile (200)
+BWD_EDGE_AXES = ((1, False), (17, False), (33, False), (63, True), (65, False), (129, False),
+                 (200, True))
 
 
 def _edge_inputs(gen, L, masked, B=8, G=8, H=6, dh=64):
@@ -783,31 +801,33 @@ def _edge_inputs(gen, L, masked, B=8, G=8, H=6, dh=64):
     return qkv, qkvc, mask_to_bias(keep.cuda()), rb
 
 
-def _divided_bwd_rerun_and_launches(smi, gen, L=192):
-    """At the tap-10 space axis (G = 8 groups of L = 192): two reruns of the
-    backward must give the same bits, and one call's device time by CUDA
-    launch (the CLS row, the token rows' row and column launches, the
-    reduce) under ``torch.profiler``."""
+def _divided_bwd_rerun_and_launches(smi, gen):
+    """At the tap-10 space axis (G = 8 groups of L = 192) and the flagship
+    space axis (B = 8, G = 16 groups of L = 49, 8 heads, masked frames): two
+    reruns of the backward must give the same bits, and one call's device
+    time by CUDA launch (the CLS row's three launches, the token rows' row
+    and column launches, the reduce) under ``torch.profiler``."""
     import torch
 
     from mintime_torch.ops import divided_attention as da
 
-    qkv, qkvc, sb, rb = _edge_inputs(gen, L, False)
-    B, G, _, c3 = qkv.shape
-    H = c3 // (3 * 64)
-    d_tok = torch.randn(B, G, L, H * 64, generator=gen).cuda().bfloat16()
-    d_cls = torch.randn(B, 1, H * 64, generator=gen).cuda().bfloat16()
-    call = lambda: da.divided_attention_bwd_cuda(qkv, qkvc, sb, rb, d_tok, d_cls,  # noqa: E731
-                                                 heads=H, dim_head=64)
-    first = call()
-    bitwise = all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
-    shape = f"B={B} G={G} L={L} H={H} dh=64"
-    emit({"phase": "kernel_bitwise", "name": "divided_attention_bwd", "shape": shape,
-          "card": smi, "reruns": 2, "d_qkv_and_d_qkvc_bitwise_equal": bitwise})
-    if not bitwise:
-        raise AssertionError(f"divided_attention_bwd gave other bits on a rerun at {shape}")
-    emit({"phase": "kernel_launches", "name": "divided_attention_bwd", "shape": shape,
-          "card": smi, **_profile(call)})
+    for args in (_edge_inputs(gen, 192, False), _attention_inputs("space", gen)):
+        qkv, qkvc, sb, rb = args
+        B, G, L, c3 = qkv.shape
+        H = c3 // (3 * 64)
+        d_tok = torch.randn(B, G, L, H * 64, generator=gen).cuda().bfloat16()
+        d_cls = torch.randn(B, 1, H * 64, generator=gen).cuda().bfloat16()
+        call = lambda: da.divided_attention_bwd_cuda(qkv, qkvc, sb, rb, d_tok, d_cls,  # noqa: E731
+                                                     heads=H, dim_head=64)
+        first = call()
+        bitwise = all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
+        shape = f"B={B} G={G} L={L} H={H} dh=64"
+        emit({"phase": "kernel_bitwise", "name": "divided_attention_bwd", "shape": shape,
+              "card": smi, "reruns": 2, "d_qkv_and_d_qkvc_bitwise_equal": bitwise})
+        if not bitwise:
+            raise AssertionError(f"divided_attention_bwd gave other bits on a rerun at {shape}")
+        emit({"phase": "kernel_launches", "name": "divided_attention_bwd", "shape": shape,
+              "card": smi, **_profile(call, launches=DIVIDED_BWD_LAUNCHES)})
 
 
 def _divided_fwd_rerun_and_launches(smi, L=192):
@@ -923,14 +943,17 @@ def _backward_kernels(smi, gen):
             del x, dout, args
 
     for shape, args, H, _, calls in _divided_cases(gen):
-        rows["divided_attention_bwd"].append(_divided_bwd_row(shape, args, H, calls, gen))
+        rows["divided_attention_bwd"].append(_divided_bwd_row(shape, args, H, calls, gen,
+                                                              DIVIDED_BWD_LAUNCHES))
         del args
-    # the long-axis launches' tile edges (16-row tiles, 64-row chunks), held
-    # against the plain version only: no main path launches these shapes
+    # the token-row launches' tile edges (group packs, 16-row tiles, 64-row
+    # chunks), held against the plain version only: no main path launches
+    # these shapes
     for L, masked in BWD_EDGE_AXES:
         args = _edge_inputs(gen, L, masked)
         rows["divided_attention_bwd"].append(_divided_bwd_row(
-            f"edge B=8 G=8 L={L} H=6 dh=64 seq_bias={masked}", args, 6, 0, gen))
+            f"edge B=8 G=8 L={L} H=6 dh=64 seq_bias={masked}", args, 6, 0, gen,
+            DIVIDED_BWD_LAUNCHES))
         del args
     _divided_bwd_rerun_and_launches(smi, gen)
 

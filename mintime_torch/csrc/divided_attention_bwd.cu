@@ -24,60 +24,72 @@
 // about 14 us at 3.35 TB/s; its arithmetic is under a GFLOP.
 //
 // Design. The TPU kernel held a whole batch slice in VMEM and summed over
-// groups inside one grid cell. Here three launches in order, each owning
-// its outputs (deterministic, no atomics):
-//   1. attn_bwd_cls_row_kernel, one 8-warp block per (b, h): recomputes the
-//      CLS row's logits over all G*L keys in shared memory, its max, sum and
-//      s_dot, writes dq_cls, and leaves (max, sum, s_dot) and the CLS row's
-//      own terms of dk_cls and dv_cls for the later launches;
-//   2. attn_bwd_token_rows_kernel, one 4-warp block per (b, g, h): stages
-//      q~, K, V and dO of the group (CLS key as row 0) in shared memory as
-//      fp32, recomputes each row's softmax with a warp per query row, adds
-//      the CLS row's terms to each key from the scalars of launch 1, writes
-//      dq, dk, dv, and writes the group's partial dk_cls and dv_cls;
-//   3. attn_bwd_cls_reduce_kernel, per (b, h): sums the partials over g in
-//      order and writes dk_cls and dv_cls.
-// Launch 2 keeps P and dS of the group in shared memory, [L][L+1] fp32 each:
-// 99 KB a block at L = 64 but 487 KB at L = 192. For 64 < L <= 256 it is
-// replaced by two launches on the tensor cores (mma.sync m16n8k16, bf16 in,
-// fp32 accumulators), each owning what it writes:
-//   2a. attn_bwd_long_rows_kernel, one 4-warp block per (b, g, h, chunk of
-//       64 query rows), [k_cls; K] and [v_cls; V] of the group in shared
-//       memory, a warp per 16 rows: S = q~ [k_cls; K]^T and
-//       dP = dO [v_cls; V]^T tile by tile (16 keys), a first sweep for each
-//       row's max, sum and s_dot (online, rescaled), a second for dS and
-//       dq = dS [k_cls; K]; writes dq, the rows' (max, sum, s_dot) as fp32
-//       scratch (B, G, H, L, 3), and the chunk's part of dk_cls and dv_cls
-//       (column 0 of dS^T q~ and P^T dO, summed over its rows in order);
-//   2b. attn_bwd_long_cols_kernel, one 4-warp block per (b, g, h, chunk of
-//       64 token keys), q and dO of the group in shared memory, a warp per
-//       16 keys: S^T and dP^T tile by tile (16 rows), P and dS from the
-//       stored row statistics, dK = dS^T q~ and dV = P^T dO, plus the CLS
-//       row's terms for each key from launch 1's scalars.
+// groups inside one grid cell. Here six launches in order, each owning what
+// it writes (deterministic, no atomics), at every L from 1 to 256:
+//   1. The CLS row in three launches over cls_chunks chunks of the G*L keys
+//      (as the forward's CLS row, csrc/divided_attention.cu), with fp32
+//      scratch per (b, h) from the wrapper (see Cls below):
+//      1a. attn_bwd_cls_logits_kernel, a block per (h, chunk, b): each key's
+//          logit s = q~_cls . k + row_bias and dp = d_cls . v (8 lanes a key,
+//          16-byte loads), and the chunk's max;
+//      1b. attn_bwd_cls_sums_kernel, a block per (h, chunk, b): under the
+//          global max m (the chunk maxima and the self logit), with
+//          e = exp(s - m), the chunk's sum e, sum e dp, sum e k and
+//          sum e dp k, which give s_dot and dq_cls without a second pass
+//          over the keys;
+//      1c. attn_bwd_cls_finish_kernel, a block per (h, b): sums the chunks in
+//          order; z = sum e + e_s, s_dot = (sum e dp + e_s dps) / z,
+//          dq_cls = dh^-0.5 (sum e dp k - s_dot sum e k + e_s (dps - s_dot)
+//          k_cls) / z; writes dq_cls, the stats (m, z, s_dot) and the CLS
+//          row's own terms of dk_cls and dv_cls.
+//   2. The token rows on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+//      accumulators), in two launches that split rows from columns, a warp
+//      per 16 rows (or keys) of a group. A block takes a 64-row chunk of one
+//      group where L > 64, or several whole groups where L is shorter than
+//      its 64-row tile (four groups of L <= 16, two of L <= 32, one group on
+//      three warps at L <= 48): the wrapper's planner
+//      (ops/divided_attention.py::bwd_plan) sets groups a block, chunks and
+//      threads (tests/test_torch_kernel_plans.py checks that the warps cover
+//      every row once). Groups are numbered n = b * G + g, so a block's
+//      groups may span two videos.
+//      2a. attn_bwd_rows_kernel: [k_cls; K] and [v_cls; V] of the block's
+//          groups in shared memory; S = q~ [k_cls; K]^T and
+//          dP = dO [v_cls; V]^T tile by tile (16 keys), a first sweep for
+//          each row's max, sum and s_dot (online, rescaled), a second for dS
+//          and dq = dS [k_cls; K]; writes dq, the rows' (max, sum, s_dot) as
+//          fp32 scratch (B, G, H, L, 3), and each group's part of dk_cls and
+//          dv_cls (column 0 of dS^T q~ and P^T dO, summed over its rows in
+//          order);
+//      2b. attn_bwd_cols_kernel: q and dO of the block's groups in shared
+//          memory, a warp per 16 keys: S^T and dP^T tile by tile (16 rows),
+//          P and dS from the stored row statistics, dK = dS^T q~ and
+//          dV = P^T dO, plus the CLS row's terms for each key from launch
+//          1a's logits and 1c's stats.
+//   3. attn_bwd_cls_reduce_kernel, per (h, b): dk_cls and dv_cls, the CLS
+//      row's own terms plus the groups' partials, in order.
 // Each warp reads its own rows' operand (q and dO in 2a, K and V in 2b)
 // from device memory straight into A fragments, once; shared memory holds
 // only the operand every warp sweeps, staged by 16-byte cp.async into
 // unpadded rows whose 16-byte chunks are swizzled by the row, so ldmatrix
-// reads it without bank conflicts. That is at most 54 KB at L = 192 and
-// 70 KB at 256: three blocks an SM, with registers capped at 170 a thread.
-// q~, K, V and dO are exact in bf16, so S and dP match fp32 sums up to
-// their order; with dh = 64 the scale is 1/8, a power of two, so q~ = q / 8
+// reads it without bank conflicts: the row launch's 35 KB at L = 16 (four
+// groups), 18 KB at L = 49, 72 KB at 256; three blocks an SM, registers
+// capped at 170 (a cap of 128 spills).
+// q~, K, V and dO are exact in bf16, so S and dP match fp32 sums up to their
+// order; with dh = 64 the scale is 1/8, a power of two, so q~ = q / 8
 // exactly and the launches apply it to S and dK instead of to q. P and dS
 // are fp32 (exponentials by __expf, whose relative error near 2^-21 is below
 // what the split below keeps); they enter the gradient products as a bf16
 // hi/lo pair (x = hi + lo, two products into one fp32 accumulator), about 16
 // bits of mantissa. Keys past T and rows past L are padding to 16: padded
 // keys take the finite mask value and a probability of 0, padded rows write
-// nothing. Sums over rows and over keys run in a fixed order and every
-// output is written once: reruns give the same bits. Launch 3 then sums the
-// partials of every group and row chunk.
+// nothing. Sums over rows, keys and chunks run in a fixed order and every
+// output is written once: reruns give the same bits.
 //
-// Bound of the long axes: memory as well. At L = 192 (B = 8, G = 8, 6 heads)
-// a call moves about 66 MB (20 us at 3.35 TB/s) and does about 6 * 2 L T dh
-// FLOP a (b, g, h) on the tensor cores, a few us at the card's rate. What
-// sets the time is each warp's chain of products, exponentials and
-// shuffles at 12 warps an SM, and the staging: K and V once a row chunk,
-// q and dO once a key chunk, from L2.
+// What sets the time: at the flagship's L = 16 and 49 the products are a
+// few hundred mma a warp; each warp's chain of loads, products,
+// exponentials and shuffles, and the staging from L2, set it. At L = 192 (B
+// = 8, G = 8, 6 heads) a call moves about 66 MB (20 us at 3.35 TB/s) and
+// does about 6 * 2 L T dh FLOP a (b, g, h) on the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,16 +105,13 @@ namespace {
 
 constexpr int DH = 64;          // head width
 constexpr int MAXL = 256;       // longest attended sequence of the token rows
-constexpr int SHORT_MAXL = 64;  // longest of attn_bwd_token_rows_kernel
-constexpr int MAXT = (SHORT_MAXL + 1 + 31) / 32;  // its keys per lane (CLS + L)
-constexpr int TILE = 64;        // query rows (2a) or keys (2b) of a block of the long launches
-constexpr int TILE_WARPS = TILE / 16;
+constexpr int TILE = 64;        // query rows (2a) or keys (2b) of a group's chunk
+constexpr int TILE_WARPS = TILE / 16;  // most warps a block of the token rows
 constexpr int MIN_BLOCKS = 3;   // blocks an SM: at most 170 registers a thread
 constexpr float NEG = -0.7f * 3.402823466e38f;  // the finite mask value
-constexpr int TOK_WARPS = 4;
-constexpr int TOK_THREADS = TOK_WARPS * 32;
 constexpr int CLS_THREADS = 256;
-constexpr int KLD = DH + 1;     // padded fp32 rows: lane t reads row t conflict-free
+// a CLS chunk's scratch: sum e k (DH), sum e dp k (DH), sum e, sum e dp, max
+constexpr int PART = 2 * DH + 3;
 
 __device__ __forceinline__ float bf(const bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float bf16_round(float v) {
@@ -121,277 +130,262 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// block-wide reduction over CLS_THREADS threads; every thread gets the result
+// block-wide reduction over the block's warps; every thread gets the result
 template <bool IS_MAX>
 __device__ float block_reduce(float v, float* red) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
   v = IS_MAX ? warp_max(v) : warp_sum(v);
   __syncthreads();  // red may still be read from a previous call
   if (lane == 0) red[warp] = v;
   __syncthreads();
-  v = lane < CLS_THREADS / 32 ? red[lane] : (IS_MAX ? -INFINITY : 0.0f);
+  v = lane < warps ? red[lane] : (IS_MAX ? -INFINITY : 0.0f);
   return IS_MAX ? warp_max(v) : warp_sum(v);
 }
 
-__global__ void __launch_bounds__(CLS_THREADS)
-attn_bwd_cls_row_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
-                        const bf16* __restrict__ qkvc, i64 scb,
-                        const float* __restrict__ row_bias, i64 rb_b, i64 rb_g, i64 rb_l,
-                        const bf16* __restrict__ dcls, i64 dcb, bf16* __restrict__ dqkvc,
-                        i64 ocb, float* __restrict__ stats, float* __restrict__ cls_kv, int G,
-                        int L, int H, float scale) {
-  extern __shared__ float dyn[];  // p (G*L), then d_cls . v (G*L)
-  __shared__ float qs[DH];
-  __shared__ float dcs[DH];
-  __shared__ float red[CLS_THREADS / 32];
-  __shared__ float accp[CLS_THREADS / DH][DH];
-  __shared__ float self_logit, self_dps;
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int inner = H * DH;
-  const int N = G * L;
-  float* pr = dyn;
-  float* dpr = dyn + N;
-  const bf16* base = qkv + b * sb;
-  const bf16* cls = qkvc + b * scb;
-  const int koff = inner + h * DH;
-  const int voff = 2 * inner + h * DH;
-
-  if (tid < DH) {
-    qs[tid] = bf16_round(bf(cls[h * DH + tid]) * scale);
-    dcs[tid] = bf(dcls[b * dcb + h * DH + tid]);
-  }
-  __syncthreads();
-
-  if (warp == 0) {
-    const float s = warp_sum(qs[lane] * bf(cls[koff + lane]) +
-                             qs[lane + 32] * bf(cls[koff + lane + 32]));
-    if (lane == 0) self_logit = s;
-  } else if (warp == 1) {
-    const float s = warp_sum(dcs[lane] * bf(cls[voff + lane]) +
-                             dcs[lane + 32] * bf(cls[voff + lane + 32]));
-    if (lane == 0) self_dps = s;
-  }
-  for (int t = warp; t < N; t += CLS_THREADS / 32) {
-    const bf16* row = base + (t / L) * sg + (t % L) * sl;
-    const float s = warp_sum(qs[lane] * bf(row[koff + lane]) + qs[lane + 32] * bf(row[koff + lane + 32]));
-    const float dp = warp_sum(dcs[lane] * bf(row[voff + lane]) +
-                              dcs[lane + 32] * bf(row[voff + lane + 32]));
-    if (lane == 0) {
-      pr[t] = s + (row_bias != nullptr
-                       ? row_bias[b * rb_b + (t / L) * rb_g + (t % L) * rb_l] : 0.0f);
-      dpr[t] = dp;
-    }
-  }
-  __syncthreads();
-
-  const float ls = self_logit;
-  const float dps = self_dps;
-  float mx = ls;
-  for (int t = tid; t < N; t += CLS_THREADS) mx = fmaxf(mx, pr[t]);
-  mx = block_reduce<true>(mx, red);
-  float sum = 0.0f;
-  for (int t = tid; t < N; t += CLS_THREADS) {
-    const float e = expf(pr[t] - mx);
-    pr[t] = e;
-    sum += e;
-  }
-  sum = block_reduce<false>(sum, red);
-  const float z = sum + expf(ls - mx);
-  const float ps = expf(ls - mx) / z;
-  float sd = 0.0f;
-  for (int t = tid; t < N; t += CLS_THREADS) {
-    const float p = pr[t] / z;
-    pr[t] = p;
-    sd += p * dpr[t];
-  }
-  const float s_dot = block_reduce<false>(sd, red) + ps * dps;
-  for (int t = tid; t < N; t += CLS_THREADS) pr[t] = pr[t] * (dpr[t] - s_dot);  // dl
-  const float dls = ps * (dps - s_dot);
-  __syncthreads();
-
-  const int grp = tid / DH;
-  const int d = tid % DH;
-  float a = 0.0f;
-  for (int t = grp; t < N; t += CLS_THREADS / DH)
-    a = fmaf(pr[t], bf(base[(t / L) * sg + (t % L) * sl + koff + d]), a);
-  accp[grp][d] = a;
-  __syncthreads();
-  if (tid < DH) {
-    float acc = 0.0f;
+// The 8 values at cols c .. c+7 of a bf16 row, from one 16-byte load
+__device__ __forceinline__ void load8(float x[8], const bf16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const bf162* h = reinterpret_cast<const bf162*>(&u);
 #pragma unroll
-    for (int k = 0; k < CLS_THREADS / DH; ++k) acc += accp[k][tid];
-    acc += dls * bf(cls[koff + tid]);
-    dqkvc[b * ocb + h * DH + tid] = __float2bfloat16(scale * acc);
-    float* kv = cls_kv + (size_t(b) * H + h) * 2 * DH;
-    kv[tid] = dls * qs[tid];
-    kv[DH + tid] = ps * dcs[tid];
-  }
-  if (tid == 0) {
-    float* st = stats + (size_t(b) * H + h) * 3;
-    st[0] = mx;
-    st[1] = z;
-    st[2] = s_dot;
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
   }
 }
 
-__global__ void __launch_bounds__(TOK_THREADS)
-attn_bwd_token_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
+// The CLS row's fp32 scratch of one (b, h), laid out as the wrapper sizes
+// it: each key's logit (N) and d_cls . v (N), the chunks' partials
+// (chunks * PART), the stats (max, z, s_dot) and the CLS row's own terms of
+// dk_cls and dv_cls (2 * DH).
+struct Cls {
+  float* logit;
+  float* dp;
+  float* part;
+  float* stats;
+  float* kv;
+};
+
+__device__ __forceinline__ Cls cls_scratch(float* base, int b, int h, int H, int N, int chunks) {
+  Cls c;
+  c.logit = base + (i64(b) * H + h) * (2 * i64(N) + chunks * PART + 3 + 2 * DH);
+  c.dp = c.logit + N;
+  c.part = c.dp + N;
+  c.stats = c.part + chunks * PART;
+  c.kv = c.stats + 3;
+  return c;
+}
+
+// The CLS row's global max m = max(chunk maxima, self logit) and its self
+// logit ls, the same bits in every block that asks
+__device__ void cls_max_and_self(float& m, float& ls, const float* part, int chunks,
+                                 const bf16* cls, int qoff, int koff, float scale, float* red) {
+  __shared__ float self_logit;
+  if (threadIdx.x < 32) {
+    const int d = threadIdx.x;
+    const float s = warp_sum(bf16_round(bf(cls[qoff + d]) * scale) * bf(cls[koff + d]) +
+                             bf16_round(bf(cls[qoff + d + 32]) * scale) * bf(cls[koff + d + 32]));
+    if (d == 0) self_logit = s;
+  }
+  float mx = -INFINITY;
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) mx = fmaxf(mx, part[c * PART + 2 * DH + 2]);
+  mx = block_reduce<true>(mx, red);  // its barriers also publish self_logit
+  ls = self_logit;
+  m = fmaxf(mx, ls);
+}
+
+// Launch 1a: the logits and d_cls . v of chunk c of the G*L keys, 8 lanes a
+// key (16-byte loads), and the chunk's max
+__global__ void __launch_bounds__(CLS_THREADS)
+attn_bwd_cls_logits_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
                            const bf16* __restrict__ qkvc, i64 scb,
-                           const float* __restrict__ seq_bias, const float* __restrict__ row_bias,
-                           i64 rb_b, i64 rb_g, i64 rb_l, const bf16* __restrict__ dtok, i64 db,
-                           i64 dg, i64 dl, const bf16* __restrict__ dcls, i64 dcb,
-                           const float* __restrict__ stats, bf16* __restrict__ dqkv, i64 ob,
-                           i64 og, i64 ol, float* __restrict__ kv_part, int G, int L, int H,
-                           float scale) {
-  extern __shared__ float sm[];
-  const int T = L + 1;  // CLS key + L keys
-  float* qs = sm;                 // [L][KLD]   q~
-  float* dos = qs + L * KLD;      // [L][KLD]   dO
-  float* ks = dos + L * KLD;      // [T][KLD]   k_cls, K
-  float* vs = ks + T * KLD;       // [T][KLD]   v_cls, V
-  float* P = vs + T * KLD;        // [L][T]     token-row probabilities
-  float* S = P + L * T;           // [L][T]     dS
-  float* cdl = S + L * T;         // [L]        CLS-row dl of each key
-  float* cp = cdl + L;            // [L]        CLS-row p of each key
-  float* qc = cp + L;             // [DH]       q~_cls
-  float* dc = qc + DH;            // [DH]       d_cls
-
+                           const float* __restrict__ row_bias, i64 rb_b, i64 rb_g, i64 rb_l,
+                           const bf16* __restrict__ dcls, i64 dcb, float* __restrict__ scratch,
+                           int G, int L, int H, int chunks, float scale) {
+  __shared__ float red[CLS_THREADS / 32];
   const int h = blockIdx.x;
-  const int g = blockIdx.y;
+  const int c = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int N = G * L;
+  const int per = (N + chunks - 1) / chunks;
+  const int t0 = c * per;
+  const int t1 = min(N, t0 + per);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane & 7;    // the lane's 8 dimensions
+  const int slot = lane >> 3;  // the lane's key of the warp's four
   const int inner = H * DH;
-  const bf16* base = qkv + b * sb + g * sg;
-  const bf16* cls = qkvc + b * scb;
-  const bf16* dbase = dtok + b * db + g * dg;
-  const int qoff = h * DH;
-  const int koff = inner + h * DH;
-  const int voff = 2 * inner + h * DH;
-
-  for (int i = tid; i < T * DH; i += TOK_THREADS) {
-    const int r = i / DH;
-    const int d = i % DH;
-    const bf16* row = r == 0 ? cls : base + (r - 1) * sl;
-    ks[r * KLD + d] = bf(row[koff + d]);
-    vs[r * KLD + d] = bf(row[voff + d]);
-    if (r > 0) {
-      qs[(r - 1) * KLD + d] = bf16_round(bf(row[qoff + d]) * scale);
-      dos[(r - 1) * KLD + d] = bf(dbase[(r - 1) * dl + h * DH + d]);
-    }
-  }
-  if (tid < DH) {
-    qc[tid] = bf16_round(bf(cls[qoff + tid]) * scale);
-    dc[tid] = bf(dcls[b * dcb + h * DH + tid]);
-  }
-  __syncthreads();
-
-  // token rows: a warp per query row, lane t for key t
-  for (int r = warp; r < L; r += TOK_WARPS) {
-    float logit[MAXT];
-    float mx = -INFINITY;
+  const bf16* base = qkv + b * sb;
+  const int koff = inner + h * DH + sub * 8;
+  const int voff = 2 * inner + h * DH + sub * 8;
+  const Cls sc = cls_scratch(scratch, b, h, H, N, chunks);
+  float q[8], dc[8];
 #pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
-      const int t = lane + 32 * j;
-      float s = -INFINITY;
-      if (t < T) {
-        float a = 0.0f;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) a = fmaf(qs[r * KLD + d], ks[t * KLD + d], a);
-        if (seq_bias != nullptr) a += seq_bias[(i64(b) * L + r) * T + t];
-        s = a;
+  for (int i = 0; i < 8; ++i) {
+    q[i] = bf16_round(bf(qkvc[b * scb + h * DH + sub * 8 + i]) * scale);
+    dc[i] = bf(dcls[b * dcb + h * DH + sub * 8 + i]);
+  }
+
+  float mx = -INFINITY;
+  for (int tb = t0 + warp * 4; tb < t1; tb += CLS_THREADS / 8) {  // warp-uniform
+    const int t = tb + slot;
+    const int g = t / L;
+    const int l = t % L;
+    float k[8] = {0, 0, 0, 0, 0, 0, 0, 0}, v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (t < t1) {
+      load8(k, base + g * sg + l * sl + koff);
+      load8(v, base + g * sg + l * sl + voff);
+    }
+    float s = 0.0f, dp = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s = fmaf(q[i], k[i], s);
+      dp = fmaf(dc[i], v[i], dp);
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      dp += __shfl_xor_sync(0xffffffffu, dp, o);
+    }
+    if (t < t1) {
+      if (row_bias != nullptr) s += row_bias[b * rb_b + g * rb_g + l * rb_l];
+      if (sub == 0) {
+        sc.logit[t] = s;
+        sc.dp[t] = dp;
       }
-      logit[j] = s;
       mx = fmaxf(mx, s);
     }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
-      const int t = lane + 32 * j;
-      const float e = t < T ? expf(logit[j] - mx) : 0.0f;
-      logit[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float dp[MAXT];
-    float sd = 0.0f;
-#pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
-      const int t = lane + 32 * j;
-      logit[j] /= sum;
-      float a = 0.0f;
-      if (t < T) {
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) a = fmaf(dos[r * KLD + d], vs[t * KLD + d], a);
-      }
-      dp[j] = a;
-      sd += logit[j] * a;
-    }
-    sd = warp_sum(sd);
-#pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
-      const int t = lane + 32 * j;
-      if (t < T) {
-        P[r * T + t] = logit[j];
-        S[r * T + t] = logit[j] * (dp[j] - sd);
-      }
-    }
   }
+  mx = block_reduce<true>(mx, red);
+  if (threadIdx.x == 0) sc.part[c * PART + 2 * DH + 2] = mx;
+}
 
-  // the CLS row's terms for each key of the group, from launch 1's scalars
-  const float* st = stats + (size_t(b) * H + h) * 3;
-  for (int j = tid; j < L; j += TOK_THREADS) {
-    float lr = 0.0f, dp = 0.0f;
-#pragma unroll 16
-    for (int d = 0; d < DH; ++d) {
-      lr = fmaf(qc[d], ks[(j + 1) * KLD + d], lr);
-      dp = fmaf(dc[d], vs[(j + 1) * KLD + d], dp);
-    }
-    if (row_bias != nullptr) lr += row_bias[b * rb_b + g * rb_g + j * rb_l];
-    const float p = expf(lr - st[0]) / st[1];
-    cp[j] = p;
-    cdl[j] = p * (dp - st[2]);
-  }
-  __syncthreads();
+// Launch 1b: with e = exp(s - m) under the global max m, chunk c's sum e,
+// sum e dp, sum e k and sum e dp k
+__global__ void __launch_bounds__(CLS_THREADS)
+attn_bwd_cls_sums_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
+                         const bf16* __restrict__ qkvc, i64 scb, float* __restrict__ scratch,
+                         int G, int L, int H, int chunks, float scale) {
+  __shared__ float red[CLS_THREADS / 32];
+  __shared__ float accw[CLS_THREADS / 32][2 * DH];
+  const int h = blockIdx.x;
+  const int c = blockIdx.y;
+  const int b = blockIdx.z;
+  const int N = G * L;
+  const int per = (N + chunks - 1) / chunks;
+  const int t0 = c * per;
+  const int t1 = min(N, t0 + per);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane & 7;
+  const int slot = lane >> 3;
+  const int inner = H * DH;
+  const bf16* base = qkv + b * sb;
+  const Cls sc = cls_scratch(scratch, b, h, H, N, chunks);
+  float m, ls;
+  cls_max_and_self(m, ls, sc.part, chunks, qkvc + b * scb, h * DH, inner + h * DH, scale, red);
 
-  bf16* obase = dqkv + b * ob + g * og;
-  for (int i = tid; i < L * DH; i += TOK_THREADS) {
-    const int r = i / DH;
-    const int d = i % DH;
-    float aq = 0.0f;
-    for (int t = 0; t < T; ++t) aq = fmaf(S[r * T + t], ks[t * KLD + d], aq);
-    float ak = cdl[r] * qc[d];
-    float av = cp[r] * dc[d];
-    for (int q = 0; q < L; ++q) {
-      ak = fmaf(S[q * T + r + 1], qs[q * KLD + d], ak);
-      av = fmaf(P[q * T + r + 1], dos[q * KLD + d], av);
+  const int koff = inner + h * DH + sub * 8;
+  float ak[8] = {0, 0, 0, 0, 0, 0, 0, 0}, adk[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  float z = 0.0f, zd = 0.0f;
+  for (int tb = t0 + warp * 4; tb < t1; tb += CLS_THREADS / 8) {  // warp-uniform
+    const int t = tb + slot;
+    if (t < t1) {
+      const float e = expf(sc.logit[t] - m);
+      const float ed = e * sc.dp[t];
+      float k[8];
+      load8(k, base + (t / L) * sg + (t % L) * sl + koff);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        ak[i] = fmaf(e, k[i], ak[i]);
+        adk[i] = fmaf(ed, k[i], adk[i]);
+      }
+      if (sub == 0) {
+        z += e;
+        zd += ed;
+      }
     }
-    bf16* orow = obase + r * ol;
-    orow[qoff + d] = __float2bfloat16(scale * aq);
-    orow[koff + d] = __float2bfloat16(ak);
-    orow[voff + d] = __float2bfloat16(av);
   }
-  if (tid < DH) {
-    float ak = 0.0f, av = 0.0f;
-    for (int q = 0; q < L; ++q) {
-      ak = fmaf(S[q * T], qs[q * KLD + tid], ak);
-      av = fmaf(P[q * T], dos[q * KLD + tid], av);
+  // the warp's four keys a step, then the warps, in a fixed order
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    ak[i] += __shfl_xor_sync(0xffffffffu, ak[i], 8);
+    ak[i] += __shfl_xor_sync(0xffffffffu, ak[i], 16);
+    adk[i] += __shfl_xor_sync(0xffffffffu, adk[i], 8);
+    adk[i] += __shfl_xor_sync(0xffffffffu, adk[i], 16);
+  }
+  if (slot == 0)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      accw[warp][sub * 8 + i] = ak[i];
+      accw[warp][DH + sub * 8 + i] = adk[i];
     }
-    float* part = kv_part + ((size_t(b) * G + g) * H + h) * 2 * DH;
-    part[tid] = ak;
-    part[DH + tid] = av;
+  z = block_reduce<false>(z, red);  // its barriers also publish accw
+  zd = block_reduce<false>(zd, red);
+  float* part = sc.part + c * PART;
+  if (threadIdx.x < 2 * DH) {
+    float a = 0.0f;
+#pragma unroll
+    for (int w = 0; w < CLS_THREADS / 32; ++w) a += accw[w][threadIdx.x];
+    part[threadIdx.x] = a;
+  }
+  if (threadIdx.x == 0) {
+    part[2 * DH] = z;
+    part[2 * DH + 1] = zd;
   }
 }
 
-using warp_mma::ldmatrix_x4;
+// Launch 1c: the chunks summed in order; dq_cls, the stats (m, z, s_dot) and
+// the CLS row's own terms of dk_cls (dl_s q~_cls) and dv_cls (p_s d_cls)
+__global__ void __launch_bounds__(DH)
+attn_bwd_cls_finish_kernel(const bf16* __restrict__ qkvc, i64 scb, const bf16* __restrict__ dcls,
+                           i64 dcb, bf16* __restrict__ dqkvc, i64 ocb, float* __restrict__ scratch,
+                           int N, int H, int chunks, float scale) {
+  __shared__ float red[DH / 32];
+  __shared__ float self_dp;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int d = threadIdx.x;
+  const int inner = H * DH;
+  const bf16* cls = qkvc + b * scb;
+  const Cls sc = cls_scratch(scratch, b, h, H, N, chunks);
+  const float dc = bf(dcls[b * dcb + h * DH + d]);
+  if (d >= 32) {  // d_cls . v_cls on the second warp, while the first takes the self logit
+    const int e = d - 32;
+    const float s = warp_sum(bf(dcls[b * dcb + h * DH + e]) * bf(cls[2 * inner + h * DH + e]) +
+                             dc * bf(cls[2 * inner + h * DH + d]));
+    if (e == 0) self_dp = s;
+  }
+  float m, ls;
+  cls_max_and_self(m, ls, sc.part, chunks, cls, h * DH, inner + h * DH, scale, red);  // publishes self_dp
+  float ak = 0.0f, adk = 0.0f, z = 0.0f, zd = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    const float* part = sc.part + c * PART;
+    ak += part[d];
+    adk += part[DH + d];
+    z += part[2 * DH];
+    zd += part[2 * DH + 1];
+  }
+  const float dps = self_dp;
+  const float es = expf(ls - m);
+  z += es;
+  const float inv = 1.0f / z;
+  const float s_dot = (zd + es * dps) * inv;
+  const float ps = es * inv;
+  const float dls = ps * (dps - s_dot);
+  const float kc = bf(cls[inner + h * DH + d]);
+  dqkvc[b * ocb + h * DH + d] = __float2bfloat16(scale * fmaf(adk - s_dot * ak, inv, dls * kc));
+  sc.kv[d] = dls * bf16_round(bf(cls[h * DH + d]) * scale);
+  sc.kv[DH + d] = ps * dc;
+  if (d == 0) {
+    sc.stats[0] = m;
+    sc.stats[1] = z;
+    sc.stats[2] = s_dot;
+  }
+}
+
 using warp_mma::ldmatrix_x4_trans;
 using warp_mma::mma_bf16;
 
@@ -418,58 +412,91 @@ __device__ __forceinline__ void mma_split(float acc[DH / 8][4], const uint32_t h
   }
 }
 
-// Launch 2a for 64 < L <= 256: dq of a chunk of TILE query rows, the rows'
-// softmax statistics and the chunk's part of the CLS key's gradients. With
-// dh = 64 the scale 1/8 is a power of two, so q~ = q / 8 exactly: q is
-// read as it is and the scale applied to S (and to the dk_cls part).
+// Where a block of the token-row launches and its warps fall, from the
+// wrapper's plan (tests/test_torch_kernel_plans.py::_tile computes the same):
+// block x takes chunk x % chunks of groups n0 .. n0 + groups - 1 (n = b * G
+// + g); warp w takes group n0 + w / wpg and the 16 rows (2a) or keys (2b)
+// from first = (w % wpg) * 16 of the chunk, of `count` in all.
+struct Tile {
+  int n0, groups, chunk, r0, count;  // the block's
+  int j, first;                      // the warp's group in the block and first row of the chunk
+  bool live;                         // whether the warp has rows
+};
+
+__device__ __forceinline__ Tile block_tile(int B, int G, int L, int gpb, int chunks) {
+  Tile t;
+  const int wpg = blockDim.x / 32 / gpb;
+  const int warp = threadIdx.x / 32;
+  t.n0 = blockIdx.x / chunks * gpb;
+  t.groups = min(gpb, B * G - t.n0);
+  t.chunk = blockIdx.x % chunks;
+  t.r0 = t.chunk * TILE;
+  t.count = min(TILE, L - t.r0);
+  t.j = warp / wpg;
+  t.first = warp % wpg * 16;
+  t.live = t.j < t.groups && t.first < t.count;
+  return t;
+}
+
+// Launch 2a: dq of the block's rows, the rows' softmax statistics and each
+// group's part of the CLS key's gradients. With dh = 64 the scale 1/8 is a
+// power of two, so q~ = q / 8 exactly: q is read as it is and the scale
+// applied to S (and to the dk_cls part).
 __global__ void __launch_bounds__(TILE_WARPS * 32, MIN_BLOCKS)
-attn_bwd_long_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
-                          const bf16* __restrict__ qkvc, i64 scb,
-                          const float* __restrict__ seq_bias, const bf16* __restrict__ dtok,
-                          i64 db, i64 dg, i64 dl, bf16* __restrict__ dqkv, i64 ob, i64 og,
-                          i64 ol, float* __restrict__ row_stats, float* __restrict__ kv_part,
-                          int G, int L, int H, float scale) {
+attn_bwd_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
+                     const bf16* __restrict__ qkvc, i64 scb, const float* __restrict__ seq_bias,
+                     const bf16* __restrict__ dtok, i64 db, i64 dg, i64 dl,
+                     bf16* __restrict__ dqkv, i64 ob, i64 og, i64 ol,
+                     float* __restrict__ row_stats, float* __restrict__ kv_part, int B, int G,
+                     int L, int H, int gpb, int chunks, float scale) {
   extern __shared__ __align__(16) unsigned char lsm[];
   const int T = L + 1;  // CLS key + L keys
   const int Tp = pad16(T);
-  const int chunks = (L + TILE - 1) / TILE;
-  const int h = blockIdx.x;
-  const int g = blockIdx.y / chunks;
-  const int chunk = blockIdx.y % chunks;
-  const int b = blockIdx.z;
-  const int r0 = chunk * TILE;
-  const int rows = min(TILE, L - r0);
-  bf16* ks = reinterpret_cast<bf16*>(lsm);  // [Tp][DH]  k_cls, K, zeros (swizzled)
-  bf16* vs = ks + Tp * DH;                  // [Tp][DH]  v_cls, V, zeros (swizzled)
-  float* pc = reinterpret_cast<float*>(vs + Tp * DH);  // [TILE] P[r][0]
-  float* dsc = pc + TILE;                               // [TILE] dS[r][0]
+  const int h = blockIdx.y;
+  const Tile tl = block_tile(B, G, L, gpb, chunks);
+  const int warps = blockDim.x / 32;
+  bf16* ks = reinterpret_cast<bf16*>(lsm);  // [gpb][Tp][DH]  k_cls, K, zeros (swizzled)
+  bf16* vs = ks + gpb * Tp * DH;            // [gpb][Tp][DH]  v_cls, V, zeros (swizzled)
+  // [warps][2 * DH]: each warp's column 0 of dS^T q (DH), then of P^T dO (DH)
+  float* kvw = reinterpret_cast<float*>(vs + gpb * Tp * DH);
 
   const int inner = H * DH;
-  const bf16* base = qkv + b * sb + g * sg;
-  const bf16* cls = qkvc + b * scb;
   const int qoff = h * DH;
   const int koff = inner + h * DH;
   const int voff = 2 * inner + h * DH;
-  stage_rows(ks, 0, cls + koff, 0, 1, 1);
-  stage_rows(ks, 1, base + koff, sl, L, Tp);
-  stage_rows(vs, 0, cls + voff, 0, 1, 1);
-  stage_rows(vs, 1, base + voff, sl, L, Tp);
-  const bf16* qrows = base + r0 * sl + qoff;                    // q of the chunk (unscaled)
-  const bf16* drows = dtok + b * db + g * dg + r0 * dl + h * DH;  // dO of the chunk
+  for (int j = 0; j < tl.groups; ++j) {
+    const int b = (tl.n0 + j) / G;
+    const int g = (tl.n0 + j) % G;
+    const bf16* base = qkv + b * sb + g * sg;
+    const bf16* cls = qkvc + b * scb;
+    stage_rows(ks + j * Tp * DH, 0, cls + koff, 0, 1, 1);
+    stage_rows(ks + j * Tp * DH, 1, base + koff, sl, L, Tp);
+    stage_rows(vs + j * Tp * DH, 0, cls + voff, 0, 1, 1);
+    stage_rows(vs + j * Tp * DH, 1, base + voff, sl, L, Tp);
+  }
+  const int n = tl.n0 + min(tl.j, tl.groups - 1);  // the warp's group
+  const int b = n / G;
+  const int g = n % G;
+  const bf16* qrows = qkv + b * sb + g * sg + tl.r0 * sl + qoff;       // q of the chunk (unscaled)
+  const bf16* drows = dtok + b * db + g * dg + tl.r0 * dl + h * DH;  // dO of the chunk
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wr = warp * 16;  // the warp's first row in the chunk
+  const int wr = tl.first;
   uint32_t qa[DH / 16][4], da[DH / 16][4];  // loaded while the copies run
-  load_a(qa, qrows, sl, wr, rows, lane);
-  load_a(da, drows, dl, wr, rows, lane);
+  if (tl.live) {
+    load_a(qa, qrows, sl, wr, tl.count, lane);
+    load_a(da, drows, dl, wr, tl.count, lane);
+  }
   warp_mma::cp_async_wait_all();
   __syncthreads();
 
   const int grp = lane >> 2;
   const int tig = lane & 3;
-  if (wr < rows) {  // warp-uniform
+  if (tl.live) {  // warp-uniform
+    const bf16* kt = ks + tl.j * Tp * DH;
+    const bf16* vt = vs + tl.j * Tp * DH;
     // this thread's two rows: grp and grp + 8 of the warp's 16
-    const int row[2] = {r0 + wr + grp, r0 + wr + grp + 8};
+    const int row[2] = {tl.r0 + wr + grp, tl.r0 + wr + grp + 8};
     const float* brow[2] = {nullptr, nullptr};
     if (seq_bias != nullptr)
 #pragma unroll
@@ -478,19 +505,19 @@ attn_bwd_long_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
     auto products = [&](float s[2][4], float dp[2][4], int kb) {
       float bias[2][4];
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {  // issued before the products, to hide its latency
-          const int t = kb + n * 8 + 2 * tig + (i & 1);
-          bias[n][i] = brow[i >> 1] != nullptr && t < T ? brow[i >> 1][t] : 0.0f;
+          const int t = kb + nn * 8 + 2 * tig + (i & 1);
+          bias[nn][i] = brow[i >> 1] != nullptr && t < T ? brow[i >> 1][t] : 0.0f;
         }
-      mma_rows_t(s, qa, ks, kb, lane);
-      mma_rows_t(dp, da, vs, kb, lane);
+      mma_rows_t(s, qa, kt, kb, lane);
+      mma_rows_t(dp, da, vt, kb, lane);
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          s[n][i] = kb + n * 8 + 2 * tig + (i & 1) < T ? fmaf(s[n][i], scale, bias[n][i]) : NEG;
+          s[nn][i] = kb + nn * 8 + 2 * tig + (i & 1) < T ? fmaf(s[nn][i], scale, bias[nn][i]) : NEG;
     };
 
     // sweep 1: each row's max, sum and unnormalised s_dot, online
@@ -500,9 +527,9 @@ attn_bwd_long_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
       products(s, dp, kb);
       float mt[2] = {m[0], m[1]};
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) mt[i >> 1] = fmaxf(mt[i >> 1], s[n][i]);
+        for (int i = 0; i < 4; ++i) mt[i >> 1] = fmaxf(mt[i >> 1], s[nn][i]);
 #pragma unroll
       for (int x = 0; x < 2; ++x) {  // the row's four lanes agree on its max
         mt[x] = fmaxf(mt[x], __shfl_xor_sync(0xffffffffu, mt[x], 1));
@@ -513,13 +540,13 @@ attn_bwd_long_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
         m[x] = mt[x];
       }
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int t = kb + n * 8 + 2 * tig + (i & 1);
-          const float e = t < T ? __expf(s[n][i] - m[i >> 1]) : 0.0f;
+          const int t = kb + nn * 8 + 2 * tig + (i & 1);
+          const float e = t < T ? __expf(s[nn][i] - m[i >> 1]) : 0.0f;
           sum[i >> 1] += e;
-          sdu[i >> 1] = fmaf(e, dp[n][i], sdu[i >> 1]);
+          sdu[i >> 1] = fmaf(e, dp[nn][i], sdu[i >> 1]);
         }
     }
     float inv[2], sd[2];
@@ -536,30 +563,64 @@ attn_bwd_long_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
     // sweep 2: P and dS, dq = dS [k_cls; K]
     float dq[DH / 8][4];
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
+    for (int nn = 0; nn < DH / 8; ++nn)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dq[n][i] = 0.0f;
+      for (int i = 0; i < 4; ++i) dq[nn][i] = 0.0f;
+    float pc[2], dsc[2];  // P and dS of this thread's two rows at the CLS key (column 0)
     for (int kb = 0; kb < Tp; kb += 16) {
       float s[2][4], dp[2][4];
       products(s, dp, kb);
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int t = kb + n * 8 + 2 * tig + (i & 1);
-          const float p = t < T ? __expf(s[n][i] - m[i >> 1]) * inv[i >> 1] : 0.0f;
-          dp[n][i] = p * (dp[n][i] - sd[i >> 1]);  // dS
-          s[n][i] = p;
+          const int t = kb + nn * 8 + 2 * tig + (i & 1);
+          const float p = t < T ? __expf(s[nn][i] - m[i >> 1]) * inv[i >> 1] : 0.0f;
+          dp[nn][i] = p * (dp[nn][i] - sd[i >> 1]);  // dS
+          s[nn][i] = p;
         }
-      if (kb == 0 && tig == 0) {  // column 0: the CLS key
-        pc[wr + grp] = s[0][0];
-        dsc[wr + grp] = dp[0][0];
-        pc[wr + grp + 8] = s[0][2];
-        dsc[wr + grp + 8] = dp[0][2];
+      if (kb == 0) {  // column 0, held by the lanes with tig == 0
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          pc[x] = __shfl_sync(0xffffffffu, s[0][2 * x], lane & ~3);
+          dsc[x] = __shfl_sync(0xffffffffu, dp[0][2 * x], lane & ~3);
+        }
       }
       uint32_t hi[4], lo[4];
       warp_mma::split_a(dp, hi, lo);
-      mma_split(dq, hi, lo, ks, kb, lane);
+      mma_split(dq, hi, lo, kt, kb, lane);
+    }
+
+    // the warp's part of dk_cls (dS[:, 0]^T q) and dv_cls (P[:, 0]^T dO) from
+    // the rows' fragments (padded rows are zero there): the thread's two
+    // rows, then the eight row pairs over lanes grp, in a fixed order; one
+    // operand at a time, to keep registers down
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      const uint32_t(*frag)[4] = o ? da : qa;
+      const float* w = o ? pc : dsc;
+      float c[DH / 16][4];  // columns k * 16 + (i / 2) * 8 + 2 tig + i % 2
+#pragma unroll
+      for (int k = 0; k < DH / 16; ++k)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float2 r0 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&frag[k][2 * hf]));
+          const float2 r1 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&frag[k][2 * hf + 1]));
+          c[k][2 * hf] = fmaf(w[1], r1.x, w[0] * r0.x);
+          c[k][2 * hf + 1] = fmaf(w[1], r1.y, w[0] * r0.y);
+        }
+#pragma unroll
+      for (int sh = 4; sh < 32; sh <<= 1)
+#pragma unroll
+        for (int k = 0; k < DH / 16; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[k][i] += __shfl_xor_sync(0xffffffffu, c[k][i], sh);
+      if (grp == 0)
+#pragma unroll
+        for (int k = 0; k < DH / 16; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            kvw[warp * 2 * DH + o * DH + k * 16 + (i >> 1) * 8 + 2 * tig + (i & 1)] = c[k][i];
     }
 
     bf16* obase = dqkv + b * ob + g * og;
@@ -569,9 +630,9 @@ attn_bwd_long_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
       if (row[x] >= L) continue;
       bf16* orow = obase + row[x] * ol + qoff;
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
-        *reinterpret_cast<bf162*>(orow + n * 8 + 2 * tig) =
-            __floats2bfloat162_rn(scale * dq[n][2 * x], scale * dq[n][2 * x + 1]);
+      for (int nn = 0; nn < DH / 8; ++nn)
+        *reinterpret_cast<bf162*>(orow + nn * 8 + 2 * tig) =
+            __floats2bfloat162_rn(scale * dq[nn][2 * x], scale * dq[nn][2 * x + 1]);
       if (tig == 0) {
         st[3 * row[x]] = m[x];
         st[3 * row[x] + 1] = sum[x];
@@ -581,234 +642,242 @@ attn_bwd_long_rows_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
   }
   __syncthreads();
 
-  // the CLS key's column over the chunk's rows, summed in order: the chunk's
-  // part of dk_cls (dS[:, 0]^T q~) and dv_cls (P[:, 0]^T dO)
-  if (threadIdx.x < 2 * DH) {
-    const int d = threadIdx.x % DH;
-    const bool v = threadIdx.x >= DH;
-    const float* w = v ? pc : dsc;
-    const bf16* x = v ? drows : qrows;
-    const i64 stride = v ? dl : sl;
+  // each group's part of dk_cls (dS[:, 0]^T q~) and dv_cls (P[:, 0]^T dO):
+  // its warps' parts with rows, in order
+  const int wpg = warps / gpb;
+  for (int i = threadIdx.x; i < tl.groups * 2 * DH; i += blockDim.x) {
+    const int j = i / (2 * DH);
+    const int e = i % (2 * DH);
     float a = 0.0f;
-    for (int r = 0; r < rows; ++r) a = fmaf(w[r], bf(x[r * stride + d]), a);
-    kv_part[(((size_t(b) * G + g) * chunks + chunk) * H + h) * 2 * DH + threadIdx.x] =
-        v ? a : scale * a;
+    for (int w = 0; w < wpg && w * 16 < tl.count; ++w) a += kvw[(j * wpg + w) * 2 * DH + e];
+    kv_part[((size_t(tl.n0 + j) * chunks + tl.chunk) * H + h) * 2 * DH + e] =
+        e < DH ? scale * a : a;
   }
 }
 
-// Launch 2b for 64 < L <= 256: dK and dV of a chunk of TILE token keys, with
-// the CLS row's terms. q is staged unscaled: the scale goes to S^T and dK.
+// Launch 2b: dK and dV of the block's keys, with the CLS row's terms. q is
+// staged unscaled: the scale goes to S^T and dK.
 __global__ void __launch_bounds__(TILE_WARPS * 32, MIN_BLOCKS)
-attn_bwd_long_cols_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
-                          const bf16* __restrict__ qkvc, i64 scb,
-                          const float* __restrict__ seq_bias,
-                          const float* __restrict__ row_bias, i64 rb_b, i64 rb_g, i64 rb_l,
-                          const bf16* __restrict__ dtok, i64 db, i64 dg, i64 dl,
-                          const bf16* __restrict__ dcls, i64 dcb, const float* __restrict__ stats,
-                          const float* __restrict__ row_stats, bf16* __restrict__ dqkv, i64 ob,
-                          i64 og, i64 ol, int G, int L, int H, float scale) {
+attn_bwd_cols_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
+                     const bf16* __restrict__ qkvc, i64 scb, const float* __restrict__ seq_bias,
+                     const bf16* __restrict__ dtok, i64 db, i64 dg, i64 dl,
+                     const bf16* __restrict__ dcls, i64 dcb, const float* __restrict__ cls_scr,
+                     int cls_chunks, const float* __restrict__ row_stats,
+                     bf16* __restrict__ dqkv, i64 ob, i64 og, i64 ol, int B, int G, int L, int H,
+                     int gpb, int chunks, float scale) {
   extern __shared__ __align__(16) unsigned char lsm[];
   const int T = L + 1;
   const int Lp = pad16(L);
-  const int chunks = (L + TILE - 1) / TILE;
-  const int h = blockIdx.x;
-  const int g = blockIdx.y / chunks;
-  const int chunk = blockIdx.y % chunks;
-  const int b = blockIdx.z;
-  const int j0 = chunk * TILE;  // first token key of the chunk (key j0 + 1 of [CLS; tokens])
-  const int keys = min(TILE, L - j0);
-  bf16* qs = reinterpret_cast<bf16*>(lsm);  // [Lp][DH]  q (unscaled), zeros (swizzled)
-  bf16* dos = qs + Lp * DH;                 // [Lp][DH]  dO, zeros (swizzled)
-  float* rm = reinterpret_cast<float*>(dos + Lp * DH);  // [Lp] row max
-  float* rinv = rm + Lp;                                   // [Lp] 1 / row sum
-  float* rsd = rinv + Lp;                                  // [Lp] row s_dot
-  float* qc = rsd + Lp;                                    // [DH] q~_cls
-  float* dc = qc + DH;                                     // [DH] d_cls
+  const int h = blockIdx.y;
+  const Tile tl = block_tile(B, G, L, gpb, chunks);
+  bf16* qs = reinterpret_cast<bf16*>(lsm);  // [gpb][Lp][DH]  q (unscaled), zeros (swizzled)
+  bf16* dos = qs + gpb * Lp * DH;           // [gpb][Lp][DH]  dO, zeros (swizzled)
+  float* rm = reinterpret_cast<float*>(dos + gpb * Lp * DH);  // [gpb][Lp] row max
+  float* rinv = rm + gpb * Lp;                                 // [gpb][Lp] 1 / row sum
+  float* rsd = rinv + gpb * Lp;                                // [gpb][Lp] row s_dot
+  float* qc = rsd + gpb * Lp;                                  // [gpb][DH] q~_cls
+  float* dc = qc + gpb * DH;                                   // [gpb][DH] d_cls
 
   const int tid = threadIdx.x;
   const int inner = H * DH;
-  const bf16* base = qkv + b * sb + g * sg;
-  const bf16* cls = qkvc + b * scb;
   const int qoff = h * DH;
   const int koff = inner + h * DH;
   const int voff = 2 * inner + h * DH;
-  const bf16* krows = base + j0 * sl + koff;  // K of the chunk
-  const bf16* vrows = base + j0 * sl + voff;  // V of the chunk
-  stage_rows(qs, 0, base + qoff, sl, L, Lp);
-  stage_rows(dos, 0, dtok + b * db + g * dg + h * DH, dl, L, Lp);
-  const float* rst = row_stats + ((size_t(b) * G + g) * H + h) * size_t(L) * 3;
-  for (int r = tid; r < Lp; r += TILE_WARPS * 32) {
-    rm[r] = r < L ? rst[3 * r] : 0.0f;
-    rinv[r] = r < L ? 1.0f / rst[3 * r + 1] : 0.0f;
-    rsd[r] = r < L ? rst[3 * r + 2] : 0.0f;
+  for (int j = 0; j < tl.groups; ++j) {
+    const int bj = (tl.n0 + j) / G;
+    const int gj = (tl.n0 + j) % G;
+    stage_rows(qs + j * Lp * DH, 0, qkv + bj * sb + gj * sg + qoff, sl, L, Lp);
+    stage_rows(dos + j * Lp * DH, 0, dtok + bj * db + gj * dg + h * DH, dl, L, Lp);
   }
-  if (tid < DH) {
-    qc[tid] = bf16_round(bf(cls[qoff + tid]) * scale);
-    dc[tid] = bf(dcls[b * dcb + h * DH + tid]);
-  }
-  const int warp = tid / 32;
+  const int n = tl.n0 + min(tl.j, tl.groups - 1);  // the warp's group
+  const int b = n / G;
+  const int g = n % G;
+  const bf16* krows = qkv + b * sb + g * sg + tl.r0 * sl + koff;  // K of the chunk
+  const bf16* vrows = qkv + b * sb + g * sg + tl.r0 * sl + voff;  // V of the chunk
   const int lane = tid % 32;
   const int grp = lane >> 2;
   const int tig = lane & 3;
-  const int wk = warp * 16;  // the warp's first key in the chunk
+  const int wk = tl.first;  // the warp's first key in the chunk
   uint32_t ka[DH / 16][4], va[DH / 16][4];  // loaded while the copies run
-  load_a(ka, krows, sl, wk, keys, lane);
-  load_a(va, vrows, sl, wk, keys, lane);
-  warp_mma::cp_async_wait_all();
-  __syncthreads();
-  if (wk >= keys) return;  // warp-uniform; no barrier follows
-
-  // the CLS row's terms for this thread's two keys, from launch 1's scalars:
-  // q~_cls . k and d_cls . v over the key's fragments, summed over its 4 lanes
-  float cp[2], cdl[2];
-  {
-    float lr[2] = {0.0f, 0.0f}, dp[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int k = 0; k < DH / 16; ++k)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = k * 16 + (i >> 1) * 8 + 2 * tig;
-        const float2 kf = __bfloat1622float2(*reinterpret_cast<const bf162*>(&ka[k][i]));
-        const float2 vf = __bfloat1622float2(*reinterpret_cast<const bf162*>(&va[k][i]));
-        lr[i & 1] = fmaf(qc[c], kf.x, fmaf(qc[c + 1], kf.y, lr[i & 1]));
-        dp[i & 1] = fmaf(dc[c], vf.x, fmaf(dc[c + 1], vf.y, dp[i & 1]));
-      }
-    const float* st = stats + (size_t(b) * H + h) * 3;
+  // the CLS row's logit and d_cls . v of this thread's two keys (launch 1a)
+  // and its stats (1c), loaded while the copies run too
+  float cl[2] = {0.0f, 0.0f}, cd[2] = {0.0f, 0.0f}, cst[3] = {0.0f, 1.0f, 0.0f};
+  if (tl.live) {
+    load_a(ka, krows, sl, wk, tl.count, lane);
+    load_a(va, vrows, sl, wk, tl.count, lane);
+    const Cls sc = cls_scratch(const_cast<float*>(cls_scr), b, h, H, G * L, cls_chunks);
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        lr[x] += __shfl_xor_sync(0xffffffffu, lr[x], o);
-        dp[x] += __shfl_xor_sync(0xffffffffu, dp[x], o);
-      }
-      const int kk = min(wk + grp + 8 * x, keys - 1);
-      if (row_bias != nullptr) lr[x] += row_bias[b * rb_b + g * rb_g + (j0 + kk) * rb_l];
-      cp[x] = expf(lr[x] - st[0]) / st[1];
-      cdl[x] = cp[x] * (dp[x] - st[2]);
+      const int t = g * L + tl.r0 + min(wk + grp + 8 * x, tl.count - 1);
+      cl[x] = sc.logit[t];
+      cd[x] = sc.dp[t];
     }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) cst[i] = sc.stats[i];
+  }
+  // the block's row statistics and CLS operands, beside the copies
+  for (int i = tid; i < tl.groups * Lp; i += blockDim.x) {
+    const int j = i / Lp;
+    const int r = i % Lp;
+    const float* rst = row_stats + (size_t(tl.n0 + j) * H + h) * size_t(L) * 3;
+    rm[i] = r < L ? rst[3 * r] : 0.0f;
+    rinv[i] = r < L ? 1.0f / rst[3 * r + 1] : 0.0f;
+    rsd[i] = r < L ? rst[3 * r + 2] : 0.0f;
+  }
+  for (int i = tid; i < tl.groups * DH; i += blockDim.x) {
+    const int bj = (tl.n0 + i / DH) / G;
+    const int d = i % DH;
+    qc[i] = bf16_round(bf(qkvc[bj * scb + qoff + d]) * scale);
+    dc[i] = bf(dcls[bj * dcb + h * DH + d]);
+  }
+  warp_mma::cp_async_wait_all();
+  __syncthreads();
+  if (!tl.live) return;  // warp-uniform; no barrier follows
+  const bf16* qt = qs + tl.j * Lp * DH;
+  const bf16* dot = dos + tl.j * Lp * DH;
+  const float* rmj = rm + tl.j * Lp;
+  const float* rinvj = rinv + tl.j * Lp;
+  const float* rsdj = rsd + tl.j * Lp;
+  const float* qcj = qc + tl.j * DH;
+  const float* dcj = dc + tl.j * DH;
+  // the CLS row's terms for the two keys: p and dl = p (d_cls . v - s_dot)
+  float cp[2], cdl[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    cp[x] = expf(cl[x] - cst[0]) / cst[1];
+    cdl[x] = cp[x] * (cd[x] - cst[2]);
   }
   // this thread's two keys of [CLS; tokens]: grp and grp + 8 of the warp's 16
-  const int key[2] = {j0 + wk + grp + 1, j0 + wk + grp + 9};
+  const int key[2] = {tl.r0 + wk + grp + 1, tl.r0 + wk + grp + 9};
   float dk[DH / 8][4], dv[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int nn = 0; nn < DH / 8; ++nn)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.0f;
+    for (int i = 0; i < 4; ++i) dk[nn][i] = dv[nn][i] = 0.0f;
   for (int rb = 0; rb < Lp; rb += 16) {
     float s[2][4], dp[2][4];  // S^T and dP^T: keys x rows rb .. rb+15
     float bias[2][4];
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {  // issued before the products, to hide its latency
-        const int r = rb + n * 8 + 2 * tig + (i & 1);
+        const int r = rb + nn * 8 + 2 * tig + (i & 1);
         const int t = key[i >> 1];
-        bias[n][i] = seq_bias != nullptr && r < L && t < T
-                         ? seq_bias[(i64(b) * L + r) * T + t] : 0.0f;
+        bias[nn][i] = seq_bias != nullptr && r < L && t < T
+                          ? seq_bias[(i64(b) * L + r) * T + t] : 0.0f;
       }
-    mma_rows_t(s, ka, qs, rb, lane);
-    mma_rows_t(dp, va, dos, rb, lane);
+    mma_rows_t(s, ka, qt, rb, lane);
+    mma_rows_t(dp, va, dot, rb, lane);
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int r = rb + n * 8 + 2 * tig + (i & 1);
+        const int r = rb + nn * 8 + 2 * tig + (i & 1);
         const float p = r < L && key[i >> 1] < T
-                            ? __expf(fmaf(s[n][i], scale, bias[n][i]) - rm[r]) * rinv[r] : 0.0f;
-        dp[n][i] = p * (dp[n][i] - rsd[r]);  // dS^T
-        s[n][i] = p;                         // P^T
+                            ? __expf(fmaf(s[nn][i], scale, bias[nn][i]) - rmj[r]) * rinvj[r] : 0.0f;
+        dp[nn][i] = p * (dp[nn][i] - rsdj[r]);  // dS^T
+        s[nn][i] = p;                           // P^T
       }
     uint32_t hi[4], lo[4];
     warp_mma::split_a(dp, hi, lo);
-    mma_split(dk, hi, lo, qs, rb, lane);
+    mma_split(dk, hi, lo, qt, rb, lane);
     warp_mma::split_a(s, hi, lo);
-    mma_split(dv, hi, lo, dos, rb, lane);
+    mma_split(dv, hi, lo, dot, rb, lane);
   }
 
   bf16* obase = dqkv + b * ob + g * og;
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     const int kk = wk + grp + 8 * x;  // key in the chunk
-    if (kk >= keys) continue;
-    bf16* orow = obase + (j0 + kk) * ol;
+    if (kk >= tl.count) continue;
+    bf16* orow = obase + (tl.r0 + kk) * ol;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      const int d = n * 8 + 2 * tig;
+    for (int nn = 0; nn < DH / 8; ++nn) {
+      const int d = nn * 8 + 2 * tig;
       *reinterpret_cast<bf162*>(orow + koff + d) = __floats2bfloat162_rn(
-          fmaf(cdl[x], qc[d], scale * dk[n][2 * x]),
-          fmaf(cdl[x], qc[d + 1], scale * dk[n][2 * x + 1]));
+          fmaf(cdl[x], qcj[d], scale * dk[nn][2 * x]),
+          fmaf(cdl[x], qcj[d + 1], scale * dk[nn][2 * x + 1]));
       *reinterpret_cast<bf162*>(orow + voff + d) = __floats2bfloat162_rn(
-          fmaf(cp[x], dc[d], dv[n][2 * x]), fmaf(cp[x], dc[d + 1], dv[n][2 * x + 1]));
+          fmaf(cp[x], dcj[d], dv[nn][2 * x]), fmaf(cp[x], dcj[d + 1], dv[nn][2 * x + 1]));
     }
   }
 }
 
-// dk_cls and dv_cls: the CLS row's own terms plus the groups' partials, in order
-__global__ void attn_bwd_cls_reduce_kernel(const float* __restrict__ cls_kv,
-                                           const float* __restrict__ kv_part,
-                                           bf16* __restrict__ dqkvc, i64 ocb, int G, int H) {
+// dk_cls and dv_cls: the CLS row's own terms plus the groups' partials, in
+// order: RED_SPLIT runs of consecutive partials side by side, then the runs
+constexpr int RED_SPLIT = 4;
+
+__global__ void __launch_bounds__(RED_SPLIT * 2 * DH)
+attn_bwd_cls_reduce_kernel(float* __restrict__ cls_scr, const float* __restrict__ kv_part,
+                           bf16* __restrict__ dqkvc, i64 ocb, int N, int parts, int H,
+                           int cls_chunks) {
+  __shared__ float run[RED_SPLIT][2 * DH];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int e = threadIdx.x;  // 0 .. 2*DH-1: k then v
-  float a = cls_kv[(size_t(b) * H + h) * 2 * DH + e];
-  for (int g = 0; g < G; ++g) a += kv_part[((size_t(b) * G + g) * H + h) * 2 * DH + e];
-  dqkvc[b * ocb + (1 + e / DH) * H * DH + h * DH + e % DH] = __float2bfloat16(a);
+  const int e = threadIdx.x % (2 * DH);  // k then v
+  const int q = threadIdx.x / (2 * DH);
+  const int per = (parts + RED_SPLIT - 1) / RED_SPLIT;
+  float a = 0.0f;
+  for (int p = q * per; p < min(parts, (q + 1) * per); ++p)
+    a += kv_part[((size_t(b) * parts + p) * H + h) * 2 * DH + e];
+  run[q][e] = a;
+  __syncthreads();
+  if (q == 0) {
+    a = cls_scratch(cls_scr, b, h, H, N, cls_chunks).kv[e];
+#pragma unroll
+    for (int r = 0; r < RED_SPLIT; ++r) a += run[r][e];
+    dqkvc[b * ocb + (1 + e / DH) * H * DH + h * DH + e % DH] = __float2bfloat16(a);
+  }
 }
 
-size_t token_smem(int L) {
-  const size_t T = size_t(L) + 1;
-  return sizeof(float) * ((2 * size_t(L) + 2 * T) * KLD + 2 * size_t(L) * T + 2 * size_t(L) + 2 * DH);
+size_t rows_smem(int L, int gpb, int warps) {
+  return sizeof(bf16) * 2 * size_t(gpb) * pad16(L + 1) * DH + sizeof(float) * warps * 2 * DH;
 }
 
-size_t long_rows_smem(int L) {
-  return sizeof(bf16) * 2 * size_t(pad16(L + 1)) * DH + sizeof(float) * 2 * TILE;
-}
-
-size_t long_cols_smem(int L) {
+size_t cols_smem(int L, int gpb) {
   const size_t Lp = pad16(L);
-  return sizeof(bf16) * 2 * Lp * DH + sizeof(float) * (3 * Lp + 2 * DH);
+  return sizeof(bf16) * 2 * gpb * Lp * DH + sizeof(float) * gpb * (3 * Lp + 2 * DH);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// Scratch from the caller, fp32: stats (B*H*3), cls_kv (B*H*2*dh), kv_part
-// (B*G*C*H*2*dh) and, for 64 < L, row_stats (B*G*H*L*3), where C is 1 for L
-// <= 64 and ceil(L / 64) above. Above L = 64 the three bf16 inputs and their
-// strides (but the last) must be 16-byte aligned.
+// The launch plan comes from ops/divided_attention.py::bwd_plan: groups a
+// block (gpb), row chunks a group (chunks), threads a block of the token-row
+// launches and cls_chunks. Scratch from the caller, fp32: cls_scratch (B*H*
+// (2*G*L + cls_chunks*(2*dh + 3) + 3 + 2*dh)), kv_part (B*G*chunks*H*2*dh)
+// and row_stats (B*G*H*L*3). The three bf16 inputs and their strides (but
+// the last) must be 16-byte aligned.
 extern "C" int divided_attention_bwd(const void* qkv, i64 sb, i64 sg, i64 sl, const void* qkvc,
                                      i64 scb, const void* seq_bias, const void* row_bias,
                                      i64 rb_b, i64 rb_g, i64 rb_l, const void* dtok, i64 db,
                                      i64 dg, i64 dl, const void* dcls, i64 dcb, void* dqkv,
-                                     i64 ob, i64 og, i64 ol, void* dqkvc, i64 ocb, void* stats,
-                                     void* cls_kv, void* kv_part, void* row_stats, int B, int G,
-                                     int L, int H, int dh, void* stream) {
-  if (dh != DH || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1 || G > 65535 || B > 65535)
+                                     i64 ob, i64 og, i64 ol, void* dqkvc, i64 ocb,
+                                     void* cls_scratch, void* kv_part, void* row_stats, int B,
+                                     int G, int L, int H, int dh, int gpb, int chunks,
+                                     int threads, int cls_chunks, void* stream) {
+  if (dh != DH || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1 || B > 65535 || H > 65535)
     return int(cudaErrorInvalidValue);
-  const size_t cls_smem = 2 * size_t(G) * L * sizeof(float);
-  if (cls_smem > 96 * 1024) return int(cudaErrorInvalidValue);
-  const bool long_rows = L > SHORT_MAXL;
-  if (long_rows && (!aligned16(qkv) || !aligned16(qkvc) || !aligned16(dtok) || row_stats == nullptr
-                    || (sb | sg | sl | scb | db | dg | dl) % 8 != 0))
+  // the plan: whole warps, each group's chunk covered by its warps, several
+  // groups a block only where one chunk holds a group
+  const int warps = threads / 32;
+  if (threads % 32 != 0 || warps < 1 || warps > TILE_WARPS || gpb < 1 || warps % gpb != 0 ||
+      chunks != (L + TILE - 1) / TILE || (chunks > 1 && gpb != 1) ||
+      warps / gpb * 16 < (L < TILE ? L : TILE) || cls_chunks < 1 || cls_chunks > G * L ||
+      cls_chunks > 65535)
+    return int(cudaErrorInvalidValue);
+  const i64 blocks = (i64(B) * G + gpb - 1) / gpb * chunks;
+  if (blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
+  if (!aligned16(qkv) || !aligned16(qkvc) || !aligned16(dtok) ||
+      (sb | sg | sl | scb | db | dg | dl) % 8 != 0)
     return int(cudaErrorMisalignedAddress);
-  const int chunks = long_rows ? (L + TILE - 1) / TILE : 1;
-  if (G * chunks > 65535) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_cls_row_kernel,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_rows_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(cls_smem));
-  if (err != cudaSuccess) return int(err);
-  if (long_rows) {
-    err = cudaFuncSetAttribute(attn_bwd_long_rows_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(long_rows_smem(L)));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attn_bwd_long_cols_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 int(long_cols_smem(L)));
-  } else {
-    err = cudaFuncSetAttribute(attn_bwd_token_rows_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(token_smem(L)));
-  }
+                                         int(rows_smem(L, gpb, warps)));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_cols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(cols_smem(L, gpb)));
   if (err != cudaSuccess) return int(err);
   const float scale = 1.0f / sqrtf(float(DH));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -820,29 +889,29 @@ extern "C" int divided_attention_bwd(const void* qkv, i64 sb, i64 sg, i64 sl, co
   const bf16* dc = static_cast<const bf16*>(dcls);
   bf16* dq = static_cast<bf16*>(dqkv);
   bf16* dqc = static_cast<bf16*>(dqkvc);
-  float* st = static_cast<float*>(stats);
-  float* ckv = static_cast<float*>(cls_kv);
+  float* cs = static_cast<float*>(cls_scratch);
   float* part = static_cast<float*>(kv_part);
   float* rst = static_cast<float*>(row_stats);
+  const int N = G * L;
 
-  attn_bwd_cls_row_kernel<<<dim3(H, B), CLS_THREADS, cls_smem, s>>>(
-      q, sb, sg, sl, qc, scb, rb, rb_b, rb_g, rb_l, dc, dcb, dqc, ocb, st, ckv, G, L, H, scale);
+  attn_bwd_cls_logits_kernel<<<dim3(H, cls_chunks, B), CLS_THREADS, 0, s>>>(
+      q, sb, sg, sl, qc, scb, rb, rb_b, rb_g, rb_l, dc, dcb, cs, G, L, H, cls_chunks, scale);
+  attn_bwd_cls_sums_kernel<<<dim3(H, cls_chunks, B), CLS_THREADS, 0, s>>>(
+      q, sb, sg, sl, qc, scb, cs, G, L, H, cls_chunks, scale);
+  attn_bwd_cls_finish_kernel<<<dim3(H, B), DH, 0, s>>>(qc, scb, dc, dcb, dqc, ocb, cs, N, H,
+                                                       cls_chunks, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  if (long_rows) {
-    attn_bwd_long_rows_kernel<<<dim3(H, G * chunks, B), TILE_WARPS * 32, long_rows_smem(L), s>>>(
-        q, sb, sg, sl, qc, scb, sqb, dt, db, dg, dl, dq, ob, og, ol, rst, part, G, L, H, scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-    attn_bwd_long_cols_kernel<<<dim3(H, G * ((L + TILE - 1) / TILE), B), TILE_WARPS * 32,
-                                long_cols_smem(L), s>>>(
-        q, sb, sg, sl, qc, scb, sqb, rb, rb_b, rb_g, rb_l, dt, db, dg, dl, dc, dcb, st, rst, dq,
-        ob, og, ol, G, L, H, scale);
-  } else {
-    attn_bwd_token_rows_kernel<<<dim3(H, G, B), TOK_THREADS, token_smem(L), s>>>(
-        q, sb, sg, sl, qc, scb, sqb, rb, rb_b, rb_g, rb_l, dt, db, dg, dl, dc, dcb, st, dq, ob,
-        og, ol, part, G, L, H, scale);
-  }
+  const dim3 grid(unsigned(blocks), H);
+  attn_bwd_rows_kernel<<<grid, threads, rows_smem(L, gpb, warps), s>>>(
+      q, sb, sg, sl, qc, scb, sqb, dt, db, dg, dl, dq, ob, og, ol, rst, part, B, G, L, H, gpb,
+      chunks, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  attn_bwd_cols_kernel<<<grid, threads, cols_smem(L, gpb), s>>>(
+      q, sb, sg, sl, qc, scb, sqb, dt, db, dg, dl, dc, dcb, cs, cls_chunks, rst, dq, ob, og, ol,
+      B, G, L, H, gpb, chunks, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   // the partials of every group and row chunk, in order
-  attn_bwd_cls_reduce_kernel<<<dim3(H, B), 2 * DH, 0, s>>>(ckv, part, dqc, ocb, G * chunks, H);
+  attn_bwd_cls_reduce_kernel<<<dim3(H, B), RED_SPLIT * 2 * DH, 0, s>>>(cs, part, dqc, ocb, N,
+                                                                       G * chunks, H, cls_chunks);
   return int(cudaGetLastError());
 }

@@ -1,12 +1,13 @@
-"""The GEGLU FFN backward and the depthwise forward of this tree against
-another checkout's, in turns, on one card.
+"""The GEGLU FFN backward, the depthwise forward and the divided-attention
+backward of this tree against another checkout's, in turns, on one card.
 
 Each tree is measured by a process of its own (its ``mintime_torch`` on
 ``PYTHONPATH``, its kernels built into its own ``mintime_torch/.build/``), in
 the order other, this, this, other, so that a drift of the card's clocks
 falls on both alike. Without ``--other`` this tree alone is measured, once.
 Both trees are measured by this tree's harness: ``chip_smoke.py``'s FFN
-backward row, profiler and timers, and the depthwise probe's ``run``.
+and attention backward rows, profiler and timers, and the depthwise probe's
+``run``.
 
 For each tree:
 
@@ -18,11 +19,19 @@ For each tree:
   dw_conv        ``dw_conv_cuda_vs_cudnn.run(check=True)``: the probe's
                  eight geometries at 512 images, ms by CUDA events beside
                  cuDNN's ``conv2d(groups=C)`` + ``F.silu``, relative error
-                 against the plain version.
+                 against the plain version;
+  divided_attention_bwd  at ``chip_smoke._divided_cases`` (the flagship's
+                 time and space axes at batch 8, the conv model's tap-10
+                 time axis and its space axis at L = 80, 112, 192, 256):
+                 ``chip_smoke._divided_bwd_row`` (each gradient against the
+                 plain version, the kernel's and SDPA's backward by device
+                 and host ms), two reruns bitwise equal or not, and three
+                 calls' CUDA launches by name under ``torch.profiler``.
 
 Run on a machine with a card, from the root of a checkout, with another
 checkout unpacked in a directory (for example by ``git archive``):
-``python -m mintime_torch.experiments.kernel_turns [--other DIR] [--out FILE]``.
+``python -m mintime_torch.experiments.kernel_turns [--other DIR] [--out FILE]
+[--kernels NAME ...]``.
 """
 
 from __future__ import annotations
@@ -47,12 +56,29 @@ def _chip_smoke():
     return mod
 
 
-def measure(label: str) -> None:
+KERNELS = ("geglu_ffn_bwd", "dw_conv", "divided_attention_bwd")
+
+
+def _launches(cs, call) -> list:
+    """Three calls' CUDA launches by name: [name, launches, ms over the three]."""
+    prof = cs._profile(lambda: [call() for _ in range(3)], calls=3)
+    return [[k["name"][:60], k["launches"], k["ms"]] for k in prof["top_kernels"]]
+
+
+def _bitwise(call) -> bool:
+    import torch
+
+    first = call()
+    return all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
+
+
+def measure(label: str, kernels) -> None:
     """Measure the ``mintime_torch`` this process imports; print one line a row."""
     import torch
 
     from mintime_torch.experiments import card
     from mintime_torch.experiments import dw_conv_cuda_vs_cudnn as dwf
+    from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import geglu_ffn as ffn
 
     cs = _chip_smoke()
@@ -62,31 +88,42 @@ def measure(label: str) -> None:
     out = lambda row: print(TAG + json.dumps({"tree": label, "card": smi, **row}), flush=True)  # noqa: E731
     gen = torch.Generator().manual_seed(0)
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
-    for dim, hidden, shapes in cs.FFN_SHAPES:
+    for dim, hidden, shapes in cs.FFN_SHAPES if "geglu_ffn_bwd" in kernels else ():
         w0, b0, w1, _ = cs._ffn_weights(r, dim, hidden)
         for m, _, calls in shapes:
             args = (r(m, dim), w0, b0, w1, r(m, dim))
             # the other tree's backward may launch another number of kernels a call
             row = cs._ffn_bwd_row(args, calls, launches=None)
             call = lambda: ffn.geglu_ffn_bwd_cuda(*args)  # noqa: E731
-            first = call()
-            bitwise = all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
-            prof = cs._profile(lambda: [call() for _ in range(3)], calls=3)
-            out({"kernel": "geglu_ffn_bwd", **row, "bitwise_reruns": bitwise,
+            out({"kernel": "geglu_ffn_bwd", **row, "bitwise_reruns": _bitwise(call),
                  "within": all(g["max_abs_err"] <= g["limit"] for g in row["grads"]),
-                 "launches_3_calls": [[k["name"][:60], k["launches"], k["ms"]]
-                                      for k in prof["top_kernels"]]})
-            del args, first
+                 "launches_3_calls": _launches(cs, call)})
+            del args
         torch.cuda.empty_cache()
-    for row in dwf.run(check=True):
+    for row in dwf.run(check=True) if "dw_conv" in kernels else ():
         out({"kernel": "dw_conv", **row, "shape": f"N={row['N']} {row['H']}x{row['W']}"
              f" C={row['C']} K={row['K']}", "within": row["check_rel_err"] <= dwf.CHECK_REL})
 
+    if "divided_attention_bwd" in kernels:
+        for shape, args, H, _, calls in cs._divided_cases(gen):
+            # the other tree's backward may launch another number of kernels a call
+            row = cs._divided_bwd_row(shape, args, H, calls, gen)
+            d_tok = torch.randn(*args[0].shape[:3], H * 64, generator=gen).cuda().bfloat16()
+            d_cls = torch.randn(args[0].shape[0], 1, H * 64, generator=gen).cuda().bfloat16()
+            call = lambda: da.divided_attention_bwd_cuda(*args, d_tok, d_cls, heads=H,  # noqa: E731
+                                                         dim_head=64)
+            out({"kernel": "divided_attention_bwd", **row, "bitwise_reruns": _bitwise(call),
+                 "within": all(g["max_abs_err"] <= g["limit"] for g in row["grads"])
+                 and row["d_qkv_differing"] <= row["differing_limit"],
+                 "launches_3_calls": _launches(cs, call)})
+            del args, d_tok, d_cls
 
-def _run_tree(root: Path, label: str) -> list[dict]:
+
+def _run_tree(root: Path, label: str, kernels) -> list[dict]:
     env = dict(os.environ, PYTHONPATH=str(root))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", label],
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", label,
+                           "--kernels", *kernels],
                           cwd=root, env=env, capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
         raise RuntimeError(f"{label} ({root}) failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
@@ -99,17 +136,19 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="root of another checkout to measure in turns")
     ap.add_argument("--out", type=Path, help="write every row here as JSON lines")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
+                    help="the kernels to measure (default: all)")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure:
-        measure(args.measure)
+        measure(args.measure, args.kernels)
         return
     order = [("this", ROOT)] if args.other is None else [
         ("other", args.other.resolve()), ("this", ROOT), ("this", ROOT), ("other", args.other.resolve())]
     rows, failed = [], []
     for turn, (label, root) in enumerate(order):
         try:
-            rows += [dict(r, turn=turn) for r in _run_tree(root, label)]
+            rows += [dict(r, turn=turn) for r in _run_tree(root, label, args.kernels)]
         except (RuntimeError, subprocess.TimeoutExpired) as e:
             print(e, flush=True)
             failed.append(turn)
@@ -118,7 +157,7 @@ def main() -> None:
         args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
     bad = [r for r in rows if not r["within"] or r.get("bitwise_reruns") is False]
     for r in rows:
-        print(f"turn {r['turn']} {r['tree']:5s} {r['kernel']:13s} {r['shape']:26s} ms {r['ms']:.4f}"
+        print(f"turn {r['turn']} {r['tree']:5s} {r['kernel']:21s} {r['shape']:34s} ms {r['ms']:.4f}"
               + (f" host_ms {r['host_ms']:.4f}" if "host_ms" in r else "")
               + (f" library_ms {r['library_ms']:.4f}" if r.get("library_ms") else "")
               + ("" if r["within"] else " OFF")

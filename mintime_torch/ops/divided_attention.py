@@ -54,12 +54,15 @@ _KERNEL_DH = 64
 #: sends every axis up to this length to :func:`divided_attention`
 #: (``mintime_tpu/models/timesformer.py:152``)
 _KERNEL_MAX_L = 256
-_KERNEL_MAX_KEYS = 12 * 1024  # the backward's G*L fp32 CLS-row logits in 48 KB of shared memory
-#: above this L the backward's token rows take the tensor-core launches, a
-#: block per chunk of ``_LONG_TILE`` query rows and one per chunk of as many keys
-_SHORT_MAX_L = 64
-_LONG_TILE = 64
-#: keys of a chunk of the forward's CLS row (one block of each CLS launch)
+#: most keys of the CLS row (G*L) the kernels take
+_KERNEL_MAX_KEYS = 12 * 1024
+#: query rows (row launch) or keys (column launch) of one group's chunk in a
+#: block of the backward's token-row launches, and the most warps a block:
+#: a warp per 16 rows
+_BWD_TILE = 64
+_BWD_WARPS = 4
+#: keys of a chunk of the CLS row, forward and backward (one block of each
+#: CLS launch)
 _CLS_CHUNK_KEYS = 128
 
 #: largest packed qkv slice (G*L*3*inner bytes) of the whole-slice kernels
@@ -179,9 +182,46 @@ def check_kernel_shape(G: int, L: int, dim_head: int) -> None:
 
 
 def cls_row_chunks(G: int, L: int) -> int:
-    """Chunks of the forward's CLS row over G groups of L keys: one block of
-    each of its launches a chunk."""
+    """Chunks of the CLS row over G groups of L keys, forward and backward:
+    one block of each of its launches a chunk."""
     return -(-G * L // _CLS_CHUNK_KEYS)
+
+
+def bwd_plan(B: int, G: int, L: int, dim_head: int = _KERNEL_DH) -> dict:
+    """Launch shape of the backward kernel (``csrc/divided_attention_bwd.cu``)
+    for B videos of G groups of L positions.
+
+    The token-row launches (rows, then columns) give a warp 16 rows (or
+    keys) of one group. A block takes a ``_BWD_TILE``-row chunk of one group
+    where L is longer; where L is shorter it takes whole groups, as many as
+    its ``_BWD_WARPS`` warps hold (four of L <= 16, two of L <= 32, one on
+    three warps at L <= 48), numbered ``n = b * G + g`` across videos.
+    Returns ``groups_per_block``, ``row_chunks`` (chunks of a group),
+    ``threads`` and ``blocks`` (of each token-row launch, per head),
+    ``cls_chunks`` (chunks of the CLS row's G*L keys) and the fp32 scratch
+    per (b, h): ``cls_scratch`` (each key's logit and d_cls . v, each
+    chunk's partial sums, the row's stats and its own dk_cls, dv_cls terms),
+    ``kv_part`` (each group chunk's dk_cls, dv_cls part) and ``row_stats``
+    (each token row's max, sum and s_dot)."""
+    tiles = -(-L // 16)
+    warps_per_group = min(tiles, _BWD_WARPS)
+    chunks = -(-L // _BWD_TILE)
+    groups = _BWD_WARPS // warps_per_group if chunks == 1 else 1
+    cls_chunks = cls_row_chunks(G, L)
+    return {"groups_per_block": groups, "row_chunks": chunks,
+            "threads": 32 * warps_per_group * groups, "blocks": -(-B * G // groups) * chunks,
+            "cls_chunks": cls_chunks,
+            "cls_scratch": 2 * G * L + cls_chunks * (2 * dim_head + 3) + 3 + 2 * dim_head,
+            "kv_part": G * chunks * 2 * dim_head, "row_stats": G * L * 3}
+
+
+def _bwd_scratch(plan: dict, B: int, G: int, L: int, heads: int, dim_head: int, device):
+    """The backward's fp32 scratch under ``plan``: (cls_scratch, kv_part,
+    row_stats), each written before it is read."""
+    f32 = torch.float32
+    return (torch.empty((B, heads, plan["cls_scratch"]), dtype=f32, device=device),
+            torch.empty((B, G * plan["row_chunks"], heads, 2, dim_head), dtype=f32, device=device),
+            torch.empty((B, G, heads, L, 3), dtype=f32, device=device))
 
 
 def _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head):
@@ -273,7 +313,7 @@ def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls,
     _check_kernel_args(qkv_g, qkv_cls, seq_bias, row_bias, heads, dim_head)
     B, G, L, c3 = qkv_g.shape
     inner = heads * dim_head
-    dev, f32 = qkv_g.device, torch.float32
+    dev = qkv_g.device
     d_tok = d_tok.to(qkv_g.dtype)
     d_cls = d_cls.to(qkv_g.dtype)
     if d_tok.stride(-1) != 1:
@@ -284,16 +324,12 @@ def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls,
             or d_tok.device != dev or d_cls.device != dev:
         raise ValueError(f"divided_attention: cotangents {tuple(d_tok.shape)} /"
                          f" {tuple(d_cls.shape)} do not match qkv {tuple(qkv_g.shape)}")
-    long_rows = L > _SHORT_MAX_L
-    if long_rows:  # the tensor-core launches stage rows by 16-byte copies
-        qkv_g, qkv_cls, d_tok = (_aligned16(t) for t in (qkv_g, qkv_cls, d_tok))
-    chunks = -(-L // _LONG_TILE) if long_rows else 1
+    # the launches stage rows by 16-byte copies
+    qkv_g, qkv_cls, d_tok = (_aligned16(t) for t in (qkv_g, qkv_cls, d_tok))
+    plan = bwd_plan(B, G, L, dim_head)
     d_qkv = _empty_grouped(qkv_g, c3)
     d_qkvc = torch.empty((B, 1, c3), dtype=qkv_g.dtype, device=dev)
-    stats = torch.empty((B, heads, 3), dtype=f32, device=dev)
-    cls_kv = torch.empty((B, heads, 2, dim_head), dtype=f32, device=dev)
-    kv_part = torch.empty((B, G * chunks, heads, 2, dim_head), dtype=f32, device=dev)
-    row_stats = torch.empty((B, G, heads, L, 3) if long_rows else (0,), dtype=f32, device=dev)
+    cls_scratch, kv_part, row_stats = _bwd_scratch(plan, B, G, L, heads, dim_head, dev)
     if row_bias is not None:
         row_bias = row_bias.expand(B, G, L)
         rb_ptr, rb_strides = row_bias.data_ptr(), row_bias.stride()
@@ -303,8 +339,8 @@ def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls,
     fn = lib.divided_attention_bwd
     i64, ptr = ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = ([ptr, i64, i64, i64, ptr, i64, ptr, ptr, i64, i64, i64, ptr, i64, i64, i64,
-                    ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr]
-                   + [ctypes.c_int] * 5 + [ptr])
+                    ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr]
+                   + [ctypes.c_int] * 9 + [ptr])
     fn.restype = ctypes.c_int
     sb, sg, sl, _ = qkv_g.stride()
     tb, tg, tl, _ = d_tok.stride()
@@ -315,8 +351,9 @@ def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls,
             None if seq_bias is None else seq_bias.data_ptr(), rb_ptr, *rb_strides,
             d_tok.data_ptr(), tb, tg, tl, d_cls.data_ptr(), d_cls.stride(0),
             d_qkv.data_ptr(), ob, og, ol, d_qkvc.data_ptr(), d_qkvc.stride(0),
-            stats.data_ptr(), cls_kv.data_ptr(), kv_part.data_ptr(), row_stats.data_ptr(),
-            B, G, L, heads, dim_head, torch.cuda.current_stream(dev).cuda_stream,
+            cls_scratch.data_ptr(), kv_part.data_ptr(), row_stats.data_ptr(),
+            B, G, L, heads, dim_head, plan["groups_per_block"], plan["row_chunks"],
+            plan["threads"], plan["cls_chunks"], torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(status, "divided_attention_bwd")
     bwd_launches += 1

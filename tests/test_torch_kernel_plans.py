@@ -1,12 +1,15 @@
 """The launch plans the wrappers hand the CUDA kernels, checked on the CPU:
-the FFN backward's split-K planner (``ops/geglu_ffn.py::product_splits``)
-and the depthwise forward's channel tile and row ring (``ops/dw_conv.py::
-plan``). The kernels take these plans as they are, so what is checked here
-is what runs on the card."""
+the FFN backward's split-K planner (``ops/geglu_ffn.py::product_splits``),
+the depthwise forward's channel tile and row ring (``ops/dw_conv.py::
+plan``) and the attention backward's group packs, row chunks and CLS-row
+chunks (``ops/divided_attention.py::bwd_plan``). The kernels take these
+plans as they are, so what is checked here is what runs on the card."""
 
+import numpy as np
 import pytest
 
 from mintime_torch.experiments.dw_conv_cuda_vs_cudnn import GEOMS
+from mintime_torch.ops import divided_attention as da
 from mintime_torch.ops import dw_conv
 from mintime_torch.ops import geglu_ffn as ffn
 
@@ -104,3 +107,118 @@ def test_dw_plan_invariants(H, W, C, K):
     assert threads >= min(512, groups * ct // 2)
     ring = (K + 1) * (groups * COLS + K - 1) * ct * 2
     assert ring <= 200 * 1024, ring
+
+
+#: (B, G, L) of the attention backward on the main paths: the flagship's
+#: time and space axes, the conv model's at tap block 10 (both whole-slice)
+#: and its time axis at tap block 20 (1280 channel groups of 8 frames)
+ATTN_SHAPES = [(8, 49, 16), (8, 16, 49), (8, 192, 8), (8, 8, 192), (8, 1280, 8)]
+#: the groups the whole-slice shapes attend within (the tap-20 time axis
+#: takes the token-row kernels, so its G = 1280 is checked at L = 8 only);
+#: the L sweep runs at B = 2, so that group packs span two videos
+ATTN_GROUPS = (8, 16, 49, 192)
+
+
+def _tile(plan, B, G, L, block, warp):
+    """The rows (row launch) or keys (column launch) that warp ``warp`` of
+    block ``block`` of a token-row launch takes under ``plan``, found as the
+    kernel's ``block_tile`` finds them: ``(n, first, count)``, group n = b *
+    G + g and its positions first .. first + count - 1, or None for a warp
+    without rows."""
+    gpb, chunks = plan["groups_per_block"], plan["row_chunks"]
+    wpg = plan["threads"] // 32 // gpb
+    n0, chunk = block // chunks * gpb, block % chunks
+    j, first = warp // wpg, chunk * 64 + warp % wpg * 16
+    end = min(L, (chunk + 1) * 64)
+    if j >= min(gpb, B * G - n0) or first >= end:
+        return None
+    return n0 + j, first, min(16, end - first)
+
+
+def _tile_coverage(B, G, L):
+    """How many warps' tiles hold each (group, row) under the plan, after
+    checking that each tile lies in one 64-row chunk and its block's group
+    pack; and the (block, warp) pairs left without rows."""
+    plan = da.bwd_plan(B, G, L)
+    gpb, chunks, threads = plan["groups_per_block"], plan["row_chunks"], plan["threads"]
+    assert threads % 32 == 0 and 32 <= threads <= 128 and (threads // 32) % gpb == 0
+    assert chunks == -(-L // 64) and (chunks == 1 or gpb == 1)
+    seen, idle = np.zeros((B * G, L), np.int64), []
+    for block in range(plan["blocks"]):
+        for warp in range(threads // 32):
+            tile = _tile(plan, B, G, L, block, warp)
+            if tile is None:
+                idle.append((block, warp))
+                continue
+            n, first, count = tile
+            assert block // chunks * gpb <= n < (block // chunks + 1) * gpb, (G, block, warp)
+            assert first % 16 == 0 and 1 <= count <= 16
+            assert first // 64 == (first + count - 1) // 64 == block % chunks
+            seen[n, first:first + count] += 1
+    return seen, idle
+
+
+@pytest.mark.parametrize("L", range(1, 257))
+def test_attention_bwd_tiles_cover_every_row_once(L):
+    """Every query row (row launch) and key (column launch, the same
+    tiling) of every group falls in exactly one warp's 16-row tile, inside
+    one 64-row chunk and one block's group pack; no block outgrows four
+    warps."""
+    for G in ATTN_GROUPS:
+        seen, _ = _tile_coverage(2, G, L)
+        assert (seen == 1).all(), (G, L, np.argwhere(seen != 1)[:4])
+
+
+@pytest.mark.parametrize("B,G,L", [s for s in ATTN_SHAPES if s[2] <= 16])
+def test_attention_bwd_short_axes_leave_no_warp_idle(B, G, L):
+    """At L = 16 and 8 a block packs four groups, one a warp; at the main
+    paths' shapes every row falls in one tile and every warp of every block
+    has rows."""
+    plan = da.bwd_plan(B, G, L)
+    assert (plan["groups_per_block"], plan["threads"]) == (4, 128)
+    seen, idle = _tile_coverage(B, G, L)
+    assert (seen == 1).all() and not idle, idle[:4]
+
+
+@pytest.mark.parametrize("B,G,L", ATTN_SHAPES + [(2, 1, 1), (1, 7, 33), (3, 12288, 1)])
+def test_attention_bwd_cls_chunks_cover_the_keys_in_order(B, G, L):
+    """The CLS row's chunks, each one block of its launches, take keys
+    c * k .. min(G*L, (c + 1) * k) - 1 for k = ceil(G*L / chunks), as the
+    kernels compute it: together every key once, in order, at most 128 a
+    chunk, none empty."""
+    plan = da.bwd_plan(B, G, L)
+    n, chunks = G * L, plan["cls_chunks"]
+    k = -(-n // chunks)
+    bounds = [(c * k, min(n, (c + 1) * k)) for c in range(chunks)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(a < b <= a + 128 for a, b in bounds), bounds
+    assert all(bounds[i][1] == bounds[i + 1][0] for i in range(chunks - 1))
+
+
+@pytest.mark.parametrize("B,G,L", ATTN_SHAPES + [(2, 5, 40), (3, 8, 256), (1, 1, 1)])
+@pytest.mark.parametrize("heads", [8, 6])
+def test_attention_bwd_scratch_is_what_the_wrapper_allocates(B, G, L, heads):
+    """The wrapper's fp32 scratch has the plan's sizes per (b, h), and those
+    are the kernel's layouts: each CLS key's logit and d_cls . v, each
+    chunk's partial (sum e k, sum e dp k, sum e, sum e dp, max), the stats,
+    the CLS row's dk_cls and dv_cls terms; a dk_cls, dv_cls part per group
+    chunk; max, sum and s_dot per token row."""
+    dh = 64
+    plan = da.bwd_plan(B, G, L, dh)
+    cls_scratch, kv_part, row_stats = da._bwd_scratch(plan, B, G, L, heads, dh, "cpu")
+    assert plan["cls_scratch"] == 2 * G * L + plan["cls_chunks"] * (2 * dh + 3) + 3 + 2 * dh
+    assert plan["kv_part"] == G * plan["row_chunks"] * 2 * dh and plan["row_stats"] == G * L * 3
+    for t, key in ((cls_scratch, "cls_scratch"), (kv_part, "kv_part"), (row_stats, "row_stats")):
+        assert t.numel() == B * heads * plan[key], key
+    assert cls_scratch.shape[:2] == (B, heads) and kv_part.shape[0] == B
+
+
+def test_attention_bwd_plan_at_the_main_path_shapes():
+    """Four groups a block on the short time axes, one group on four warps
+    at L = 49, 64-row chunks at L = 192; 128-key CLS chunks."""
+    want = {(8, 49, 16): (4, 1, 98, 7), (8, 16, 49): (1, 1, 128, 7),
+            (8, 192, 8): (4, 1, 384, 12), (8, 8, 192): (1, 3, 192, 12)}
+    for shape, (gpb, chunks, blocks, cls_chunks) in want.items():
+        plan = da.bwd_plan(*shape)
+        assert (plan["groups_per_block"], plan["row_chunks"], plan["blocks"],
+                plan["cls_chunks"], plan["threads"]) == (gpb, chunks, blocks, cls_chunks, 128)

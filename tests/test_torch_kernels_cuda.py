@@ -407,7 +407,29 @@ def test_divided_attention_forward_kernel_on_card_at_short_axes(L, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [49, 192])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("L", [1, 8, 16, 17, 33, 49, 64])
+def test_divided_attention_backward_kernel_on_card_at_short_axes(L, masked):
+    """The backward's tensor-core token rows at L <= 64 (the flagship's 16
+    and 49, the conv time axis' 8, the edges of a 16-row tile, four, two and
+    one groups a block) against the plain version per gradient, on a strided
+    view with a CLS-row bias, with and without a seq_bias; G = 7, so that a
+    block's groups span two videos and the last block is short (needs the
+    card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args, cots, kw = _long_axis_inputs(L, torch.Generator().manual_seed(14), G=7, masked=masked)
+    got = port_divided.divided_attention_bwd_cuda(*args, *cots, **kw)
+    torch.cuda.synchronize()
+    assert got[0].stride() == args[0].stride()
+    want = port_divided.divided_attention_bwd_plain(*args, *cots, **kw)
+    _close_per_gradient(got, want, f"attention L={L} seq_bias={masked}")
+    # P and dS enter the tensor-core products as bf16 hi/lo pairs
+    assert float((got[0] != want[0]).float().mean()) < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 49, 192])
 def test_divided_attention_backward_kernel_is_bitwise_stable(L):
     """The backward kernel gives the same bits on reruns: every sum runs in a
     fixed order and no atomics are used (needs the card)."""
