@@ -34,6 +34,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    launches, the reduce). The
    forward too: two reruns at L = 192 bitwise equal and one call profiled
    by launch (the token rows and the CLS row's three launches). The FFN
+   forward by device time (``host_ms`` beside it), with the same function
+   as PyTorch's three calls (``F.linear``, the gate, ``F.linear``: cuBLAS
+   products) by device time as ``cublas_products_ms``; also at row counts
+   off its plans' tiles (M = 1, 127, 129, 6273 at both widths; rows with no
+   calls), and at the flagship's token and CLS rows two reruns bitwise equal
+   and one call profiled by launch (launch A, launch B and, with split
+   slices, the reduce: exactly the plan's kernels a call). The token-row
+   backward also at 33, 49 and 64 frames, masked and not (rows with no
+   calls). The FFN
    backward also at row counts off its 128-row tiles (M = 1, 100 and, at
    width 512, 6272 + 8; rows with no calls), two reruns at the flagship's
    and the conv model's token rows bitwise equal and one call each profiled
@@ -341,6 +350,15 @@ FFN_SHAPES = ((512, 2048, ((8 * 16 * 49, 9, 8), (8, 9, 9))),
               (256, 1024, ((8 * 8 * 1280, 4, 3), (8, 4, 4))))
 
 
+#: the FFN forward's row counts off its plans' tiles, at both widths (no
+#: main path launches them): one row, a row short of a 128-row tile, a row
+#: past it, a row past the flagship's token rows
+FFN_FWD_EDGE_ROWS = (1, 127, 129, 6273)
+#: the (width, rows) whose forward is rerun for bits and profiled by launch:
+#: the flagship's token rows (two launches) and CLS rows (three)
+FFN_FWD_PROFILED = ((512, 8 * 16 * 49), (512, 8))
+
+
 def _ffn_weights(r, dim, hidden):
     """W0, b0, W1, b1 at unit fan-in scale."""
     return (r(2 * hidden, dim, sc=dim ** -0.5), r(2 * hidden, sc=0.02),
@@ -362,21 +380,18 @@ def phase_kernels(smi):
     rows = {"geglu_ffn": [], "divided_attention": []}
 
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dim, hidden, shapes in FFN_SHAPES:
         w0, b0, w1, b1 = _ffn_weights(r, dim, hidden)
-        for m, calls, _ in shapes:
-            x = r(m, dim)
-            args = (x, w0, b0, w1, b1)
-            err = max_err(ffn.geglu_ffn_cuda(*args), ffn.geglu_ffn_plain(*args))
-            nbytes = 2 * (2 * m * dim + w0.numel() + b0.numel() + w1.numel() + b1.numel())
-            flops = 2 * m * 3 * dim * hidden
-            b_ms, b_by = bound(nbytes, flops)
-            rows["geglu_ffn"].append({
-                "shape": f"D={dim} H={hidden} M={m}", "calls": calls, "max_abs_err": err,
-                "ms": time_ms(lambda: ffn.geglu_ffn_cuda(*args)),
-                "plain_ms": time_ms(lambda: ffn.geglu_ffn_plain(*args)),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            })
+        # the plan's edges (row counts off its 128-row tiles), no calls
+        for m, calls in [(m, c) for m, c, _ in shapes] + [(m, 0) for m in FFN_FWD_EDGE_ROWS]:
+            args = (r(m, dim), w0, b0, w1, b1)
+            plan = ffn.fwd_plan(m, dim, hidden, sms)
+            rows["geglu_ffn"].append({**_ffn_fwd_row(args, calls, "" if calls else "edge ",
+                                                     plan["launches"]), "plan": plan})
+            if (dim, m) in FFN_FWD_PROFILED:
+                _ffn_fwd_rerun_and_launches(smi, args, plan["launches"])
+            del args
 
     for shape, (qkv, qkvc, sb, rbias), H, calls, _ in _divided_cases(gen):
         B, G, L, _ = qkv.shape
@@ -420,6 +435,71 @@ def phase_kernels(smi):
                 raise AssertionError(f"{name} {s['shape']}: max abs error {s['max_abs_err']} > {limit}")
     rows.update(_backward_kernels(smi, gen))
     return rows
+
+
+def _geglu_plain_ops(x, w0, b0, w1, b1):
+    """The FFN forward as PyTorch's own calls in bf16: ``F.linear``, the
+    GEGLU gate (``F.gelu`` and a product), ``F.linear``; a yardstick the port
+    never calls."""
+    import torch.nn.functional as F
+
+    val, gate = F.linear(x, w0, b0).chunk(2, dim=-1)
+    return F.linear(val * F.gelu(gate), w1, b1)
+
+
+def _ffn_fwd_row(args, calls, tag="", launches=None):
+    """The FFN forward vs its plain version, its device time (``ms``: the
+    kernels' durations under ``torch.profiler``, ``launches`` kernels a call
+    where that is given), the host's ms per call by CUDA events over
+    back-to-back calls, the plain version's device time, the bound and the
+    same function as PyTorch's three calls (cuBLAS products around the gate),
+    by device time."""
+    from mintime_torch.ops import geglu_ffn as ffn
+
+    x, w0, b0, w1, b1 = args
+    m, dim = x.shape
+    hidden = w1.shape[1]
+    plain = ffn.geglu_ffn_plain(*args)
+    err = max_err(ffn.geglu_ffn_cuda(*args), plain)
+    ops_err = max_err(_geglu_plain_ops(*args), plain)
+    nbytes = 2 * (2 * m * dim + w0.numel() + b0.numel() + w1.numel() + b1.numel())
+    flops = 2 * m * 3 * dim * hidden
+    b_ms, b_by = bound(nbytes, flops)
+    call = lambda: ffn.geglu_ffn_cuda(*args)  # noqa: E731
+    dev = device_ms(call, launches=launches)
+    return {
+        "shape": f"{tag}D={dim} H={hidden} M={m}", "calls": calls, "max_abs_err": err,
+        "ms": dev, "device_ms": dev, "host_ms": time_ms(call),
+        "plain_ms": device_ms(lambda: ffn.geglu_ffn_plain(*args)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "cublas_products_ms": device_ms(lambda: _geglu_plain_ops(*args)),
+        "cublas_products": "three calls: F.linear, the GEGLU gate (F.gelu and a product),"
+                           " F.linear, in bf16", "cublas_products_max_abs_err": ops_err,
+    }
+
+
+def _ffn_fwd_rerun_and_launches(smi, args, launches):
+    """Two reruns of the FFN forward must give the same bits, and three
+    calls' device time by CUDA launch under ``torch.profiler``, exactly
+    ``launches`` kernels a call (launch A, launch B and, with split slices,
+    the reduce)."""
+    import torch
+
+    from mintime_torch.ops import geglu_ffn as ffn
+
+    call = lambda: ffn.geglu_ffn_cuda(*args)  # noqa: E731
+    first = call()
+    bitwise = all(torch.equal(call(), first) for _ in range(2))
+    x, w1 = args[0], args[3]
+    shape = f"D={x.shape[1]} H={w1.shape[1]} M={x.shape[0]}"
+    emit({"phase": "kernel_bitwise", "name": "geglu_ffn", "shape": shape, "card": smi,
+          "reruns": 2, "out_bitwise_equal": bitwise})
+    if not bitwise:
+        raise AssertionError(f"geglu_ffn gave other bits on a rerun at {shape}")
+    # each launch's time is its total over the three calls in the window
+    emit({"phase": "kernel_launches", "name": "geglu_ffn", "shape": shape, "card": smi,
+          "calls_in_window": 3, "launches_per_call": launches,
+          **_profile(lambda: [call() for _ in range(3)], launches=3 * launches, calls=3)})
 
 
 def _token_rows_inputs(gen, G, masked, B=8, F=8, H=6, dh=64):
@@ -971,17 +1051,24 @@ def _backward_kernels(smi, gen):
     return rows
 
 
+#: (G, L, seq mask, launches a train step) of the token-row backward's rows:
+#: the conv time axis, and with no calls masked G = 96 and the long axes the
+#: kernel takes above 32 frames (three keys a lane, two warps a block)
+TOKEN_ROWS_BWD_CASES = ((1280, 8, False, 4), (96, 8, True, 0)) + tuple(
+    (96, L, masked, 0) for L in (33, 49, 64) for masked in (False, True))
+
+
 def _token_rows_bwd_rows(gen):
-    """The token-row backward kernel at the conv time axis (4 launches a
-    train step) and, masked, at G = 96, with unit-scale cotangents."""
+    """The token-row backward kernel at ``TOKEN_ROWS_BWD_CASES``, with
+    unit-scale cotangents."""
     import torch
 
     from mintime_torch.ops import token_rows as tr
 
     H, dh = 6, 64
     out = []
-    for G, masked, calls in ((1280, False, 4), (96, True, 0)):
-        qkv, qkvc, sb = _token_rows_inputs(gen, G, masked)
+    for G, F, masked, calls in TOKEN_ROWS_BWD_CASES:
+        qkv, qkvc, sb = _token_rows_inputs(gen, G, masked, F=F)
         B, _, L, c3 = qkv.shape
         # the cotangent arrives as the transposed view of the natural layout
         d_tok = torch.randn(B, L, G, H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
@@ -1002,7 +1089,8 @@ def _token_rows_bwd_rows(gen):
         lgrad = torch.randn(lout.shape, generator=gen).cuda().bfloat16()
         sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
         out.append({
-            "shape": f"time B={B} G={G} L={L} H={H} dh={dh}" + (" seq_bias" if masked else ""),
+            "shape": (f"{'' if calls or L == 8 else 'edge '}time B={B} G={G} L={L} H={H} dh={dh}"
+                      + (" seq_bias" if masked else "")),
             "calls": calls, "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
             "ms": time_ms(lambda: tr.token_rows_attention_bwd_cuda(*args, **kw)),
             "plain_ms": time_ms(lambda: tr.token_rows_attention_bwd_plain(*args, **kw)),

@@ -1,241 +1,318 @@
-// Fused GEGLU feed-forward for Hopper (sm_90a), bf16 in and out.
+// GEGLU feed-forward for Hopper (sm_90a), bf16 in and out.
 //
 // Replaces: mintime_tpu/ops/pallas_ffn.py::_fwd_kernel (reached through
 // _fwd_call and geglu_ffn). It computes
 //     h    = bf16(x @ W0^T + b0)                  (fp32 accumulation)
 //     prod = bf16(h[:, :H] * gelu_erf(h[:, H:]))   (gate math in fp32)
 //     out  = bf16(prod @ W1^T + b1)                (fp32 accumulation)
-// with W0 (2H, D) and W1 (D, H) in PyTorch's Linear layout. The model width
-// D is a template parameter, instantiated for 512 (the Size-Invariant
-// TimeSformer) and 256 (the Convolutional TimeSformer).
+// with W0 (2H, D) and W1 (D, H) in PyTorch's Linear layout, D a multiple of
+// 64 (the models use 512 and 256) and H a multiple of 64.
 //
-// Bound on an H100: tensor-core operations. At M = 6272 rows, D = 512,
-// H = 2048 one call is 2*M*(D*2H + H*D) = 39.5 GFLOP, about 40 us at
-// 989 TFLOP/s; its bytes (x, out, W0, W1 once) are about 19 MB, about 6 us
-// at 3.35 TB/s. At M = 81920, D = 256, H = 1024 it is 129 GFLOP, 0.13 ms.
+// Bound on an H100: tensor-core operations at the token rows. At M = 6272,
+// D = 512, H = 2048 one call is 2*M*(D*2H + H*D) = 39.5 GFLOP, about 40 us
+// at 989 TFLOP/s; at M = 81920, D = 256, H = 1024 it is 129 GFLOP, 0.13 ms.
+// At the CLS rows (M = 8) it is bytes: W0 and W1 once (6.3 MB at D = 512,
+// 1.9 us at 3.35 TB/s).
 //
-// Design: one block of 8 warps per 32-row tile keeps the whole (32, D)
-// fp32 output in WMMA accumulator fragments (D / 8 registers a thread). It walks
-// the hidden width in chunks of 64: the val and gate columns of a chunk come
-// from the x tile held in shared memory, the bias, bf16 rounding and exact
-// GELU run in fp32 in shared memory, and the bf16 product feeds the
-// down-projection straight into the accumulators. The (M, 2H) intermediate
-// never reaches device memory, which is what the TPU kernel bought too. The
-// ragged last tile is masked (zero rows in, no rows out) instead of padded.
-// When the row tiles are too few to fill the card (the CLS rows: M = batch),
-// the grid's second axis splits the hidden width: each block writes its fp32
-// partial sum to a scratch buffer and a second launch adds the partials, the
-// bias and rounds, so a call of 8 rows uses 32 SMs instead of one.
-// The weight fragments are read from L2 by every block; making the operand
-// loads asynchronous (TMA, wgmma) is the work of a later change.
+// Design: two launches on csrc/gemm_wgmma.cuh's warpgroup products (a
+// TMA ring of 128-byte-swizzled tiles, one producer warp and two
+// consumer warpgroups, a block's tile 128 rows), plus an ordered reduce when
+// the output tiles are too few for the card:
+//   A. geglu_ffn_up_kernel: a block owns a row tile and `up` hidden columns; its B
+//      tile is W0's rows [h0, h0 + up) (val) and [H + h0, H + h0 + up)
+//      (gate), one 3-D box of W0 seen as (2, H, D), so val column c and
+//      gate column c sit in the same tile. The epilogue adds b0, rounds to
+//      bf16, runs the exact GELU gate in fp32 and writes prod (M, H) in bf16
+//      with 16-byte stores.
+//   B. geglu_ffn_down_kernel: out = prod W1^T + b1 in tiles of `down` output
+//      columns; with S > 1 slices of k = H each block writes fp32 partials,
+//   C. geglu_ffn_down_reduce_kernel: which are summed in slice order with b1
+//      (no atomics: reruns give the same bits).
+// ops/geglu_ffn.py::fwd_plan picks `up`, `down` and the slices so that each
+// launch has at least a block per SM: wide tiles (64 hidden columns, 128
+// output columns) at the token rows, narrow ones and split slices at a few
+// rows. The TPU kernel fused the two products so that the (M, 2H)
+// intermediate stayed in VMEM; here prod makes one round trip through device
+// memory: 25.7 MB at D = 512, M = 6272 (about 15 us at 3.35 TB/s, and it
+// fits the 50 MB L2), 168 MB at D = 256, M = 81920 (about 0.1 ms). Keeping
+// it on chip needs a (128-row, D) fp32 accumulator a block, later work.
+// Rows past M are read as zeros by the copies and never written.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
+#include <stdint.h>
 
-using namespace nvcuda;
+#include <type_traits>
+
+#include "gemm_wgmma.cuh"
+
 typedef __nv_bfloat16 bf16;
+using gemm_wgmma::BK;
+using gemm_wgmma::BM;
+using gemm_wgmma::THREADS;
 
 namespace {
 
-constexpr int BM = 32;         // rows per block
-constexpr int HC = 64;         // hidden columns per chunk (val and gate each)
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int RT = BM / 16;            // row tiles per block
-constexpr int HS_LD = 2 * HC + 4;      // fp32
-constexpr int PS_LD = HC + 8;          // bf16
-constexpr size_t HS_BYTES = size_t(BM) * HS_LD * 4;
-constexpr size_t PS_BYTES = size_t(BM) * PS_LD * 2;
-constexpr size_t ST_BYTES = size_t(WARPS) * 256 * 4;
+constexpr int PRODUCER = gemm_wgmma::CONSUMERS * 128;  // first thread of the producer warp
 
-static_assert(2 * HC / 16 == WARPS, "one up-projection column tile per warp");
-
-// the constants that follow the model width D
-template <int D>
-struct Width {
-  static_assert(D % (16 * WARPS) == 0, "whole output column tiles for every warp");
-  static constexpr int OT = D / 16 / WARPS;  // output column tiles per warp
-  static constexpr int XS_LD = D + 8;        // bf16, padded against bank conflicts
-  static constexpr size_t XS_BYTES = size_t(BM) * XS_LD * 2;
-  static constexpr size_t SMEM_BYTES = XS_BYTES + HS_BYTES + PS_BYTES + ST_BYTES;
+// stages of the ring by tile width: two blocks an SM either way
+template <int N>
+struct Tile {
+  static constexpr int STAGES = N >= 128 ? 3 : 6;
+  using Ring = gemm_wgmma::Ring<N, STAGES>;
+  static constexpr int LD = N + 8;  // fp32 row of the staged accumulators
+  static_assert(size_t(BM) * LD * 4 <= size_t(STAGES) * Ring::STAGE_BYTES,
+                "the staged tile fits in the ring");
 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-geglu_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-                 const bf16* __restrict__ b0, const bf16* __restrict__ w1,
-                 const bf16* __restrict__ b1, bf16* __restrict__ out,
-                 float* __restrict__ partial, int M, int hidden) {
-  constexpr int OT = Width<D>::OT;
-  constexpr int XS_LD = Width<D>::XS_LD;
-  constexpr size_t XS_BYTES = Width<D>::XS_BYTES;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  float* hs = reinterpret_cast<float*>(smem + XS_BYTES);
-  bf16* ps = reinterpret_cast<bf16*>(smem + XS_BYTES + HS_BYTES);
-  float* stage = reinterpret_cast<float*>(smem + XS_BYTES + HS_BYTES + PS_BYTES);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = blockIdx.x * BM;
-  // this block's share of the hidden width, in whole chunks
-  const int chunks = hidden / HC;
-  const int h_begin = int(blockIdx.y) * chunks / int(gridDim.y) * HC;
-  const int h_end = (int(blockIdx.y) + 1) * chunks / int(gridDim.y) * HC;
-
-  // x tile into shared memory, 16 bytes a thread; rows past M are zero
-  for (int i = tid; i < BM * (D / 8); i += THREADS) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < M) v = *reinterpret_cast<const uint4*>(x + size_t(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(xs + r * XS_LD + c) = v;
+// V = 4 or 8 consecutive bf16 at p (8 V-byte aligned) as floats, in one load
+template <int V>
+__device__ __forceinline__ void load_bf16(float (&f)[V], const bf16* p) {
+  using Vec = typename std::conditional<V == 8, uint4, uint2>::type;
+  const Vec u = *reinterpret_cast<const Vec*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
   }
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT][OT];
+// Every consumer writes its accumulators into the fp32 tile st [BM][LD],
+// which overlays the ring: first every warpgroup's products must be done.
+template <int N>
+__device__ __forceinline__ void stage_acc(float* st, const float (&acc)[N / 2]) {
+  gemm_wgmma::consumers_sync();
 #pragma unroll
-  for (int rt = 0; rt < RT; ++rt)
-#pragma unroll
-    for (int t = 0; t < OT; ++t) wmma::fill_fragment(acc[rt][t], 0.0f);
-  __syncthreads();
+  for (int i = 0; i < N / 2; i += 2)
+    *reinterpret_cast<float2*>(st + gemm_wgmma::acc_row(i) * Tile<N>::LD + gemm_wgmma::acc_col(i)) =
+        make_float2(acc[i], acc[i + 1]);
+  gemm_wgmma::consumers_sync();
+}
 
-  for (int h0 = h_begin; h0 < h_end; h0 += HC) {
-    // up-projection: warp w owns column tile w of [val chunk | gate chunk]
-    {
-      const int n0 = warp < WARPS / 2 ? h0 + warp * 16 : hidden + h0 + (warp - WARPS / 2) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[RT];
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(hacc[rt], 0.0f);
-      for (int k = 0; k < D; k += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfrag;
-        wmma::load_matrix_sync(bfrag, w0 + size_t(n0) * D + k, D);
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afrag;
-          wmma::load_matrix_sync(afrag, xs + rt * 16 * XS_LD + k, XS_LD);
-          wmma::mma_sync(hacc[rt], afrag, bfrag, hacc[rt]);
-        }
-      }
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt)
-        wmma::store_matrix_sync(hs + rt * 16 * HS_LD + warp * 16, hacc[rt], HS_LD,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
+// Launch A. Grid (H / (N / 2), ceil(M / 128)).
+template <int N>
+__global__ void __launch_bounds__(THREADS, 2)
+geglu_ffn_up_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap w0_map, const bf16* __restrict__ b0,
+                    bf16* __restrict__ prod, int M, int D, int hidden) {
+  constexpr int UP = N / 2;  // hidden columns of the block, val and gate each
+  extern __shared__ uint8_t smem[];
+  __shared__ uint64_t full[Tile<N>::STAGES], empty[Tile<N>::STAGES];
+  typename Tile<N>::Ring ring;
+  ring.init(smem, full, empty);
+  const int h0 = blockIdx.x * UP;
+  const int row0 = blockIdx.y * BM;
+  const int nk = D / BK;
 
-    // bias, bf16 rounding, exact GELU gate, bf16 product
-    for (int i = tid; i < BM * HC; i += THREADS) {
-      const int r = i / HC;
-      const int c = i % HC;
-      const float val = bf16_round(hs[r * HS_LD + c] + __bfloat162float(b0[h0 + c]));
-      const float gate =
-          bf16_round(hs[r * HS_LD + HC + c] + __bfloat162float(b0[hidden + h0 + c]));
-      const float g = 0.5f * gate * (1.0f + erff(gate * 0.70710678118654752f));
-      ps[r * PS_LD + c] = __float2bfloat16(val * g);
-    }
-    __syncthreads();
-
-    // down-projection of the chunk into the (BM, D) accumulators
-#pragma unroll
-    for (int kk = 0; kk < HC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afrag[RT];
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt)
-        wmma::load_matrix_sync(afrag[rt], ps + rt * 16 * PS_LD + kk, PS_LD);
-#pragma unroll
-      for (int t = 0; t < OT; ++t) {
-        const int n0 = (warp * OT + t) * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfrag;
-        wmma::load_matrix_sync(bfrag, w1 + size_t(n0) * hidden + h0 + kk, hidden);
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) wmma::mma_sync(acc[rt][t], afrag[rt], bfrag, acc[rt][t]);
-      }
-    }
-    // no barrier needed here: the next chunk rewrites hs (last read before
-    // the barrier above) and writes ps only after its own first barrier
+  if (threadIdx.x >= PRODUCER) {
+    const CUtensorMap* xm = &x_map;
+    const CUtensorMap* wm = &w0_map;
+    if (threadIdx.x == PRODUCER)
+      ring.produce(nk, [&](int s, int kt) {
+        gemm_wgmma::tma_load_2d(ring.a(s), xm, kt * BK, row0, &ring.full[s]);
+        gemm_wgmma::tma_load_3d(ring.b(s), wm, kt * BK, h0, 0, &ring.full[s]);
+      });
+    return;
   }
+  float acc[N / 2];
+  ring.consume(nk, row0 + (threadIdx.x / 128) * 64 < M, acc);
+  float* st = reinterpret_cast<float*>(ring.base);
+  stage_acc<N>(st, acc);
 
-  // epilogue: + b1, bf16, masked store of the valid rows; with a split
-  // hidden width, the fp32 partial sum of the valid rows instead
-  float* st = stage + warp * 256;
-  float* part = partial == nullptr ? nullptr : partial + size_t(blockIdx.y) * M * D;
+  // bias, bf16 rounding, exact GELU gate, bf16 product: V columns of a row
+  // a thread, always the same columns, so their biases load once
+  constexpr int V = UP < 8 ? UP : 8;
+  constexpr int GROUPS = UP / V;
+  static_assert(PRODUCER % GROUPS == 0, "a thread keeps its columns from row to row");
+  constexpr int LD = Tile<N>::LD;
+  const int c = (threadIdx.x % GROUPS) * V;
+  float bv[V], bg[V];
+  load_bf16<V>(bv, b0 + h0 + c);
+  load_bf16<V>(bg, b0 + hidden + h0 + c);
+  for (int r = threadIdx.x / GROUPS; r < BM && row0 + r < M; r += PRODUCER / GROUPS) {
+    float hv[2 * V];  // val columns c .. c + V - 1, then their gate columns
 #pragma unroll
-  for (int rt = 0; rt < RT; ++rt) {
+    for (int j = 0; j < V; j += 4) {
+      *reinterpret_cast<float4*>(hv + j) = *reinterpret_cast<const float4*>(st + r * LD + c + j);
+      *reinterpret_cast<float4*>(hv + V + j) =
+          *reinterpret_cast<const float4*>(st + r * LD + UP + c + j);
+    }
+    __align__(16) bf16 p[V];
 #pragma unroll
-    for (int t = 0; t < OT; ++t) {
-      wmma::store_matrix_sync(st, acc[rt][t], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int n0 = (warp * OT + t) * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e / 16;
-        const int c = e % 16;
-        const int row = row0 + rt * 16 + r;
-        if (row >= M) continue;
-        if (part != nullptr)
-          part[size_t(row) * D + n0 + c] = st[e];
-        else
-          out[size_t(row) * D + n0 + c] = __float2bfloat16(st[e] + __bfloat162float(b1[n0 + c]));
-      }
-      __syncwarp();
+    for (int j = 0; j < V; ++j) {
+      const float val = bf16_round(hv[j] + bv[j]);
+      const float gate = bf16_round(hv[V + j] + bg[j]);
+      p[j] = __float2bfloat16(val * (0.5f * gate * (1.0f + erff(gate * 0.70710678118654752f))));
+    }
+    bf16* dst = prod + size_t(row0 + r) * hidden + h0 + c;
+    if constexpr (V == 8)
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(p);
+    else
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(p);
+  }
+}
+
+// Launch B. Grid (D / N, ceil(M / 128), S); slice z covers k = H in
+// [z * kchunk, min(H, (z + 1) * kchunk)). With S = 1 it writes out (bf16,
+// + b1), else its fp32 partial to part + z * M * D.
+template <int N>
+__global__ void __launch_bounds__(THREADS, 2)
+geglu_ffn_down_kernel(const __grid_constant__ CUtensorMap prod_map,
+                const __grid_constant__ CUtensorMap w1_map, const bf16* __restrict__ b1,
+                bf16* __restrict__ out, float* __restrict__ part, int M, int D, int hidden,
+                int kchunk) {
+  extern __shared__ uint8_t smem[];
+  __shared__ uint64_t full[Tile<N>::STAGES], empty[Tile<N>::STAGES];
+  typename Tile<N>::Ring ring;
+  ring.init(smem, full, empty);
+  const int n0 = blockIdx.x * N;
+  const int row0 = blockIdx.y * BM;
+  const int kb = blockIdx.z * kchunk;
+  const int nk = (min(hidden, kb + kchunk) - kb) / BK;
+
+  if (threadIdx.x >= PRODUCER) {
+    const CUtensorMap* pm = &prod_map;
+    const CUtensorMap* wm = &w1_map;
+    if (threadIdx.x == PRODUCER)
+      ring.produce(nk, [&](int s, int kt) {
+        gemm_wgmma::tma_load_2d(ring.a(s), pm, kb + kt * BK, row0, &ring.full[s]);
+        gemm_wgmma::tma_load_2d(ring.b(s), wm, kb + kt * BK, n0, &ring.full[s]);
+      });
+    return;
+  }
+  float acc[N / 2];
+  ring.consume(nk, row0 + (threadIdx.x / 128) * 64 < M, acc);
+  float* st = reinterpret_cast<float*>(ring.base);
+  stage_acc<N>(st, acc);
+
+  // 8 columns of a row a thread, always the same columns: 16 bytes of bf16
+  // out, or 32 of fp32 partials
+  constexpr int GROUPS = N / 8;
+  static_assert(PRODUCER % GROUPS == 0, "a thread keeps its columns from row to row");
+  constexpr int LD = Tile<N>::LD;
+  float* dst_part = gridDim.z > 1 ? part + size_t(blockIdx.z) * M * D : nullptr;
+  const int c = (threadIdx.x % GROUPS) * 8;
+  float bias[8];
+  load_bf16<8>(bias, b1 + n0 + c);
+  for (int r = threadIdx.x / GROUPS; r < BM && row0 + r < M; r += PRODUCER / GROUPS) {
+    const float4 lo = *reinterpret_cast<const float4*>(st + r * LD + c);
+    const float4 hi = *reinterpret_cast<const float4*>(st + r * LD + c + 4);
+    const size_t at = size_t(row0 + r) * D + n0 + c;
+    if (dst_part != nullptr) {
+      *reinterpret_cast<float4*>(dst_part + at) = lo;
+      *reinterpret_cast<float4*>(dst_part + at + 4) = hi;
+    } else {
+      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      __align__(16) bf16 o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(v[j] + bias[j]);
+      *reinterpret_cast<uint4*>(out + at) = *reinterpret_cast<const uint4*>(o);
     }
   }
 }
 
-// out = bf16(sum over the splits of partial + b1), one thread an element
-__global__ void geglu_split_reduce_kernel(const float* __restrict__ partial,
-                                          const bf16* __restrict__ b1, bf16* __restrict__ out,
-                                          int M, int D, int splits) {
+// out = bf16(b1 + the S partials summed in slice order), one thread an element
+__global__ void __launch_bounds__(256)
+geglu_ffn_down_reduce_kernel(const float* __restrict__ part, const bf16* __restrict__ b1,
+                       bf16* __restrict__ out, int M, int D, int slices) {
   const size_t n = size_t(M) * D;
   for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += size_t(gridDim.x) * blockDim.x) {
     float a = 0.0f;
-    for (int s = 0; s < splits; ++s) a += partial[s * n + i];
+    for (int s = 0; s < slices; ++s) a += part[s * n + i];
     out[i] = __float2bfloat16(a + __bfloat162float(b1[i % D]));
   }
 }
 
-template <int D>
-int launch(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
-           void* out, void* partial, int M, int hidden, int splits, cudaStream_t s) {
-  constexpr size_t smem = Width<D>::SMEM_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      geglu_ffn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+template <class Kernel>
+cudaError_t allow_smem(Kernel k, size_t bytes) {
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
+
+template <int N>
+int launch_up(const CUtensorMap& xm, const CUtensorMap& wm, const bf16* b0, bf16* prod, int M,
+              int D, int hidden, cudaStream_t s) {
+  constexpr size_t smem = Tile<N>::Ring::SMEM_BYTES;
+  cudaError_t err = allow_smem(geglu_ffn_up_kernel<N>, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((M + BM - 1) / BM, splits);
-  geglu_ffn_kernel<D><<<grid, THREADS, smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w0), static_cast<const bf16*>(b0),
-      static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), static_cast<bf16*>(out),
-      static_cast<float*>(partial), M, hidden);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return int(err);
-  const int threads = 256;
-  const size_t wanted = (size_t(M) * D + threads - 1) / threads;
-  const int blocks = wanted < 1024 ? int(wanted) : 1024;
-  geglu_split_reduce_kernel<<<blocks, threads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<const bf16*>(b1), static_cast<bf16*>(out),
-      M, D, splits);
+  geglu_ffn_up_kernel<N><<<dim3(hidden / (N / 2), (M + BM - 1) / BM), THREADS, smem, s>>>(
+      xm, wm, b0, prod, M, D, hidden);
+  return int(cudaGetLastError());
+}
+
+template <int N>
+int launch_down(const CUtensorMap& pm, const CUtensorMap& wm, const bf16* b1, bf16* out,
+                float* part, int M, int D, int hidden, int slices, int kchunk, cudaStream_t s) {
+  constexpr size_t smem = Tile<N>::Ring::SMEM_BYTES;
+  cudaError_t err = allow_smem(geglu_ffn_down_kernel<N>, smem);
+  if (err != cudaSuccess) return int(err);
+  geglu_ffn_down_kernel<N><<<dim3(D / N, (M + BM - 1) / BM, slices), THREADS, smem, s>>>(
+      pm, wm, b1, out, part, M, D, hidden, kchunk);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// dim: the model width, 512 or 256. splits: how many blocks share the hidden
-// width of a row tile; with splits > 1, partial is fp32 scratch of
-// splits * M * dim elements.
+// The plan of ops/geglu_ffn.py::fwd_plan: `up` hidden columns a launch-A
+// block (64, 8 or 4), `down` output columns a launch-B block (128 or 16),
+// `slices` of k = H of `kchunk` each (a multiple of 64). Scratch from the
+// caller: prod (M, H) bf16 and, with slices > 1, partial (slices, M, D) fp32.
+// Every pointer 16-byte aligned. Returns a cudaError_t; cudaErrorNotSupported
+// if libcuda cannot describe the operands to TMA.
 extern "C" int geglu_ffn_fwd(const void* x, const void* w0, const void* b0, const void* w1,
-                             const void* b1, void* out, void* partial, int M, int dim,
-                             int hidden, int splits, void* stream) {
-  if (hidden <= 0 || hidden % HC != 0 || M <= 0 || splits < 1 || splits > hidden / HC ||
-      (splits > 1) != (partial != nullptr))
+                             const void* b1, void* out, void* prod, void* partial, int M,
+                             int dim, int hidden, int up, int down, int slices, int kchunk,
+                             void* stream) {
+  if (M <= 0 || dim <= 0 || dim % BK != 0 || hidden <= 0 || hidden % BK != 0 ||
+      (up != 64 && up != 8 && up != 4) || (down != 128 && down != 16) || dim % down != 0 ||
+      slices < 1 || kchunk <= 0 || kchunk % BK != 0 ||
+      size_t(slices - 1) * kchunk >= size_t(hidden) || size_t(slices) * kchunk < size_t(hidden) ||
+      (slices > 1) != (partial != nullptr) || prod == nullptr)
     return int(cudaErrorInvalidValue);
+  using gemm_wgmma::bf16_map;
+  // x (M, D) and prod (M, H) in boxes of 128 rows x 64 k; W0 seen as (2, H,
+  // D) in boxes of 2 x up rows x 64 k (val rows, then gate rows); W1 (D, H)
+  // in boxes of `down` rows x 64 k
+  CUtensorMap xm, w0m, pm, w1m;
+  const cuuint64_t x_dims[2] = {cuuint64_t(dim), cuuint64_t(M)};
+  const cuuint64_t x_strides[1] = {cuuint64_t(dim) * 2};
+  const cuuint32_t rows_box[2] = {BK, BM};
+  const cuuint64_t w0_dims[3] = {cuuint64_t(dim), cuuint64_t(hidden), 2};
+  const cuuint64_t w0_strides[2] = {cuuint64_t(dim) * 2, cuuint64_t(hidden) * dim * 2};
+  const cuuint32_t w0_box[3] = {BK, cuuint32_t(up), 2};
+  const cuuint64_t p_dims[2] = {cuuint64_t(hidden), cuuint64_t(M)};
+  const cuuint64_t h_strides[1] = {cuuint64_t(hidden) * 2};
+  const cuuint64_t w1_dims[2] = {cuuint64_t(hidden), cuuint64_t(dim)};
+  const cuuint32_t w1_box[2] = {BK, cuuint32_t(down)};
+  if (!bf16_map(&xm, x, 2, x_dims, x_strides, rows_box) ||
+      !bf16_map(&w0m, w0, 3, w0_dims, w0_strides, w0_box) ||
+      !bf16_map(&pm, prod, 2, p_dims, h_strides, rows_box) ||
+      !bf16_map(&w1m, w1, 2, w1_dims, h_strides, w1_box))
+    return int(cudaErrorNotSupported);
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dim == 512) return launch<512>(x, w0, b0, w1, b1, out, partial, M, hidden, splits, s);
-  if (dim == 256) return launch<256>(x, w0, b0, w1, b1, out, partial, M, hidden, splits, s);
-  return int(cudaErrorInvalidValue);
+  const bf16* b0b = static_cast<const bf16*>(b0);
+  const bf16* b1b = static_cast<const bf16*>(b1);
+  bf16* prodb = static_cast<bf16*>(prod);
+  bf16* outb = static_cast<bf16*>(out);
+  float* part = static_cast<float*>(partial);
+  int err = up == 64  ? launch_up<128>(xm, w0m, b0b, prodb, M, dim, hidden, s)
+            : up == 8 ? launch_up<16>(xm, w0m, b0b, prodb, M, dim, hidden, s)
+                      : launch_up<8>(xm, w0m, b0b, prodb, M, dim, hidden, s);
+  if (err != 0) return err;
+  err = down == 128 ? launch_down<128>(pm, w1m, b1b, outb, part, M, dim, hidden, slices, kchunk, s)
+                    : launch_down<16>(pm, w1m, b1b, outb, part, M, dim, hidden, slices, kchunk, s);
+  if (err != 0 || slices == 1) return err;
+  const size_t wanted = (size_t(M) * dim + 255) / 256;
+  geglu_ffn_down_reduce_kernel<<<unsigned(wanted < 1024 ? wanted : 1024), 256, 0, s>>>(
+      part, b1b, outb, M, dim, slices);
+  return int(cudaGetLastError());
 }

@@ -25,11 +25,13 @@
 // Design. The TPU kernel carried dk_cls and dv_cls in one output block across
 // its sequential grid. GPU blocks run in parallel, so two launches in order,
 // each owning its outputs (deterministic, no atomics):
-//   1. token_rows_bwd_kernel: a warp per (b, g, h), four warps a block, h
-//      fastest. The warp stages q~, dO, K and V of its group (CLS as row 0)
-//      in its own shared memory as fp32, recomputes each row's softmax with
-//      lane t on key t, keeps P and dS in shared memory, then each lane owns
-//      two dimensions of dq, dK and dV. It writes the group's partial dk_cls
+//   1. token_rows_bwd_kernel: a warp per (b, g, h), h fastest; four warps a
+//      block up to L = 32, two above (a warp's fp32 tiles take ~100 KB at
+//      L = 64, so two fit the 227 KB a block may hold). The warp stages q~,
+//      dO, K and V of its group (CLS as row 0) in its own shared memory as
+//      fp32, recomputes each row's softmax with lane t on keys t, t + 32
+//      and t + 64 of the CLS + L keys, keeps P and dS in shared memory, then
+//      each lane owns two dimensions of dq, dK and dV. It writes the group's partial dk_cls
 //      and dv_cls to fp32 scratch (B, G, H, 2, dh): 31 MB at the shapes above.
 //   2. token_rows_cls_reduce_kernel, per (b, h): eight slices of the groups
 //      summed in order each, then the eight partial sums in order; writes
@@ -46,9 +48,9 @@ typedef long long i64;
 namespace {
 
 constexpr int DH = 64;          // head width: two dimensions a lane
-constexpr int MAXL = 32;        // longest attended sequence (the frame counts 8, 16, 32)
-constexpr int MAXT = (MAXL + 1 + 31) / 32;  // keys per lane (CLS + L)
-constexpr int WARPS = 4;
+constexpr int MAXL = 64;        // longest attended sequence, as the forward's
+constexpr int SHORT_L = 32;     // up to here two keys a lane and four warps a block, above
+                                // three keys a lane and two warps
 constexpr int KLD = DH + 1;     // padded fp32 rows: lane t reads row t conflict-free
 constexpr int SLICES = 8;       // group slices of the CLS reduction
 
@@ -79,6 +81,8 @@ int warp_floats(int L) {
   return 2 * L * KLD + 2 * T * KLD + 2 * L * T;
 }
 
+// LMAX: the longest L the instance takes; WARPS: warps a block
+template <int LMAX, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
 token_rows_bwd_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
                       const bf16* __restrict__ qkvc, i64 scb,
@@ -86,6 +90,7 @@ token_rows_bwd_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
                       i64 dg, i64 dl, bf16* __restrict__ dqkv, i64 ob, i64 og, i64 ol,
                       float* __restrict__ kv_part, int B, int G, int L, int H, int wfloats,
                       float scale) {
+  constexpr int MAXT = (LMAX + 1 + 31) / 32;  // keys a lane (CLS + L)
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -244,6 +249,24 @@ token_rows_cls_reduce_kernel(const float* __restrict__ kv_part, bf16* __restrict
   }
 }
 
+template <int LMAX, int WARPS>
+int launch_rows(const void* qkv, i64 sb, i64 sg, i64 sl, const void* qkvc, i64 scb,
+                const void* seq_bias, const void* dtok, i64 db, i64 dg, i64 dl, void* dqkv,
+                i64 ob, i64 og, i64 ol, float* part, int B, int G, int L, int H, cudaStream_t s) {
+  const i64 blocks = (i64(B) * G * H + WARPS - 1) / WARPS;
+  if (blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
+  const int wfloats = warp_floats(L);
+  const size_t smem = size_t(WARPS) * wfloats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(token_rows_bwd_kernel<LMAX, WARPS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  token_rows_bwd_kernel<LMAX, WARPS><<<unsigned(blocks), WARPS * 32, smem, s>>>(
+      static_cast<const bf16*>(qkv), sb, sg, sl, static_cast<const bf16*>(qkvc), scb,
+      static_cast<const float*>(seq_bias), static_cast<const bf16*>(dtok), db, dg, dl,
+      static_cast<bf16*>(dqkv), ob, og, ol, part, B, G, L, H, wfloats, 1.0f / sqrtf(float(DH)));
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Strides are in elements; every pointer 4-byte aligned and every stride even
@@ -257,21 +280,14 @@ extern "C" int token_rows_attention_bwd(const void* qkv, i64 sb, i64 sg, i64 sl,
                                         void* stream) {
   if (dh != DH || L < 1 || L > MAXL || G < 1 || B < 1 || H < 1 || H > 65535 || B > 65535)
     return int(cudaErrorInvalidValue);
-  const i64 blocks = (i64(B) * G * H + WARPS - 1) / WARPS;
-  if (blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
-  const int wfloats = warp_floats(L);
-  const size_t smem = size_t(WARPS) * wfloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(token_rows_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const float scale = 1.0f / sqrtf(float(DH));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(kv_part);
-  token_rows_bwd_kernel<<<unsigned(blocks), WARPS * 32, smem, s>>>(
-      static_cast<const bf16*>(qkv), sb, sg, sl, static_cast<const bf16*>(qkvc), scb,
-      static_cast<const float*>(seq_bias), static_cast<const bf16*>(dtok), db, dg, dl,
-      static_cast<bf16*>(dqkv), ob, og, ol, part, B, G, L, H, wfloats, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  const int err =
+      L <= SHORT_L ? launch_rows<SHORT_L, 4>(qkv, sb, sg, sl, qkvc, scb, seq_bias, dtok, db, dg,
+                                             dl, dqkv, ob, og, ol, part, B, G, L, H, s)
+                   : launch_rows<MAXL, 2>(qkv, sb, sg, sl, qkvc, scb, seq_bias, dtok, db, dg, dl,
+                                          dqkv, ob, og, ol, part, B, G, L, H, s);
+  if (err != 0) return err;
   token_rows_cls_reduce_kernel<<<dim3(H, B), SLICES * 2 * DH, 0, s>>>(
       part, static_cast<bf16*>(dqkvc), ocb, G, H);
   return int(cudaGetLastError());

@@ -1,5 +1,6 @@
-"""The GEGLU FFN backward, the depthwise forward and the divided-attention
-backward of this tree against another checkout's, in turns, on one card.
+"""The GEGLU FFN forward and backward, the depthwise forward and the
+divided-attention backward of this tree against another checkout's, in
+turns, on one card.
 
 Each tree is measured by a process of its own (its ``mintime_torch`` on
 ``PYTHONPATH``, its kernels built into its own ``mintime_torch/.build/``), in
@@ -11,6 +12,13 @@ and attention backward rows, profiler and timers, and the depthwise probe's
 
 For each tree:
 
+  geglu_ffn      at ``chip_smoke.FFN_SHAPES`` (the flagship's token rows
+                 D=512 M=6272 and CLS rows M=8, the conv model's D=256
+                 M=81920 and M=8): ``chip_smoke._ffn_fwd_row`` (the output
+                 against the plain version, device and host ms, PyTorch's
+                 three calls by device ms), two reruns bitwise equal or not,
+                 and three calls' CUDA launches by name under
+                 ``torch.profiler``;
   geglu_ffn_bwd  at ``chip_smoke.FFN_SHAPES`` (widths 512 and 256, the token
                  and CLS rows of a batch of 8): ``chip_smoke._ffn_bwd_row``
                  (each gradient against the plain version, device and host
@@ -56,7 +64,7 @@ def _chip_smoke():
     return mod
 
 
-KERNELS = ("geglu_ffn_bwd", "dw_conv", "divided_attention_bwd")
+KERNELS = ("geglu_ffn", "geglu_ffn_bwd", "dw_conv", "divided_attention_bwd")
 
 
 def _launches(cs, call) -> list:
@@ -69,6 +77,8 @@ def _bitwise(call) -> bool:
     import torch
 
     first = call()
+    if isinstance(first, torch.Tensor):
+        return all(torch.equal(call(), first) for _ in range(2))
     return all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
 
 
@@ -88,6 +98,17 @@ def measure(label: str, kernels) -> None:
     out = lambda row: print(TAG + json.dumps({"tree": label, "card": smi, **row}), flush=True)  # noqa: E731
     gen = torch.Generator().manual_seed(0)
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    for dim, hidden, shapes in cs.FFN_SHAPES if "geglu_ffn" in kernels else ():
+        w0, b0, w1, b1 = cs._ffn_weights(r, dim, hidden)
+        for m, calls, _ in shapes:
+            args = (r(m, dim), w0, b0, w1, b1)
+            # the other tree's forward may launch another number of kernels a call
+            row = cs._ffn_fwd_row(args, calls)
+            call = lambda: ffn.geglu_ffn_cuda(*args)  # noqa: E731
+            out({"kernel": "geglu_ffn", **row, "bitwise_reruns": _bitwise(call),
+                 "within": row["max_abs_err"] <= cs.TOL, "launches_3_calls": _launches(cs, call)})
+            del args
+        torch.cuda.empty_cache()
     for dim, hidden, shapes in cs.FFN_SHAPES if "geglu_ffn_bwd" in kernels else ():
         w0, b0, w1, _ = cs._ffn_weights(r, dim, hidden)
         for m, _, calls in shapes:
@@ -160,6 +181,8 @@ def main() -> None:
         print(f"turn {r['turn']} {r['tree']:5s} {r['kernel']:21s} {r['shape']:34s} ms {r['ms']:.4f}"
               + (f" host_ms {r['host_ms']:.4f}" if "host_ms" in r else "")
               + (f" library_ms {r['library_ms']:.4f}" if r.get("library_ms") else "")
+              + (f" cublas_products_ms {r['cublas_products_ms']:.4f}"
+                 if "cublas_products_ms" in r else "")
               + ("" if r["within"] else " OFF")
               + (" NOT-BITWISE" if r.get("bitwise_reruns") is False else ""))
         if "launches_3_calls" in r:

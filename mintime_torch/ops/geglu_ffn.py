@@ -25,14 +25,18 @@ from torch.autograd.function import once_differentiable
 
 from mintime_torch.ops import _build
 
-#: forward kernel launches since the last reset (one per :func:`geglu_ffn_cuda` call)
+#: forward kernel launches since the last reset (one per :func:`geglu_ffn_cuda` call,
+#: whatever number of CUDA launches its plan runs)
 launches = 0
 #: backward kernel launches since the last reset (one per :func:`geglu_ffn_bwd_cuda` call)
 bwd_launches = 0
 
 _KERNEL_DIMS = (256, 512)  # the model widths the kernels are instantiated for
 _KERNEL_CHUNK = 64
-_KERNEL_ROWS = 32  # rows per block of the forward kernel
+_FWD_ROWS = 128  # rows of a forward block's tile, both launches: two warpgroups of 64
+_FWD_K = 64  # k depth of a forward ring stage; split slices are whole stages
+_UP_COLS = (64, 8, 4)  # hidden columns (val and gate each) of a launch-A block, widest first
+_DOWN_COLS = (128, 16)  # output columns of a launch-B block, widest first
 _BWD_ROWS = 128  # rows per block of the backward's dh kernel (its column-sum tiles)
 _TILE = 128  # output tile of the backward's products, rows and columns
 _TILE_K = 32  # k depth of a product's stage; split slices are whole stages
@@ -77,14 +81,28 @@ def geglu_ffn_bwd_plain(x, w0, b0, w1, dout):
     return dx, dh.T @ x2, dh.sum(0), d2.T @ prod, d2.sum(0)
 
 
-def split_count(m: int, hidden: int, sms: int) -> int:
-    """How many blocks share the hidden width of one row tile: 1 while the
-    row tiles alone give every SM a block, else enough to give each SM about
-    two, at most one per hidden chunk."""
-    tiles = -(-m // _KERNEL_ROWS)
-    if tiles >= sms:
-        return 1
-    return min(hidden // _KERNEL_CHUNK, -(-2 * sms // tiles))
+def fwd_plan(m: int, dim: int, hidden: int, sms: int) -> dict:
+    """How the forward's launches tile an (m, dim) input with hidden width
+    ``hidden`` on a card of ``sms`` SMs. Both launches take row tiles of
+    ``rows``. Launch A (x W0^T, then the gate) gives a block ``up`` hidden
+    columns, val and gate each; launch B (prod W1^T) gives a block ``down``
+    output columns and splits k = hidden into ``slices`` of ``k_chunk`` (the
+    last one shorter), whose fp32 partials an ordered reduce adds. Each takes
+    its widest tile whose blocks still give every SM one, else its narrowest;
+    launch B then splits k until it has a block an SM, where the stages
+    allow. ``prod`` and ``partial`` are the scratch the wrapper allocates, in
+    elements (bf16 and fp32); ``launches`` the kernels a call runs."""
+    tiles = -(-m // _FWD_ROWS)
+    up = next((c for c in _UP_COLS if tiles * (hidden // c) >= sms), _UP_COLS[-1])
+    down = next((c for c in _DOWN_COLS if tiles * (dim // c) >= sms), _DOWN_COLS[-1])
+    out_tiles = tiles * (dim // down)
+    stages = hidden // _FWD_K
+    per_slice = stages if out_tiles >= sms else max(1, stages // -(-sms // out_tiles))
+    slices = -(-stages // per_slice)
+    return {"rows": _FWD_ROWS, "up": up, "up_blocks": tiles * (hidden // up), "down": down,
+            "slices": slices, "k_chunk": per_slice * _FWD_K, "down_blocks": out_tiles * slices,
+            "prod": m * hidden, "partial": slices * m * dim if slices > 1 else 0,
+            "launches": 2 if slices == 1 else 3}
 
 
 def _split(rows: int, cols: int, k: int, sms: int) -> tuple[int, int]:
@@ -144,30 +162,48 @@ def _check_kernel_args(x2, w0, b0, w1, b1=None, dout=None):
         raise ValueError(f"geglu_ffn: inconsistent shapes {got} for width {dim}")
 
 
+def fwd_scratch(x2, hidden: int, plan: dict):
+    """The forward's scratch for ``x2 (M, D)`` under ``plan``: prod (M, H) in
+    x's dtype and, with split slices, the fp32 partials (S, M, D), else None."""
+    m, dim = x2.shape
+    prod = torch.empty((m, hidden), dtype=x2.dtype, device=x2.device)
+    partial = (torch.empty((plan["slices"], m, dim), dtype=torch.float32, device=x2.device)
+               if plan["slices"] > 1 else None)
+    return prod, partial
+
+
+def _fwd_launch(x2, w0, b0, w1, b1):
+    """Run the forward's launches on ``x2 (M, D)``, M > 0; returns ``(out,
+    prod)``, prod being launch A's product (the card tests check it alone)."""
+    m, dim = x2.shape
+    hidden = w1.shape[1]
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    plan = fwd_plan(m, dim, hidden, sms)
+    out = torch.empty_like(x2)
+    prod, partial = fwd_scratch(x2, hidden, plan)
+    lib = _build.load("geglu_ffn")
+    fn = lib.geglu_ffn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        status = fn(x2.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                    out.data_ptr(), prod.data_ptr(),
+                    None if partial is None else partial.data_ptr(), m, dim, hidden, plan["up"],
+                    plan["down"], plan["slices"], plan["k_chunk"], stream)
+    _build.check(status, "geglu_ffn")
+    return out, prod
+
+
 def geglu_ffn_cuda(x, w0, b0, w1, b1):
-    """Launch the CUDA kernel on ``x (..., D)`` bf16, D = 256 or 512; returns a
-    new tensor."""
+    """Launch the CUDA kernels on ``x (..., D)`` bf16, D = 256 or 512 (two or
+    three launches, :func:`fwd_plan`); returns a new tensor."""
     global launches
     x2 = x.reshape(-1, x.shape[-1])
     _check_kernel_args(x2, w0, b0, w1, b1)
-    out = torch.empty_like(x2)
-    m = x2.shape[0]
-    if m == 0:
-        return out.reshape(x.shape)
-    hidden = w1.shape[1]
-    splits = split_count(m, hidden, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    partial = (torch.empty((splits, m, x2.shape[1]), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    lib = _build.load("geglu_ffn")
-    fn = lib.geglu_ffn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        status = fn(x2.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    out.data_ptr(), None if partial is None else partial.data_ptr(), m,
-                    x2.shape[1], hidden, splits, stream)
-    _build.check(status, "geglu_ffn")
+    if x2.shape[0] == 0:
+        return torch.empty_like(x2).reshape(x.shape)
+    out, _ = _fwd_launch(x2, w0, b0, w1, b1)
     launches += 1
     return out.reshape(x.shape)
 

@@ -45,8 +45,7 @@ launches = 0
 bwd_launches = 0
 
 _KERNEL_DH = 64
-_KERNEL_MAX_L = 64  # the forward's; the attention probe runs it on the space axis, L = 49
-_KERNEL_MAX_L_BWD = 32
+_KERNEL_MAX_L = 64  # both kernels'; the attention probe runs the forward on the space axis, L = 49
 
 
 def reset_launches() -> None:
@@ -154,7 +153,7 @@ def token_rows_attention_bwd_plain(qkv_g, qkv_cls, seq_bias, d_tok, *, heads: in
     return d_qkv, d_qkvc.to(qkv_cls.dtype)
 
 
-def _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head, max_l=_KERNEL_MAX_L):
+def _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head):
     B, G, L, c3 = qkv_g.shape
     if dim_head != _KERNEL_DH:
         raise ValueError(f"token_rows_attention kernel is built for dim_head {_KERNEL_DH},"
@@ -162,8 +161,8 @@ def _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head, max_l=_KERNEL_
     if c3 != 3 * heads * dim_head or qkv_cls.shape != (B, 1, c3):
         raise ValueError(f"token_rows_attention: qkv {tuple(qkv_g.shape)} / qkv_cls"
                          f" {tuple(qkv_cls.shape)} do not match heads {heads} x {dim_head}")
-    if not 1 <= L <= max_l:
-        raise ValueError(f"token_rows_attention kernel takes 1 <= L <= {max_l}, got {L}")
+    if not 1 <= L <= _KERNEL_MAX_L:
+        raise ValueError(f"token_rows_attention kernel takes 1 <= L <= {_KERNEL_MAX_L}, got {L}")
     for name, t in (("qkv", qkv_g), ("qkv_cls", qkv_cls)):
         if not t.is_cuda or t.device != qkv_g.device:
             raise ValueError(f"token_rows_attention: {name} is not on the card with qkv")
@@ -213,7 +212,7 @@ def token_rows_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, d_tok, *, heads: int
     whose last axis is contiguous. Scratch it allocates: the per-group fp32
     partials of the CLS key and value gradients, (B, G, H, 2, dh)."""
     global bwd_launches
-    _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head, _KERNEL_MAX_L_BWD)
+    _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head)
     B, G, L, c3 = qkv_g.shape
     dev = qkv_g.device
     d_tok = d_tok.to(qkv_g.dtype)

@@ -51,6 +51,12 @@ def test_ffn_backward_key_covers_the_product_header():
     assert names == ["geglu_ffn_bwd.cu", "gemm_mma.cuh", "warp_mma.cuh"]
 
 
+def test_ffn_forward_key_covers_the_warpgroup_header():
+    """The FFN forward rebuilds when the warpgroup product core changes."""
+    names = [p.name for p in _build._sources(_build.CSRC / "geglu_ffn.cu")]
+    assert names == ["geglu_ffn.cu", "gemm_wgmma.cuh"]
+
+
 def test_dw_conv_key_covers_the_copy_helpers():
     names = [p.name for p in _build._sources(_build.CSRC / "dw_conv.cu")]
     assert names == ["dw_conv.cu", "warp_mma.cuh"]

@@ -49,10 +49,3 @@ def test_wrapper_counts_only_kernel_launches():
     rng = np.random.default_rng(2)
     _port(rng.standard_normal((4, 64)).astype(np.float32), *_weights(rng, 64, 128))
     assert port.launches == 0
-
-
-@pytest.mark.parametrize("m,splits", [(8, 32), (6272, 1), (32 * 132, 1), (1000, 9), (32 * 66, 4)])
-def test_hidden_split_only_when_row_tiles_leave_sms_idle(m, splits):
-    """132 SMs, hidden 2048 (32 chunks of 64): the CLS rows of a batch of 8
-    split 32 ways, the token rows of the flagship batch not at all."""
-    assert port.split_count(m, 2048, 132) == splits

@@ -1,5 +1,6 @@
 """The launch plans the wrappers hand the CUDA kernels, checked on the CPU:
-the FFN backward's split-K planner (``ops/geglu_ffn.py::product_splits``),
+the FFN forward's tiles and k slices (``ops/geglu_ffn.py::fwd_plan``), the
+FFN backward's split-K planner (``ops/geglu_ffn.py::product_splits``),
 the depthwise forward's channel tile and row ring (``ops/dw_conv.py::
 plan``) and the attention backward's group packs, row chunks and CLS-row
 chunks (``ops/divided_attention.py::bwd_plan``). The kernels take these
@@ -7,6 +8,7 @@ plans as they are, so what is checked here is what runs on the card."""
 
 import numpy as np
 import pytest
+import torch
 
 from mintime_torch.experiments.dw_conv_cuda_vs_cudnn import GEOMS
 from mintime_torch.ops import divided_attention as da
@@ -19,6 +21,72 @@ SMS = 132  # the H100's SMs
 FFN_CASES = [(6272, 512, 2048), (8, 512, 2048), (81920, 256, 1024), (8, 256, 1024),
              (1, 512, 2048), (100, 256, 1024), (6280, 512, 2048), (37, 512, 2048),
              (129, 64, 64), (5000, 128, 192)]
+
+
+#: (M, D, H) of the forward's plan cases: one row, the CLS rows of a batch
+#: of 8, a row short of a tile, the flagship's token rows, the conv model's
+FWD_CASES = [(m, dim, hidden) for m in (1, 8, 127, 6272, 81920)
+             for dim, hidden in ((512, 2048), (256, 1024))]
+
+
+def _cover(starts, length, total):
+    """How many of the spans [s, min(total, s + length)) hold each index."""
+    hits = np.zeros(total, dtype=int)
+    for s in starts:
+        hits[s:min(total, s + length)] += 1
+    return hits
+
+
+@pytest.mark.parametrize("m,dim,hidden", FWD_CASES)
+def test_fwd_plan_covers_every_row_column_and_k_once(m, dim, hidden):
+    """Launch A's blocks hold every (row, hidden column) once, val and gate
+    together; launch B's every (row, output column) once a slice, and its
+    slices every k once, in whole 64-deep stages."""
+    plan = ffn.fwd_plan(m, dim, hidden, SMS)
+    rows, up, down = plan["rows"], plan["up"], plan["down"]
+    row_tiles = range(0, -(-m // rows) * rows, rows)
+    assert (_cover(row_tiles, rows, m) == 1).all()
+    assert hidden % up == 0 and (_cover(range(0, hidden, up), up, hidden) == 1).all()
+    assert plan["up_blocks"] == len(row_tiles) * (hidden // up)
+    assert dim % down == 0 and (_cover(range(0, dim, down), down, dim) == 1).all()
+    s, chunk = plan["slices"], plan["k_chunk"]
+    assert chunk % 64 == 0 and (s - 1) * chunk < hidden <= s * chunk
+    assert (_cover(range(0, s * chunk, chunk), chunk, hidden) == 1).all()
+    assert plan["down_blocks"] == len(row_tiles) * (dim // down) * s
+    assert plan["launches"] == (2 if s == 1 else 3)
+
+
+@pytest.mark.parametrize("m,dim,hidden", FWD_CASES)
+def test_fwd_plan_scratch_is_what_the_wrapper_allocates(m, dim, hidden):
+    plan = ffn.fwd_plan(m, dim, hidden, SMS)
+    x2 = torch.empty((m, dim), dtype=torch.bfloat16, device="meta")
+    prod, partial = ffn.fwd_scratch(x2, hidden, plan)
+    assert prod.shape == (m, hidden) and prod.dtype == torch.bfloat16
+    assert prod.numel() == plan["prod"]
+    assert (0 if partial is None else partial.numel()) == plan["partial"]
+    assert partial is None or (partial.dtype == torch.float32
+                               and partial.shape == (plan["slices"], m, dim))
+
+
+@pytest.mark.parametrize("m,dim,hidden", [c for c in FWD_CASES if c[0] < 128])
+def test_fwd_plan_gives_every_sm_a_block_at_few_rows(m, dim, hidden):
+    """Under one row tile (the CLS rows) the weights' bytes bound the call:
+    both launches spread them over at least a block an SM."""
+    plan = ffn.fwd_plan(m, dim, hidden, SMS)
+    assert plan["up_blocks"] >= SMS and plan["down_blocks"] >= SMS
+
+
+def test_fwd_plan_at_the_main_path_shapes():
+    """The token rows take the wide tiles in two launches; the CLS rows of
+    8 videos narrow tiles and split slices."""
+    assert {k: ffn.fwd_plan(6272, 512, 2048, SMS)[k] for k in ("up", "down", "slices")} == {
+        "up": 64, "down": 128, "slices": 1}
+    assert {k: ffn.fwd_plan(81920, 256, 1024, SMS)[k] for k in ("up", "down", "slices")} == {
+        "up": 64, "down": 128, "slices": 1}
+    assert {k: ffn.fwd_plan(8, 512, 2048, SMS)[k] for k in ("up", "down", "slices")} == {
+        "up": 8, "down": 16, "slices": 6}
+    assert {k: ffn.fwd_plan(8, 256, 1024, SMS)[k] for k in ("up", "down", "slices")} == {
+        "up": 4, "down": 16, "slices": 16}
 
 
 def _products(m, dim, hidden):

@@ -458,3 +458,81 @@ def test_dw_conv_wgrad_kernel_on_card_at_b0_and_b4(H, C, K):
     assert got.shape == (K, K, 1, C) and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
     assert torch.equal(port_dw.dw_conv_wgrad_cuda(x, dy, K=K), got)
+
+
+def _ffn_fwd_args(dim, hidden, m, seed):
+    """x and the weights at unit fan-in scale, as chip_smoke.py draws them."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).cuda().bfloat16()  # noqa: E731
+    return (r(m, dim), r(2 * hidden, dim, sc=dim ** -0.5), r(2 * hidden, sc=0.02),
+            r(dim, hidden, sc=hidden ** -0.5), r(dim, sc=0.02))
+
+
+def _ffn_prod_plain(x, w0, b0):
+    """Launch A's result in plain PyTorch: bf16(val * gelu(gate)) of the
+    bf16-rounded up-projection."""
+    f32 = torch.float32
+    h = (x.to(f32) @ w0.to(f32).T + b0.to(f32)).to(x.dtype)
+    val, gate = h.to(f32).chunk(2, dim=-1)
+    return (val * torch.nn.functional.gelu(gate)).to(x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,hidden", [(512, 2048), (256, 1024)])
+@pytest.mark.parametrize("m", [1, 8, 127, 129, 6272, 6273])
+def test_geglu_forward_launches_on_card(dim, hidden, m):
+    """Each launch of the FFN forward against plain PyTorch, at both widths
+    and at row counts that take every tile width of its plan (wide tiles at
+    the token rows, narrow ones and split slices under a row tile, ragged
+    last tiles): launch A's product and the output, max abs error 2e-2
+    (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, w0, b0, w1, b1 = _ffn_fwd_args(dim, hidden, m, seed=13)
+    out, prod = port._fwd_launch(x, w0, b0, w1, b1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(prod.float(), _ffn_prod_plain(x, w0, b0).float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(out.float(), port.geglu_ffn_plain(x, w0, b0, w1, b1).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,hidden,m", [(512, 2048, 6272), (512, 2048, 8), (256, 1024, 8)])
+def test_geglu_forward_kernel_is_bitwise_stable(dim, hidden, m):
+    """Split slices are summed in order, without atomics: a rerun of the
+    forward gives the same bits (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args = _ffn_fwd_args(dim, hidden, m, seed=14)
+    first = port.geglu_ffn_cuda(*args)
+    for _ in range(2):
+        assert torch.equal(port.geglu_ffn_cuda(*args), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("L", [33, 49, 64])
+def test_token_rows_backward_kernel_on_card_at_long_axes(L, masked):
+    """The token-row backward above 32 frames, up to the forward's limit of
+    64 (three keys a lane, two warps a block), on the strided time-axis view,
+    against its plain version per gradient (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(15)
+    B, G, H, dh = 2, 24, 6, 64
+    qkv = torch.randn(B, L, G, 3 * H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
+    qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
+    sb = None
+    if masked:
+        keep = torch.rand(B, L, 1 + L, generator=gen) > 0.1
+        keep[..., 0] = True
+        sb = port_divided.mask_to_bias(keep.cuda())
+    kw = dict(heads=H, dim_head=dh)
+    d_tok = torch.randn(B, L, G, H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
+    got = port_rows.token_rows_attention_bwd_cuda(qkv, qkvc, sb, d_tok, **kw)
+    torch.cuda.synchronize()
+    assert got[0].stride() == qkv.stride()
+    assert not got[1][..., :H * dh].any()
+    _close_per_gradient(got, port_rows.token_rows_attention_bwd_plain(qkv, qkvc, sb, d_tok, **kw),
+                        f"token rows L={L} seq_bias={masked}")

@@ -47,10 +47,25 @@ def _j(a):
     return None if a is None else jnp.asarray(a)
 
 
+#: (G, L) of the long-axis cases: the frame counts the kernels take above
+#: 32 (the backward's former limit), up to their limit of 64, on few groups
+LONG_AXES = [(3, 33), (3, 49), (2, 64)]
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_plain_forward_matches_jax(masked):
+    _check_forward(masked)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("G,L", LONG_AXES)
+def test_plain_forward_matches_jax_at_long_axes(G, L, masked):
+    _check_forward(masked, G=G, L=L)
+
+
+def _check_forward(masked, G=12, L=8):
     H, dh = 2, 16
-    qkv, qkvc, sb, rb = _inputs(masked=masked)
+    qkv, qkvc, sb, rb = _inputs(G=G, L=L, masked=masked)
     want_tok = jax_pallas._token_rows_core(_j(qkv), _j(qkvc), _j(sb), H, dh)
     want_cls = jax_pallas._cls_row_xla(_j(qkv), _j(qkvc), _j(rb), H, dh)
     q, qc = _t(head_major_to_qkv_major(qkv, H, dh)), _t(head_major_to_qkv_major(qkvc, H, dh))
@@ -65,8 +80,20 @@ def test_vjps_match_jax(masked):
     """The token rows' Function (plain backward on the CPU) and the CLS row's
     autograd against ``jax.grad``; d_qkvc of the token rows has a zero q
     third, and seq_bias gets a zero gradient."""
+    _check_vjps(masked)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("G,L", LONG_AXES)
+def test_vjps_match_jax_at_long_axes(G, L, masked):
+    """As :func:`test_vjps_match_jax` at the long axes the backward kernel
+    takes since its limit went from 32 to 64."""
+    _check_vjps(masked, G=G, L=L)
+
+
+def _check_vjps(masked, G=12, L=8):
     H, dh = 2, 16
-    qkv, qkvc, sb, rb = _inputs(seed=3, masked=masked)
+    qkv, qkvc, sb, rb = _inputs(G=G, L=L, seed=3, masked=masked)
     rng = np.random.default_rng(4)
     w_tok = rng.standard_normal(qkv.shape[:-1] + (H * dh,)).astype(np.float32)
     w_cls = rng.standard_normal((2, 1, H * dh)).astype(np.float32)
@@ -186,6 +213,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="L <= 64"):
         port.token_rows_attention_cuda(torch.zeros(1, 4, 65, 192), qkvc, None, heads=1,
                                        dim_head=64)
-    with pytest.raises(ValueError, match="L <= 32"):
-        port.token_rows_attention_bwd_cuda(torch.zeros(1, 4, 33, 192), qkvc, None,
-                                           torch.zeros(1, 4, 33, 64), heads=1, dim_head=64)
+    with pytest.raises(ValueError, match="L <= 64"):
+        port.token_rows_attention_bwd_cuda(torch.zeros(1, 4, 65, 192), qkvc, None,
+                                           torch.zeros(1, 4, 65, 64), heads=1, dim_head=64)
