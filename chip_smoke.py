@@ -368,10 +368,7 @@ def _ffn_weights(r, dim, hidden):
 def phase_kernels(smi):
     """Each kernel vs its plain version at the main paths' shapes."""
     import torch
-    import torch.nn.functional as F
 
-    from mintime_torch.experiments.attn_kernel_variants import dense_inputs, split_dense
-    from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import geglu_ffn as ffn
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -393,39 +390,12 @@ def phase_kernels(smi):
                 _ffn_fwd_rerun_and_launches(smi, args, plan["launches"])
             del args
 
-    for shape, (qkv, qkvc, sb, rbias), H, calls, _ in _divided_cases(gen):
-        B, G, L, _ = qkv.shape
-        dh = 64
-        kw = dict(heads=H, dim_head=dh)
-        err = max_err(da.divided_attention_cuda(qkv, qkvc, sb, rbias, **kw),
-                      da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw))
-        inner = H * dh
-        nbytes = (2 * (qkv.numel() + qkvc.numel() + B * G * L * inner + B * inner)
-                  + 4 * _numel(sb, rbias))
-        flops = 4 * B * H * dh * (G * L * (1 + L) + G * L + 1)
-        b_ms, b_by = bound(nbytes, flops)
-        lq, lk, lv, lmask = dense_inputs(qkv, qkvc, sb, _dense_row_bias(rbias, B, G), H, dh)
-        sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
-        lib_err = max_err(split_dense(sdpa(), G, L),
-                          da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw))
-        if not lib_err <= TOL:
-            raise AssertionError(f"the one-call attention yardstick differs by {lib_err}")
-        kernel = lambda: da.divided_attention_cuda(qkv, qkvc, sb, rbias, **kw)  # noqa: E731
-        # device time: the call's four launches finish quicker than Python
-        # issues them, so a host clock over back-to-back calls reads the host
-        row = {
-            "shape": shape, "calls": calls, "max_abs_err": err,
-            "ms": device_ms(kernel), "host_ms": time_ms(kernel),
-            "plain_ms": device_ms(lambda: da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(sdpa),
-            "library": "scaled_dot_product_attention, one dense masked call",
-            "library_max_abs_err": lib_err,
-        }
-        rows["divided_attention"].append(row)
-        del qkv, qkvc, sb, rbias, lq, lk, lv, lmask
+    for shape, args, H, calls, _ in _divided_cases(gen):
+        rows["divided_attention"].append(_divided_fwd_row(shape, args, H, calls))
+        del args
     _divided_fwd_rerun_and_launches(smi)
 
-    rows["token_rows_attention"] = _token_rows_rows(gen)
+    rows["token_rows_attention"] = _token_rows_rows(smi, gen)
     rows.update(_probe_kernel_rows(gen))
     for name, shapes in rows.items():
         for s in shapes:
@@ -435,6 +405,45 @@ def phase_kernels(smi):
                 raise AssertionError(f"{name} {s['shape']}: max abs error {s['max_abs_err']} > {limit}")
     rows.update(_backward_kernels(smi, gen))
     return rows
+
+
+def _divided_fwd_row(shape, args, H, calls):
+    """The whole-slice attention forward against its plain version, its
+    device time (``ms``: the call's four launches finish quicker than Python
+    issues them, so a host clock over back-to-back calls, ``host_ms``,
+    reads the host), the plain version's, the bound and one dense masked
+    ``scaled_dot_product_attention`` call by device time."""
+    import torch.nn.functional as F
+
+    from mintime_torch.experiments.attn_kernel_variants import dense_inputs, split_dense
+    from mintime_torch.ops import divided_attention as da
+
+    qkv, qkvc, sb, rbias = args
+    B, G, L, _ = qkv.shape
+    dh = 64
+    kw = dict(heads=H, dim_head=dh)
+    err = max_err(da.divided_attention_cuda(qkv, qkvc, sb, rbias, **kw),
+                  da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw))
+    inner = H * dh
+    nbytes = (2 * (qkv.numel() + qkvc.numel() + B * G * L * inner + B * inner)
+              + 4 * _numel(sb, rbias))
+    flops = 4 * B * H * dh * (G * L * (1 + L) + G * L + 1)
+    b_ms, b_by = bound(nbytes, flops)
+    lq, lk, lv, lmask = dense_inputs(qkv, qkvc, sb, _dense_row_bias(rbias, B, G), H, dh)
+    sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
+    lib_err = max_err(split_dense(sdpa(), G, L),
+                      da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw))
+    if not lib_err <= TOL:
+        raise AssertionError(f"the one-call attention yardstick differs by {lib_err}")
+    kernel = lambda: da.divided_attention_cuda(qkv, qkvc, sb, rbias, **kw)  # noqa: E731
+    return {
+        "shape": shape, "calls": calls, "max_abs_err": err,
+        "ms": device_ms(kernel), "host_ms": time_ms(kernel),
+        "plain_ms": device_ms(lambda: da.divided_attention_plain(qkv, qkvc, sb, rbias, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(sdpa),
+        "library": "scaled_dot_product_attention, one dense masked call",
+        "library_max_abs_err": lib_err,
+    }
 
 
 def _geglu_plain_ops(x, w0, b0, w1, b1):
@@ -540,40 +549,94 @@ def _token_rows_as_sdpa(qkv, qkvc, sb, H, dh):
     return q, k, v, mask
 
 
-def _token_rows_rows(gen):
-    """The token-row kernel at the conv time axis (4 launches a forward) and,
-    with frames masked by a seq_bias, at G = 96 (a check; no main path
-    passes a mask)."""
+#: (G, L, seq mask, launches a forward or a train step) of the token-row
+#: kernels' rows: the conv time axis (four layers), and with no calls
+#: masked G = 96 and the long axes the kernels take (no main path)
+TOKEN_ROWS_CASES = ((1280, 8, False, 4), (96, 8, True, 0)) + tuple(
+    (96, L, masked, 0) for L in (33, 49, 64) for masked in (False, True))
+
+
+def _token_rows_shape(G, L, masked, calls, B=8, H=6, dh=64) -> str:
+    return (f"{'' if calls or L == 8 else 'edge '}time B={B} G={G} L={L} H={H} dh={dh}"
+            + (" seq_bias" if masked else ""))
+
+
+def _token_rows_row(case, gen, launches=None):
+    """The token-row forward kernel at one of ``TOKEN_ROWS_CASES`` against
+    its plain version, its device time (``ms``: the kernels' durations under
+    ``torch.profiler``, ``launches`` kernels a call where that is given;
+    ``host_ms`` by CUDA events over back-to-back calls), the plain version's,
+    the bound and one ``scaled_dot_product_attention`` call over the same
+    groups, by device time too (``library_host_ms`` beside it)."""
     import torch.nn.functional as F
 
     from mintime_torch.ops import token_rows as tr
 
+    G, L, masked, calls = case
     H, dh = 6, 64
-    out = []
-    for G, masked, calls in ((1280, False, 4), (96, True, 0)):
-        qkv, qkvc, sb = _token_rows_inputs(gen, G, masked)
-        B, _, L, _ = qkv.shape
-        kw = dict(heads=H, dim_head=dh)
-        plain = tr.token_rows_attention_plain(qkv, qkvc, sb, **kw)
-        err = max_err(tr.token_rows_attention_cuda(qkv, qkvc, sb, **kw), plain)
-        nbytes = (2 * (qkv.numel() + qkvc.numel() + plain.numel())
-                  + 4 * (0 if sb is None else sb.numel()))
-        flops = 4 * B * G * H * L * (1 + L) * dh  # logits and PV over 1 + L keys
-        b_ms, b_by = bound(nbytes, flops)
-        lq, lk, lv, lmask = _token_rows_as_sdpa(qkv, qkvc, sb, H, dh)
-        sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
-        lib_err = max_err(sdpa().transpose(1, 2).reshape(plain.shape), plain)
-        if not lib_err <= TOL:
-            raise AssertionError(f"the one-call token-row yardstick differs by {lib_err}")
-        out.append({
-            "shape": f"time B={B} G={G} L={L} H={H} dh={dh}" + (" seq_bias" if masked else ""),
-            "calls": calls, "max_abs_err": err,
-            "ms": time_ms(lambda: tr.token_rows_attention_cuda(qkv, qkvc, sb, **kw)),
-            "plain_ms": time_ms(lambda: tr.token_rows_attention_plain(qkv, qkvc, sb, **kw)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
-            "library": "scaled_dot_product_attention over (B*G, H, L, 1+L)",
-            "library_max_abs_err": lib_err,
-        })
+    qkv, qkvc, sb = _token_rows_inputs(gen, G, masked, F=L)
+    B = qkv.shape[0]
+    kw = dict(heads=H, dim_head=dh)
+    plain = tr.token_rows_attention_plain(qkv, qkvc, sb, **kw)
+    err = max_err(tr.token_rows_attention_cuda(qkv, qkvc, sb, **kw), plain)
+    nbytes = (2 * (qkv.numel() + qkvc.numel() + plain.numel())
+              + 4 * (0 if sb is None else sb.numel()))
+    flops = 4 * B * G * H * L * (1 + L) * dh  # logits and PV over 1 + L keys
+    b_ms, b_by = bound(nbytes, flops)
+    lq, lk, lv, lmask = _token_rows_as_sdpa(qkv, qkvc, sb, H, dh)
+    sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
+    lib_err = max_err(sdpa().transpose(1, 2).reshape(plain.shape), plain)
+    if not lib_err <= TOL:
+        raise AssertionError(f"the one-call token-row yardstick differs by {lib_err}")
+    kernel = lambda: tr.token_rows_attention_cuda(qkv, qkvc, sb, **kw)  # noqa: E731
+    dev = device_ms(kernel, launches=launches)
+    return {
+        "shape": _token_rows_shape(G, L, masked, calls), "calls": calls, "max_abs_err": err,
+        "ms": dev, "device_ms": dev, "host_ms": time_ms(kernel),
+        "plain_ms": device_ms(lambda: tr.token_rows_attention_plain(qkv, qkvc, sb, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(sdpa),
+        "library_host_ms": time_ms(sdpa),
+        "library": "scaled_dot_product_attention over (B*G, H, L, 1+L)",
+        "library_max_abs_err": lib_err,
+    }
+
+
+def _token_rows_launches(smi, name, call, shape, launches):
+    """Two reruns must give the same bits, and one call's device time by CUDA
+    launch under ``torch.profiler``, exactly ``launches`` kernels."""
+    import torch
+
+    as_tuple = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
+    first = as_tuple(call())
+    bitwise = all(all(torch.equal(a, b) for a, b in zip(as_tuple(call()), first))
+                  for _ in range(2))
+    emit({"phase": "kernel_bitwise", "name": name, "shape": shape, "card": smi, "reruns": 2,
+          "outputs_bitwise_equal": bitwise})
+    if not bitwise:
+        raise AssertionError(f"{name} gave other bits on a rerun at {shape}")
+    emit({"phase": "kernel_launches", "name": name, "shape": shape, "card": smi,
+          "launches_per_call": launches, **_profile(call, launches=launches)})
+
+
+def _token_rows_rows(smi, gen):
+    """The token-row forward kernel at ``TOKEN_ROWS_CASES``, and at each
+    shape its reruns and launches profiled on inputs from a generator of
+    their own, so the rows keep theirs."""
+    import torch
+
+    from mintime_torch.ops import token_rows as tr
+
+    out, own = [], torch.Generator().manual_seed(12)
+    for case in TOKEN_ROWS_CASES:
+        G, L, masked, calls = case
+        launches = tr.plan(8, G, L, 6)["fwd_launches"]
+        out.append(_token_rows_row(case, gen, launches))
+        qkv, qkvc, sb = _token_rows_inputs(own, G, masked, F=L)
+        _token_rows_launches(
+            smi, "token_rows_attention",
+            lambda: tr.token_rows_attention_cuda(qkv, qkvc, sb, heads=6, dim_head=64),
+            _token_rows_shape(G, L, masked, calls), launches)
+        del qkv, qkvc, sb
     return out
 
 
@@ -1037,7 +1100,7 @@ def _backward_kernels(smi, gen):
         del args
     _divided_bwd_rerun_and_launches(smi, gen)
 
-    rows["token_rows_attention_bwd"] = _token_rows_bwd_rows(gen)
+    rows["token_rows_attention_bwd"] = _token_rows_bwd_rows(smi, gen)
     for name, shapes in rows.items():
         for s in shapes:
             emit({"phase": "kernel", "name": name, "card": smi, **s})
@@ -1051,52 +1114,83 @@ def _backward_kernels(smi, gen):
     return rows
 
 
-#: (G, L, seq mask, launches a train step) of the token-row backward's rows:
-#: the conv time axis, and with no calls masked G = 96 and the long axes the
-#: kernel takes above 32 frames (three keys a lane, two warps a block)
-TOKEN_ROWS_BWD_CASES = ((1280, 8, False, 4), (96, 8, True, 0)) + tuple(
-    (96, L, masked, 0) for L in (33, 49, 64) for masked in (False, True))
+def _token_rows_bwd_inputs(gen, case):
+    """qkv, qkv_cls and seq_bias of ``_token_rows_inputs`` at one of
+    ``TOKEN_ROWS_CASES`` and a unit-scale cotangent, which arrives as the
+    transposed view of the natural layout, as in the model."""
+    import torch
+
+    G, L, masked, _ = case
+    qkv, qkvc, sb = _token_rows_inputs(gen, G, masked, F=L)
+    B = qkv.shape[0]
+    d_tok = torch.randn(B, L, G, 6 * 64, generator=gen).cuda().bfloat16().transpose(1, 2)
+    return qkv, qkvc, sb, d_tok
 
 
-def _token_rows_bwd_rows(gen):
-    """The token-row backward kernel at ``TOKEN_ROWS_BWD_CASES``, with
-    unit-scale cotangents."""
+def _token_rows_bwd_row(case, gen, launches=None):
+    """The token-row backward kernel at one of ``TOKEN_ROWS_CASES`` against
+    its plain version per gradient (unit-scale cotangents), its device time
+    (``ms``, ``launches`` kernels a call where that is given; ``host_ms``
+    beside it), the plain version's, the bound and the backward of one
+    ``scaled_dot_product_attention`` call over the same groups by device
+    time (``library_host_ms`` beside it)."""
     import torch
 
     from mintime_torch.ops import token_rows as tr
 
+    G, L, masked, calls = case
     H, dh = 6, 64
-    out = []
-    for G, F, masked, calls in TOKEN_ROWS_BWD_CASES:
-        qkv, qkvc, sb = _token_rows_inputs(gen, G, masked, F=F)
-        B, _, L, c3 = qkv.shape
-        # the cotangent arrives as the transposed view of the natural layout
-        d_tok = torch.randn(B, L, G, H * dh, generator=gen).cuda().bfloat16().transpose(1, 2)
-        kw = dict(heads=H, dim_head=dh)
-        args = (qkv, qkvc, sb, d_tok)
-        got = tr.token_rows_attention_bwd_cuda(*args, **kw)
-        if got[1][..., :H * dh].any():
-            raise AssertionError("token_rows_attention_bwd: the CLS query got a gradient")
-        grads = _grad_err(("d_qkv", "d_qkvc"), got, tr.token_rows_attention_bwd_plain(*args, **kw))
-        nbytes = (2 * (2 * qkv.numel() + 2 * qkvc.numel() + d_tok.numel())
-                  + 4 * (0 if sb is None else sb.numel()))
-        T = 1 + L  # logits, dP and dq over T keys; dK and dV over L rows; dk_cls, dv_cls
-        flops = 2 * B * G * H * dh * (3 * L * T + 2 * L * L + 2 * L)
-        b_ms, b_by = bound(nbytes, flops)
-        lq, lk, lv, lmask = _token_rows_as_sdpa(qkv, qkvc, sb, H, dh)
-        lq, lk, lv = (t.requires_grad_() for t in (lq, lk, lv))
-        lout = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
-        lgrad = torch.randn(lout.shape, generator=gen).cuda().bfloat16()
-        sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
-        out.append({
-            "shape": (f"{'' if calls or L == 8 else 'edge '}time B={B} G={G} L={L} H={H} dh={dh}"
-                      + (" seq_bias" if masked else "")),
-            "calls": calls, "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
-            "ms": time_ms(lambda: tr.token_rows_attention_bwd_cuda(*args, **kw)),
-            "plain_ms": time_ms(lambda: tr.token_rows_attention_bwd_plain(*args, **kw)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa_bwd),
-            "library": "backward of scaled_dot_product_attention over (B*G, H, L, 1+L)",
-        })
+    args = _token_rows_bwd_inputs(gen, case)
+    qkv, qkvc, sb, d_tok = args
+    B = qkv.shape[0]
+    kw = dict(heads=H, dim_head=dh)
+    got = tr.token_rows_attention_bwd_cuda(*args, **kw)
+    if got[1][..., :H * dh].any():
+        raise AssertionError("token_rows_attention_bwd: the CLS query got a gradient")
+    grads = _grad_err(("d_qkv", "d_qkvc"), got, tr.token_rows_attention_bwd_plain(*args, **kw))
+    del got
+    nbytes = (2 * (2 * qkv.numel() + 2 * qkvc.numel() + d_tok.numel())
+              + 4 * (0 if sb is None else sb.numel()))
+    T = 1 + L  # logits, dP and dq over T keys; dK and dV over L rows; dk_cls, dv_cls
+    flops = 2 * B * G * H * dh * (3 * L * T + 2 * L * L + 2 * L)
+    b_ms, b_by = bound(nbytes, flops)
+    lq, lk, lv, lmask = _token_rows_as_sdpa(qkv, qkvc, sb, H, dh)
+    lq, lk, lv = (t.requires_grad_() for t in (lq, lk, lv))
+    lout = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
+    lgrad = torch.randn(lout.shape, generator=gen).cuda().bfloat16()
+    sdpa_bwd = lambda: torch.autograd.grad(lout, (lq, lk, lv), lgrad, retain_graph=True)  # noqa: E731
+    kernel = lambda: tr.token_rows_attention_bwd_cuda(*args, **kw)  # noqa: E731
+    dev = device_ms(kernel, launches=launches)
+    return {
+        "shape": _token_rows_shape(G, L, masked, calls), "calls": calls,
+        "max_abs_err": max(g["max_abs_err"] for g in grads), "grads": grads,
+        "ms": dev, "device_ms": dev, "host_ms": time_ms(kernel),
+        "plain_ms": device_ms(lambda: tr.token_rows_attention_bwd_plain(*args, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(sdpa_bwd), "library_host_ms": time_ms(sdpa_bwd),
+        "library": "backward of scaled_dot_product_attention over (B*G, H, L, 1+L)",
+    }
+
+
+def _token_rows_bwd_rows(smi, gen):
+    """The token-row backward kernel at ``TOKEN_ROWS_CASES``, and at each
+    shape its reruns and launches profiled on inputs from a generator of
+    their own, so the rows keep theirs."""
+    import torch
+
+    from mintime_torch.ops import token_rows as tr
+
+    out, own = [], torch.Generator().manual_seed(13)
+    for case in TOKEN_ROWS_CASES:
+        G, L, masked, calls = case
+        launches = tr.plan(8, G, L, 6)["bwd_launches"]
+        out.append(_token_rows_bwd_row(case, gen, launches))
+        args = _token_rows_bwd_inputs(own, case)
+        _token_rows_launches(
+            smi, "token_rows_attention_bwd",
+            lambda: tr.token_rows_attention_bwd_cuda(*args, heads=6, dim_head=64),
+            _token_rows_shape(G, L, masked, calls), launches)
+        del args
     return out
 
 
@@ -1254,7 +1348,8 @@ def phase_slice(smi):
 def _kind(name: str) -> str:
     """Coarse layer of a CUDA kernel, from its name."""
     low = name.lower()
-    if "token_rows_bwd" in low or "token_rows_cls_reduce" in low:
+    if ("token_rows_bwd" in low or "token_rows_cls_reduce" in low
+            or ("attn_bwd" in low and "<false>" in low)):  # the latter above 16 frames
         return "token_rows_attention backward kernel"
     if "token_rows_fwd" in low:
         return "token_rows_attention kernel"

@@ -1,6 +1,10 @@
 // The forward attention of one warp's 16 query rows over one group's keys
 // on Hopper's tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulators),
-// shared by csrc/grouped_attention.cu and csrc/divided_attention.cu.
+// shared by csrc/grouped_attention.cu, csrc/divided_attention.cu and
+// csrc/token_rows_attention.cu, and the swizzled tiles and products the
+// backward kernels build on. token_rows_mma_kernel, the token rows of whole
+// groups (a block a group and head), is launched by the divided forward and
+// by the token-row forward above 16 frames.
 //
 // The group's T = 1 + L keys and values sit in shared memory in bf16, the
 // CLS pair as row 0, rows padded with zeros to a multiple of 16, each row
@@ -22,6 +26,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "warp_mma.cuh"
@@ -214,6 +219,113 @@ __device__ __forceinline__ void attend_rows(float o[DH / 8][4], const uint32_t q
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = fmaf(pc[i >> 1], (i & 1) ? vc.y : vc.x, o[n][i]);
   }
+}
+
+// The A fragments (16 x DH) of rows 0 .. 15 of a swizzled tile, by ldmatrix
+__device__ __forceinline__ void load_a_smem(uint32_t a[DH / 16][4], const bf16* m, int lane) {
+#pragma unroll
+  for (int k = 0; k < DH / 16; ++k)
+    warp_mma::ldmatrix_x4(a[k], m + sw(lane & 15, k * 16 + (lane >> 4) * 8));
+}
+
+// acc (16 x DH, 8 tiles of 8 columns) += (hi + lo) (16 x 16) times rows
+// k0 .. k0+15 of the swizzled tile m: an fp32 operand split into two bf16
+// parts keeps about 16 bits of its mantissa through the product
+__device__ __forceinline__ void mma_split(float acc[DH / 8][4], const uint32_t hi[4],
+                                          const uint32_t lo[4], const bf16* m, int k0, int lane) {
+#pragma unroll
+  for (int n = 0; n < DH / 16; ++n) {
+    uint32_t b[4];
+    warp_mma::ldmatrix_x4_trans(b, m + sw(k0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                          n * 16 + (lane >> 4) * 8));
+    warp_mma::mma_bf16(acc[2 * n], hi, b[0], b[1]);
+    warp_mma::mma_bf16(acc[2 * n + 1], hi, b[2], b[3]);
+    warp_mma::mma_bf16(acc[2 * n], lo, b[0], b[1]);
+    warp_mma::mma_bf16(acc[2 * n + 1], lo, b[2], b[3]);
+  }
+}
+
+constexpr int MMA_WARPS = 4;  // most warps a block of token_rows_mma_kernel
+
+// Token rows of whole groups on the tensor cores: a block of min(MMA_WARPS,
+// tiles) warps per (b, g, h), warp w taking the group's 16-row tiles w,
+// w + warps, ... It stages the group's K and V (CLS as row 0) by 16-byte
+// cp.async into swizzled rows and runs attend_rows on each tile. With dh =
+// 64 the scale 1/8 is a power of two, so bf16(q / 8) = q / 8 exactly: q is
+// read as it is, straight into A fragments, and the scale is applied to S.
+// Dynamic shared memory: 2 * pad16(L + 1) * DH bf16.
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+token_rows_mma_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
+                      const bf16* __restrict__ qkvc, i64 scb,
+                      const float* __restrict__ seq_bias, bf16* __restrict__ out, i64 ob,
+                      i64 og, i64 ol, int L, int H, float scale) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int T = L + 1;  // CLS key + L keys
+  const int Tp = pad16(T);
+  const int h = blockIdx.x;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  bf16* ks = reinterpret_cast<bf16*>(mma_smem);  // [Tp][DH]  k_cls, K, zeros (swizzled)
+  bf16* vs = ks + Tp * DH;                       // [Tp][DH]  v_cls, V, zeros (swizzled)
+  const int inner = H * DH;
+  const bf16* base = qkv + b * sb + g * sg;
+  const bf16* cls = qkvc + b * scb;
+  const int qoff = h * DH;
+  const int koff = inner + h * DH;
+  const int voff = 2 * inner + h * DH;
+  stage_rows(ks, 0, cls + koff, 0, 1, 1);
+  stage_rows(ks, 1, base + koff, sl, L, Tp);
+  stage_rows(vs, 0, cls + voff, 0, 1, 1);
+  stage_rows(vs, 1, base + voff, sl, L, Tp);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tiles = (L + 15) / 16;
+  const int warps = blockDim.x / 32;
+  uint32_t qa[DH / 16][4];  // the first tile's q, loaded while the copies run
+  load_a(qa, base + qoff, sl, warp * 16, L, lane);
+  warp_mma::cp_async_wait_all();
+  __syncthreads();
+
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  for (int tile = warp; tile < tiles; tile += warps) {  // warp-uniform
+    if (tile != warp) load_a(qa, base + qoff, sl, tile * 16, L, lane);
+    const int row[2] = {tile * 16 + grp, tile * 16 + grp + 8};
+    const float* brow[2] = {nullptr, nullptr};
+    if (seq_bias != nullptr)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) brow[x] = seq_bias + (i64(b) * L + min(row[x], L - 1)) * T;
+    float o[DH / 8][4];
+    attend_rows(o, qa, ks, vs, T, scale, brow, lane);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (row[x] >= L) continue;
+      bf16* orow = out + b * ob + g * og + row[x] * ol + h * DH;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c)
+        *reinterpret_cast<bf162*>(orow + c * 8 + 2 * tig) =
+            __floats2bfloat162_rn(o[c][2 * x], o[c][2 * x + 1]);
+    }
+  }
+}
+
+// Launch token_rows_mma_kernel over (H, G, B) for L <= 256 (16-byte aligned
+// starts and strides, checked by the caller)
+inline cudaError_t launch_token_rows_mma(const bf16* qkv, i64 sb, i64 sg, i64 sl, const bf16* qkvc,
+                                         i64 scb, const float* seq_bias, bf16* out, i64 ob, i64 og,
+                                         i64 ol, int B, int G, int L, int H, float scale,
+                                         cudaStream_t s) {
+  const int smem = 2 * pad16(L + 1) * DH * int(sizeof(bf16));
+  cudaError_t err = cudaFuncSetAttribute(token_rows_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (L + 15) / 16;
+  const int warps = tiles < MMA_WARPS ? tiles : MMA_WARPS;
+  token_rows_mma_kernel<<<dim3(H, G, B), warps * 32, smem, s>>>(qkv, sb, sg, sl, qkvc, scb,
+                                                                seq_bias, out, ob, og, ol, L, H,
+                                                                scale);
+  return cudaGetLastError();
 }
 
 }  // namespace attn_rows

@@ -21,8 +21,9 @@
 //
 // Design: the TPU held a whole batch slice (2.4 MB) in VMEM; a GPU block
 // cannot, so the work splits into launches that each own what they write.
-//   * token rows: token_rows_mma_kernel, a block of up to MMA_WARPS warps
-//     per (b, g, h), stages the group's K and V (CLS as row 0) by 16-byte
+//   * token rows: token_rows_mma_kernel (csrc/attn_rows_mma.cuh, launched
+//     by the token-row forward above 16 frames too), a block of up to four
+//     warps per (b, g, h), stages the group's K and V (CLS as row 0) by 16-byte
 //     cp.async into swizzled bf16 rows (68 KB at L = 256), and each warp
 //     runs attn_rows::attend_rows (csrc/attn_rows_mma.cuh) over 16 query
 //     rows at a time: S and PV on mma.sync tiles, two passes over S, P
@@ -57,7 +58,6 @@ namespace {
 
 constexpr int DH = 64;          // head width
 constexpr int MAXL = 256;       // longest attended sequence of the token rows
-constexpr int MMA_WARPS = 4;    // most warps a block of the token rows
 constexpr int CLS_THREADS = 256;
 constexpr int PART = DH + 2;    // a CLS chunk's scratch: sum bf16(p) v (DH), sum p, max
 
@@ -76,64 +76,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Token rows on the tensor cores: a block of min(MMA_WARPS, tiles) warps per
-// (b, g, h), warp w taking the group's 16-row tiles w, w + warps, ...
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-token_rows_mma_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
-                      const bf16* __restrict__ qkvc, i64 scb,
-                      const float* __restrict__ seq_bias, bf16* __restrict__ out, i64 ob,
-                      i64 og, i64 ol, int L, int H, float scale) {
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  const int T = L + 1;  // CLS key + L keys
-  const int Tp = attn_rows::pad16(T);
-  const int h = blockIdx.x;
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
-  bf16* ks = reinterpret_cast<bf16*>(mma_smem);  // [Tp][DH]  k_cls, K, zeros (swizzled)
-  bf16* vs = ks + Tp * DH;                       // [Tp][DH]  v_cls, V, zeros (swizzled)
-  const int inner = H * DH;
-  const bf16* base = qkv + b * sb + g * sg;
-  const bf16* cls = qkvc + b * scb;
-  const int qoff = h * DH;
-  const int koff = inner + h * DH;
-  const int voff = 2 * inner + h * DH;
-  attn_rows::stage_rows(ks, 0, cls + koff, 0, 1, 1);
-  attn_rows::stage_rows(ks, 1, base + koff, sl, L, Tp);
-  attn_rows::stage_rows(vs, 0, cls + voff, 0, 1, 1);
-  attn_rows::stage_rows(vs, 1, base + voff, sl, L, Tp);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tiles = (L + 15) / 16;
-  const int warps = blockDim.x / 32;
-  uint32_t qa[DH / 16][4];  // the first tile's q, loaded while the copies run
-  attn_rows::load_a(qa, base + qoff, sl, warp * 16, L, lane);
-  warp_mma::cp_async_wait_all();
-  __syncthreads();
-
-  const int grp = lane >> 2;
-  const int tig = lane & 3;
-  for (int tile = warp; tile < tiles; tile += warps) {  // warp-uniform
-    if (tile != warp) attn_rows::load_a(qa, base + qoff, sl, tile * 16, L, lane);
-    const int row[2] = {tile * 16 + grp, tile * 16 + grp + 8};
-    const float* brow[2] = {nullptr, nullptr};
-    if (seq_bias != nullptr)
-#pragma unroll
-      for (int x = 0; x < 2; ++x) brow[x] = seq_bias + (i64(b) * L + min(row[x], L - 1)) * T;
-    float o[DH / 8][4];
-    attn_rows::attend_rows(o, qa, ks, vs, T, scale, brow, lane);
-#pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      if (row[x] >= L) continue;
-      bf16* orow = out + b * ob + g * og + row[x] * ol + h * DH;
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c)
-        *reinterpret_cast<bf162*>(orow + c * 8 + 2 * tig) =
-            __floats2bfloat162_rn(o[c][2 * x], o[c][2 * x + 1]);
-    }
-  }
 }
 
 // block-wide reduction over the block's warps; every thread gets the result
@@ -344,15 +286,8 @@ extern "C" int divided_attention_fwd(const void* qkv, i64 sb, i64 sg, i64 sl, co
   const float* rbias = static_cast<const float*>(row_bias);
   float* scratch = static_cast<float*>(cls_scratch);
   bf16* o = static_cast<bf16*>(out);
-  const int smem = 2 * attn_rows::pad16(L + 1) * DH * int(sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(token_rows_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
-  const int tiles = (L + 15) / 16;
-  const int warps = tiles < MMA_WARPS ? tiles : MMA_WARPS;
-  token_rows_mma_kernel<<<dim3(H, G, B), warps * 32, smem, s>>>(q, sb, sg, sl, qc, scb, sbias, o,
-                                                                ob, og, ol, L, H, scale);
-  err = cudaGetLastError();
+  cudaError_t err = attn_rows::launch_token_rows_mma(q, sb, sg, sl, qc, scb, sbias, o, ob, og, ol,
+                                                     B, G, L, H, scale, s);
   if (err != cudaSuccess) return int(err);
   cls_row_logits_kernel<<<dim3(H, cls_chunks, B), CLS_THREADS, 0, s>>>(
       q, sb, sg, sl, qc, scb, rbias, rb_b, rb_g, rb_l, scratch, G, L, H, cls_chunks, scale);

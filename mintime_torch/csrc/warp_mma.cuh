@@ -85,6 +85,23 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
   lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
+// An 8 x 8 bf16 matrix held one register a lane (row lane / 4, columns
+// 2 (lane % 4), +1), transposed across the warp into the same layout
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// The A fragment of M^T from the A fragment of a 16 x 16 matrix M: each
+// 8 x 8 quadrant transposed, the off-diagonal two swapped
+__device__ __forceinline__ void transpose_a(const uint32_t a[4], uint32_t t[4]) {
+  t[0] = movmatrix_t(a[0]);
+  t[1] = movmatrix_t(a[2]);
+  t[2] = movmatrix_t(a[1]);
+  t[3] = movmatrix_t(a[3]);
+}
+
 // The A fragment (16 x 16) of two C tiles side by side (columns 0-7 and
 // 8-15), split into hi and lo parts.
 __device__ __forceinline__ void split_a(const float c[2][4], uint32_t hi[4], uint32_t lo[4]) {

@@ -1,7 +1,9 @@
 """The port's probes: the JAX package's ``experiments/`` measurements that
 hold a TPU kernel, rerun on the card with the port's kernels beside a
 library call and the plain version (``attn_kernel_variants``,
-``dw_conv_cuda_vs_cudnn``, ``dw_conv_bwd_cuda_vs_cudnn``). Each has
+``dw_conv_cuda_vs_cudnn``, ``dw_conv_bwd_cuda_vs_cudnn``), and the port's own
+measurements (``kernel_turns``: two checkouts in turns;
+``token_rows_phases``: the token-row launches with phases cut). Each probe has
 ``run(device="cuda") -> list[dict]`` and a ``main()`` that prints a table:
 ``python -m mintime_torch.experiments.<name>``. Times are device times by
 CUDA events; there is no CPU mode.

@@ -1,6 +1,6 @@
-"""The GEGLU FFN forward and backward, the depthwise forward and the
-divided-attention backward of this tree against another checkout's, in
-turns, on one card.
+"""The GEGLU FFN forward and backward, the depthwise forward, the
+divided-attention forward and backward and the token-row forward and
+backward of this tree against another checkout's, in turns, on one card.
 
 Each tree is measured by a process of its own (its ``mintime_torch`` on
 ``PYTHONPATH``, its kernels built into its own ``mintime_torch/.build/``), in
@@ -28,13 +28,26 @@ For each tree:
                  eight geometries at 512 images, ms by CUDA events beside
                  cuDNN's ``conv2d(groups=C)`` + ``F.silu``, relative error
                  against the plain version;
+  divided_attention  at ``chip_smoke._divided_cases``:
+                 ``chip_smoke._divided_fwd_row`` (the outputs against the
+                 plain version, the kernel's device and host ms and SDPA's
+                 device ms), two reruns bitwise equal or not, and three
+                 calls' CUDA launches by name;
   divided_attention_bwd  at ``chip_smoke._divided_cases`` (the flagship's
                  time and space axes at batch 8, the conv model's tap-10
                  time axis and its space axis at L = 80, 112, 192, 256):
                  ``chip_smoke._divided_bwd_row`` (each gradient against the
                  plain version, the kernel's and SDPA's backward by device
                  and host ms), two reruns bitwise equal or not, and three
-                 calls' CUDA launches by name under ``torch.profiler``.
+                 calls' CUDA launches by name under ``torch.profiler``;
+  token_rows_attention, token_rows_attention_bwd  at
+                 ``chip_smoke.TOKEN_ROWS_CASES`` (the conv time axis G =
+                 1280 L = 8, masked G = 96, and G = 96 at L = 33, 49, 64,
+                 masked and not): ``chip_smoke._token_rows_row`` and
+                 ``_token_rows_bwd_row`` (the output or each gradient against
+                 the plain version, the kernel's and SDPA's device and host
+                 ms), two reruns bitwise equal or not, and three calls' CUDA
+                 launches by name.
 
 Run on a machine with a card, from the root of a checkout, with another
 checkout unpacked in a directory (for example by ``git archive``):
@@ -64,7 +77,8 @@ def _chip_smoke():
     return mod
 
 
-KERNELS = ("geglu_ffn", "geglu_ffn_bwd", "dw_conv", "divided_attention_bwd")
+KERNELS = ("geglu_ffn", "geglu_ffn_bwd", "dw_conv", "divided_attention", "divided_attention_bwd",
+           "token_rows_attention", "token_rows_attention_bwd")
 
 
 def _launches(cs, call) -> list:
@@ -90,6 +104,7 @@ def measure(label: str, kernels) -> None:
     from mintime_torch.experiments import dw_conv_cuda_vs_cudnn as dwf
     from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import geglu_ffn as ffn
+    from mintime_torch.ops import token_rows as tr
 
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -125,6 +140,12 @@ def measure(label: str, kernels) -> None:
         out({"kernel": "dw_conv", **row, "shape": f"N={row['N']} {row['H']}x{row['W']}"
              f" C={row['C']} K={row['K']}", "within": row["check_rel_err"] <= dwf.CHECK_REL})
 
+    for shape, args, H, calls, _ in cs._divided_cases(gen) if "divided_attention" in kernels else ():
+        row = cs._divided_fwd_row(shape, args, H, calls)
+        call = lambda: da.divided_attention_cuda(*args, heads=H, dim_head=64)  # noqa: E731
+        out({"kernel": "divided_attention", **row, "bitwise_reruns": _bitwise(call),
+             "within": row["max_abs_err"] <= cs.TOL, "launches_3_calls": _launches(cs, call)})
+        del args
     if "divided_attention_bwd" in kernels:
         for shape, args, H, _, calls in cs._divided_cases(gen):
             # the other tree's backward may launch another number of kernels a call
@@ -138,6 +159,23 @@ def measure(label: str, kernels) -> None:
                  and row["d_qkv_differing"] <= row["differing_limit"],
                  "launches_3_calls": _launches(cs, call)})
             del args, d_tok, d_cls
+
+    # the other tree's token-row kernels may launch another number of kernels a call
+    for case in cs.TOKEN_ROWS_CASES if "token_rows_attention" in kernels else ():
+        row = cs._token_rows_row(case, gen)
+        qkv, qkvc, sb = cs._token_rows_inputs(gen, case[0], case[2], F=case[1])
+        call = lambda: tr.token_rows_attention_cuda(qkv, qkvc, sb, heads=6, dim_head=64)  # noqa: E731
+        out({"kernel": "token_rows_attention", **row, "bitwise_reruns": _bitwise(call),
+             "within": row["max_abs_err"] <= cs.TOL, "launches_3_calls": _launches(cs, call)})
+        del qkv, qkvc, sb
+    for case in cs.TOKEN_ROWS_CASES if "token_rows_attention_bwd" in kernels else ():
+        row = cs._token_rows_bwd_row(case, gen)
+        args = cs._token_rows_bwd_inputs(gen, case)
+        call = lambda: tr.token_rows_attention_bwd_cuda(*args, heads=6, dim_head=64)  # noqa: E731
+        out({"kernel": "token_rows_attention_bwd", **row, "bitwise_reruns": _bitwise(call),
+             "within": all(g["max_abs_err"] <= g["limit"] for g in row["grads"]),
+             "launches_3_calls": _launches(cs, call)})
+        del args
 
 
 def _run_tree(root: Path, label: str, kernels) -> list[dict]:
@@ -178,7 +216,7 @@ def main() -> None:
         args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
     bad = [r for r in rows if not r["within"] or r.get("bitwise_reruns") is False]
     for r in rows:
-        print(f"turn {r['turn']} {r['tree']:5s} {r['kernel']:21s} {r['shape']:34s} ms {r['ms']:.4f}"
+        print(f"turn {r['turn']} {r['tree']:5s} {r['kernel']:24s} {r['shape']:40s} ms {r['ms']:.4f}"
               + (f" host_ms {r['host_ms']:.4f}" if "host_ms" in r else "")
               + (f" library_ms {r['library_ms']:.4f}" if r.get("library_ms") else "")
               + (f" cublas_products_ms {r['cublas_products_ms']:.4f}"

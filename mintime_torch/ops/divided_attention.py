@@ -37,8 +37,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from mintime_torch.ops import _build
-from mintime_torch.ops.token_rows import (_empty_grouped, _token_rows_grads, _token_rows_out,
-                                          _upcast, cls_row_plain, token_rows_attention)
+from mintime_torch.ops.token_rows import (_aligned16, _empty_grouped, _token_rows_grads,
+                                          _token_rows_out, _upcast, cls_row_plain, rows_plan,
+                                          token_rows_attention)
 
 #: finite additive mask value (``pallas_attention.py:32``)
 NEG = -0.7 * float(np.finfo(np.float32).max)
@@ -56,11 +57,6 @@ _KERNEL_DH = 64
 _KERNEL_MAX_L = 256
 #: most keys of the CLS row (G*L) the kernels take
 _KERNEL_MAX_KEYS = 12 * 1024
-#: query rows (row launch) or keys (column launch) of one group's chunk in a
-#: block of the backward's token-row launches, and the most warps a block:
-#: a warp per 16 rows
-_BWD_TILE = 64
-_BWD_WARPS = 4
 #: keys of a chunk of the CLS row, forward and backward (one block of each
 #: CLS launch)
 _CLS_CHUNK_KEYS = 128
@@ -191,26 +187,21 @@ def bwd_plan(B: int, G: int, L: int, dim_head: int = _KERNEL_DH) -> dict:
     """Launch shape of the backward kernel (``csrc/divided_attention_bwd.cu``)
     for B videos of G groups of L positions.
 
-    The token-row launches (rows, then columns) give a warp 16 rows (or
-    keys) of one group. A block takes a ``_BWD_TILE``-row chunk of one group
-    where L is longer; where L is shorter it takes whole groups, as many as
-    its ``_BWD_WARPS`` warps hold (four of L <= 16, two of L <= 32, one on
-    three warps at L <= 48), numbered ``n = b * G + g`` across videos.
-    Returns ``groups_per_block``, ``row_chunks`` (chunks of a group),
-    ``threads`` and ``blocks`` (of each token-row launch, per head),
-    ``cls_chunks`` (chunks of the CLS row's G*L keys) and the fp32 scratch
-    per (b, h): ``cls_scratch`` (each key's logit and d_cls . v, each
+    The token-row launches (rows, then columns) are
+    :func:`~mintime_torch.ops.token_rows.rows_plan`'s: a warp takes 16 rows
+    (or keys) of one group, a block a 64-row chunk of one group or several
+    whole groups numbered ``n = b * G + g`` across videos. Returns its
+    ``groups_per_block``, ``row_chunks`` (chunks of a group), ``threads``
+    and ``blocks`` (of each token-row launch, per head), ``cls_chunks``
+    (chunks of the CLS row's G*L keys) and the fp32 scratch per (b, h):
+    ``cls_scratch`` (each key's logit and d_cls . v, each
     chunk's partial sums, the row's stats and its own dk_cls, dv_cls terms),
     ``kv_part`` (each group chunk's dk_cls, dv_cls part) and ``row_stats``
     (each token row's max, sum and s_dot)."""
-    tiles = -(-L // 16)
-    warps_per_group = min(tiles, _BWD_WARPS)
-    chunks = -(-L // _BWD_TILE)
-    groups = _BWD_WARPS // warps_per_group if chunks == 1 else 1
+    rows = rows_plan(B, G, L)
+    chunks = rows["row_chunks"]
     cls_chunks = cls_row_chunks(G, L)
-    return {"groups_per_block": groups, "row_chunks": chunks,
-            "threads": 32 * warps_per_group * groups, "blocks": -(-B * G // groups) * chunks,
-            "cls_chunks": cls_chunks,
+    return {**rows, "cls_chunks": cls_chunks,
             "cls_scratch": 2 * G * L + cls_chunks * (2 * dim_head + 3) + 3 + 2 * dim_head,
             "kv_part": G * chunks * 2 * dim_head, "row_stats": G * L * 3}
 
@@ -290,17 +281,6 @@ def divided_attention_cuda(qkv_g, qkv_cls, seq_bias, row_bias, *, heads: int, di
     _build.check(status, "divided_attention")
     launches += 1
     return out, out_cls
-
-
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` if its start and every stride but the last are 16-byte aligned,
-    else a copy in its stride order (a model's views always are aligned)."""
-    size = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in t.stride()[:-1]):
-        return t
-    out = _empty_grouped(t, t.shape[-1]) if t.dim() == 4 else torch.empty_like(
-        t, memory_format=torch.contiguous_format)
-    return out.copy_(t)
 
 
 def divided_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, row_bias, d_tok, d_cls, *,

@@ -14,8 +14,9 @@ autograd, as the JAX package leaves it to XLA.
 :func:`token_rows_attention` is differentiable through
 :class:`TokenRowsAttentionFunction`. For CUDA tensors its forward runs the
 kernel ``csrc/token_rows_attention.cu`` and its backward
-``csrc/token_rows_attention_bwd.cu``; for CPU tensors they run
-:func:`token_rows_attention_plain` and :func:`token_rows_attention_bwd_plain`.
+``csrc/token_rows_attention_bwd.cu``, launched as :func:`plan` lays them
+out; for CPU tensors they run :func:`token_rows_attention_plain` and
+:func:`token_rows_attention_bwd_plain`.
 The plain versions repeat the kernels' arithmetic: q scaled in the input
 dtype, fp32 logits, the normalised probabilities rounded to the input dtype
 before PV, the CLS value term added in fp32; the backward recomputes the
@@ -46,6 +47,22 @@ bwd_launches = 0
 
 _KERNEL_DH = 64
 _KERNEL_MAX_L = 64  # both kernels'; the attention probe runs the forward on the space axis, L = 49
+#: rows of a warp's tensor-core tile; up to this L the kernels pack 16 // L
+#: whole groups a tile under a block-diagonal mask
+_TILE_ROWS = 16
+#: most warps a block of the tile launches, a head each
+_TILE_MAX_WARPS = 8
+#: most runs of whole tiles a block of the tile backward takes one after
+#: another, copying the next run while it computes this one; the forward
+#: takes one (a second buffer costs it more blocks an SM than it gains)
+_TILE_RUNS = 4
+#: the H100's SMs, for plans made without a card
+_SMS = 132
+#: query rows (row launch) or keys (column launch) of one group's chunk in a
+#: block of the attention backward's token-row launches above
+#: ``_TILE_ROWS``, and their most warps a block: a warp per 16 rows
+_ROWS_TILE = 64
+_ROWS_WARPS = 4
 
 
 def reset_launches() -> None:
@@ -153,6 +170,91 @@ def token_rows_attention_bwd_plain(qkv_g, qkv_cls, seq_bias, d_tok, *, heads: in
     return d_qkv, d_qkvc.to(qkv_cls.dtype)
 
 
+def rows_plan(B: int, G: int, L: int) -> dict:
+    """Launch shape of the attention backward's token-row launches (the row
+    and column launches of ``csrc/attn_bwd_rows_mma.cuh``) for B videos of G
+    groups of L positions: a warp takes 16 rows (or keys) of one group; a
+    block a ``_ROWS_TILE``-row chunk of one group where L is longer, else
+    whole groups, as many as its ``_ROWS_WARPS`` warps hold (four of L <=
+    16, two of L <= 32, one on three or four warps at L <= 64), numbered ``n
+    = b * G + g`` across videos. Returns ``groups_per_block``,
+    ``row_chunks`` (chunks of a group), ``threads`` and ``blocks`` (of each
+    launch, per head)."""
+    tiles = -(-L // 16)
+    warps_per_group = min(tiles, _ROWS_WARPS)
+    chunks = -(-L // _ROWS_TILE)
+    groups = _ROWS_WARPS // warps_per_group if chunks == 1 else 1
+    return {"groups_per_block": groups, "row_chunks": chunks,
+            "threads": 32 * warps_per_group * groups, "blocks": -(-B * G // groups) * chunks}
+
+
+def plan(B: int, G: int, L: int, heads: int, dim_head: int = _KERNEL_DH,
+         sms: int = _SMS) -> dict:
+    """Launch shape of the token-row kernels for B videos of G groups of L
+    positions at ``heads`` heads on a card of ``sms`` SMs; the wrappers pass
+    it to the kernels as it is.
+
+    Up to L = 16 (``tiled``) both kernels run the tile of
+    ``csrc/token_rows_tile.cuh``: a warp owns 16 rows of one head holding
+    ``groups_per_tile`` = 16 // L whole groups under a block-diagonal mask.
+    A block takes such a tile's groups (a run; never two videos: an odd G
+    leaves a video's last tile short) at ``heads_per_block`` heads, a warp a
+    head (``threads``); its grid is ``fwd_blocks`` or ``bwd_blocks`` by
+    ``head_chunks``. The forward takes one run a block; the backward
+    ``bwd_runs``, up to ``_TILE_RUNS`` one after another, double-buffered,
+    as many as leave two blocks an SM, and writes one fp32 partial of the CLS
+    key's gradients a block and head, ``kv_part``; ``row_stats`` is None.
+    ``smem_fwd`` and ``smem_bwd`` are the blocks' shared memory in bytes.
+
+    Above, the forward runs the divided forward's token rows (a block per
+    (b, g, h) of ``fwd_threads``) and the backward the divided backward's
+    row and column launches (:func:`rows_plan`: ``groups_per_block``,
+    ``row_chunks``, ``threads``, ``blocks``) with a partial a group chunk
+    and head (``kv_part``) and each row's max, sum and s_dot
+    (``row_stats``).
+
+    ``fwd_launches`` and ``bwd_launches`` count a call's CUDA launches (the
+    backward's last one is the ordered reduce of the partials)."""
+    if L <= _TILE_ROWS:
+        gpt = _TILE_ROWS // L
+        head_chunks = -(-heads // _TILE_MAX_WARPS)
+        hpb = -(-heads // head_chunks)
+        blocks = lambda runs: B * -(-G // (gpt * runs))  # noqa: E731
+        bwd_runs = next((r for r in range(_TILE_RUNS, 1, -1) if blocks(r) >= 2 * sms), 1)
+        tile = 2 * _TILE_ROWS * dim_head  # bytes of a bf16 tile
+        cls = 4 * 2 * hpb * dim_head  # k_cls and v_cls in fp32
+        col0 = 4 * hpb * 2 * dim_head  # the backward's column-0 sums of each head
+        return {"tiled": True, "groups_per_tile": gpt, "heads_per_block": hpb,
+                "head_chunks": head_chunks, "threads": 32 * hpb,
+                "fwd_blocks": blocks(1), "bwd_runs": bwd_runs,
+                "bwd_blocks": blocks(bwd_runs), "row_chunks": 0,
+                "kv_part": (blocks(bwd_runs), heads, 2, dim_head), "row_stats": None,
+                "smem_fwd": 3 * hpb * tile + cls,
+                "smem_bwd": (2 if bwd_runs > 1 else 1) * 4 * hpb * tile + cls + col0,
+                "fwd_threads": 32 * hpb, "fwd_launches": 1, "bwd_launches": 2}
+    rows = rows_plan(B, G, L)
+    return {"tiled": False, "groups_per_tile": 0, "heads_per_block": 0, "bwd_runs": 0, **rows,
+            "head_chunks": heads,
+            "kv_part": (B * G * rows["row_chunks"], heads, 2, dim_head),
+            "row_stats": (B, G, heads, L, 3), "fwd_threads": 32 * min(4, -(-L // 16)),
+            "fwd_launches": 1, "bwd_launches": 3}
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its start and every stride but the last are 16-byte aligned,
+    else a copy in its stride order (a model's views always are aligned)."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in t.stride()[:-1]):
+        return t
+    out = _empty_grouped(t, t.shape[-1]) if t.dim() == 4 else torch.empty_like(
+        t, memory_format=torch.contiguous_format)
+    return out.copy_(t)
+
+
 def _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head):
     B, G, L, c3 = qkv_g.shape
     if dim_head != _KERNEL_DH:
@@ -168,10 +270,8 @@ def _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head):
             raise ValueError(f"token_rows_attention: {name} is not on the card with qkv")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"token_rows_attention kernel takes bf16, {name} is {t.dtype}")
-        # the kernel reads pairs of bf16 as one 4-byte word
-        if t.stride(-1) != 1 or t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:-1]):
-            raise ValueError(f"token_rows_attention kernel needs unit stride on {name}'s last"
-                             " axis, even strides and 4-byte alignment")
+        if t.stride(-1) != 1:
+            raise ValueError(f"token_rows_attention kernel needs unit stride on {name}'s last axis")
     if seq_bias is not None:
         if seq_bias.shape != (B, L, 1 + L) or seq_bias.dtype != torch.float32 \
                 or not seq_bias.is_contiguous() or seq_bias.device != qkv_g.device:
@@ -180,55 +280,79 @@ def _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head):
 
 
 def token_rows_attention_cuda(qkv_g, qkv_cls, seq_bias, *, heads: int, dim_head: int):
-    """Launch the CUDA kernel. ``qkv_g`` may be any strided view whose last
-    axis is contiguous (the time axis passes the (B, n, F, ·) transpose of
-    the natural layout); the output gets the same stride order."""
+    """Launch the CUDA kernel under :func:`plan`. ``qkv_g`` may be any
+    strided view whose last axis is contiguous (the time axis passes the
+    (B, n, F, ·) transpose of the natural layout); the output gets the same
+    stride order. A view whose start or strides are not 16-byte aligned is
+    copied first."""
     global launches
     _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head)
     B, G, L, _ = qkv_g.shape
     dev = qkv_g.device
+    # the launches stage rows by 16-byte copies
+    qkv_g, qkv_cls = _aligned16(qkv_g), _aligned16(qkv_cls)
+    p = plan(B, G, L, heads, dim_head, _sms(dev))
+    tile = [p["groups_per_tile"], p["heads_per_block"], p["threads"] if p["tiled"] else 0]
     out = _empty_grouped(qkv_g, heads * dim_head)
     lib = _build.load("token_rows_attention")
     fn = lib.token_rows_attention_fwd
     i64, ptr = ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = ([ptr, i64, i64, i64, ptr, i64, ptr, ptr, i64, i64, i64]
-                   + [ctypes.c_int] * 5 + [ptr])
+                   + [ctypes.c_int] * 8 + [ptr])
     fn.restype = ctypes.c_int
     sb, sg, sl, _ = qkv_g.stride()
     ob, og, ol, _ = out.stride()
     with torch.cuda.device(dev):
         status = fn(qkv_g.data_ptr(), sb, sg, sl, qkv_cls.data_ptr(), qkv_cls.stride(0),
                     None if seq_bias is None else seq_bias.data_ptr(), out.data_ptr(), ob, og, ol,
-                    B, G, L, heads, dim_head, torch.cuda.current_stream(dev).cuda_stream)
+                    B, G, L, heads, dim_head, *tile, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "token_rows_attention")
     launches += 1
     return out
 
 
+def bwd_scratch(p: dict, device):
+    """The backward's fp32 scratch under the plan ``p``: (kv_part,
+    row_stats or None), each written before it is read."""
+    f32 = torch.float32
+    return (torch.empty(p["kv_part"], dtype=f32, device=device),
+            None if p["row_stats"] is None else torch.empty(p["row_stats"], dtype=f32,
+                                                            device=device))
+
+
 def token_rows_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, d_tok, *, heads: int,
                                   dim_head: int):
-    """Launch the backward kernel; same results as
+    """Launch the backward kernels under :func:`plan`; same results as
     :func:`token_rows_attention_bwd_plain`. ``d_tok`` may be any strided view
-    whose last axis is contiguous. Scratch it allocates: the per-group fp32
-    partials of the CLS key and value gradients, (B, G, H, 2, dh)."""
+    whose last axis is contiguous; a view whose start or strides are not
+    16-byte aligned is copied first. Scratch it allocates
+    (:func:`bwd_scratch`): the fp32 partials of the CLS key and value
+    gradients, and above 16 positions the rows' softmax statistics."""
     global bwd_launches
     _check_kernel_args(qkv_g, qkv_cls, seq_bias, heads, dim_head)
     B, G, L, c3 = qkv_g.shape
     dev = qkv_g.device
     d_tok = d_tok.to(qkv_g.dtype)
-    if d_tok.stride(-1) != 1 or d_tok.data_ptr() % 4 or any(s % 2 for s in d_tok.stride()[:-1]):
+    if d_tok.stride(-1) != 1:
         d_tok = d_tok.contiguous()
     if d_tok.shape != (B, G, L, heads * dim_head) or d_tok.device != dev:
         raise ValueError(f"token_rows_attention: cotangent {tuple(d_tok.shape)} does not match"
                          f" qkv {tuple(qkv_g.shape)}")
+    # the launches stage rows by 16-byte copies
+    qkv_g, qkv_cls, d_tok = (_aligned16(t) for t in (qkv_g, qkv_cls, d_tok))
+    p = plan(B, G, L, heads, dim_head, _sms(dev))
+    if p["tiled"]:
+        launch = [p["groups_per_tile"], p["heads_per_block"], p["bwd_runs"], 0, 0, p["threads"]]
+    else:
+        launch = [0, 0, 0, p["groups_per_block"], p["row_chunks"], p["threads"]]
     d_qkv = _empty_grouped(qkv_g, c3)
     d_qkvc = torch.empty((B, 1, c3), dtype=qkv_cls.dtype, device=dev)
-    kv_part = torch.empty((B, G, heads, 2, dim_head), dtype=torch.float32, device=dev)
+    kv_part, row_stats = bwd_scratch(p, dev)
     lib = _build.load("token_rows_attention_bwd")
     fn = lib.token_rows_attention_bwd
     i64, ptr = ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = ([ptr, i64, i64, i64, ptr, i64, ptr, ptr, i64, i64, i64, ptr, i64, i64, i64,
-                    ptr, i64, ptr] + [ctypes.c_int] * 5 + [ptr])
+                    ptr, i64, ptr, ptr] + [ctypes.c_int] * 11 + [ptr])
     fn.restype = ctypes.c_int
     sb, sg, sl, _ = qkv_g.stride()
     tb, tg, tl, _ = d_tok.stride()
@@ -238,7 +362,9 @@ def token_rows_attention_bwd_cuda(qkv_g, qkv_cls, seq_bias, d_tok, *, heads: int
                     None if seq_bias is None else seq_bias.data_ptr(),
                     d_tok.data_ptr(), tb, tg, tl, d_qkv.data_ptr(), ob, og, ol,
                     d_qkvc.data_ptr(), d_qkvc.stride(0), kv_part.data_ptr(),
-                    B, G, L, heads, dim_head, torch.cuda.current_stream(dev).cuda_stream)
+                    None if row_stats is None else row_stats.data_ptr(),
+                    B, G, L, heads, dim_head, *launch,
+                    torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "token_rows_attention_bwd")
     bwd_launches += 1
     return d_qkv, d_qkvc

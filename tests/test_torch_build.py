@@ -32,8 +32,23 @@ def test_target_changes_when_an_included_file_changes(csrc, edited, changes):
 
 
 def test_attention_backward_key_covers_the_mma_header():
+    """The divided backward rebuilds when its token-row launches (shared
+    with the token-row backward), the row-tile routines or the mma helpers
+    change."""
     names = [p.name for p in _build._sources(_build.CSRC / "divided_attention_bwd.cu")]
-    assert names == ["divided_attention_bwd.cu", "attn_rows_mma.cuh", "warp_mma.cuh"]
+    assert names == ["divided_attention_bwd.cu", "attn_bwd_rows_mma.cuh", "attn_rows_mma.cuh",
+                     "warp_mma.cuh"]
+
+
+@pytest.mark.parametrize("name,headers", [
+    ("token_rows_attention", ["token_rows_tile.cuh", "attn_rows_mma.cuh", "warp_mma.cuh"]),
+    ("token_rows_attention_bwd", ["attn_bwd_rows_mma.cuh", "token_rows_tile.cuh",
+                                  "attn_rows_mma.cuh", "warp_mma.cuh"])])
+def test_token_rows_keys_cover_the_tile_headers(name, headers):
+    """The token-row kernels rebuild when their tile, the shared row
+    launches or the mma helpers under them change."""
+    names = [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
+    assert names == [f"{name}.cu", *headers]
 
 
 @pytest.mark.parametrize("name", ["divided_attention", "grouped_attention"])

@@ -111,8 +111,9 @@ def test_probes_refuse_the_cpu():
     """The probes time CUDA kernels: without a card, or asked for the CPU,
     they raise instead of timing something else."""
     from mintime_torch.experiments import (attn_kernel_variants, dw_conv_bwd_cuda_vs_cudnn,
-                                           dw_conv_cuda_vs_cudnn)
+                                           dw_conv_cuda_vs_cudnn, token_rows_phases)
 
-    for mod in (attn_kernel_variants, dw_conv_cuda_vs_cudnn, dw_conv_bwd_cuda_vs_cudnn):
+    for mod in (attn_kernel_variants, dw_conv_cuda_vs_cudnn, dw_conv_bwd_cuda_vs_cudnn,
+                token_rows_phases):
         with pytest.raises(RuntimeError, match="card"):
             mod.run(device="cpu")

@@ -2,9 +2,11 @@
 the FFN forward's tiles and k slices (``ops/geglu_ffn.py::fwd_plan``), the
 FFN backward's split-K planner (``ops/geglu_ffn.py::product_splits``),
 the depthwise forward's channel tile and row ring (``ops/dw_conv.py::
-plan``) and the attention backward's group packs, row chunks and CLS-row
-chunks (``ops/divided_attention.py::bwd_plan``). The kernels take these
-plans as they are, so what is checked here is what runs on the card."""
+plan``), the attention backward's group packs, row chunks and CLS-row
+chunks (``ops/divided_attention.py::bwd_plan``) and the token-row kernels'
+tiles of whole groups, blocks and scratch (``ops/token_rows.py::plan``).
+The kernels take these plans as they are, so what is checked here is what
+runs on the card."""
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from mintime_torch.experiments.dw_conv_cuda_vs_cudnn import GEOMS
 from mintime_torch.ops import divided_attention as da
 from mintime_torch.ops import dw_conv
 from mintime_torch.ops import geglu_ffn as ffn
+from mintime_torch.ops import token_rows as tr
 
 SMS = 132  # the H100's SMs
 
@@ -290,3 +293,143 @@ def test_attention_bwd_plan_at_the_main_path_shapes():
         plan = da.bwd_plan(*shape)
         assert (plan["groups_per_block"], plan["row_chunks"], plan["blocks"],
                 plan["cls_chunks"], plan["threads"]) == (gpb, chunks, blocks, cls_chunks, 128)
+
+
+#: group counts of the token-row plan's cases: one group, odd counts (a
+#: video's last tile short), the masked rows' 96, the conv time axis's 1280
+TOKEN_ROWS_GROUPS = (1, 7, 96, 1280, 1281)
+
+
+def _token_tile_rows(p, G, L, runs, block, chunk, run, warp):
+    """The (b, g, position, head) rows that warp ``warp`` takes in run
+    ``run`` of block ``(block, chunk)`` of a tiled token-row launch of
+    ``runs`` runs a block under ``p``, found as the kernel finds them
+    (``csrc/token_rows_tile.cuh``: ``block_of``, ``run_of``, a warp a head),
+    as an array of four columns."""
+    gpt, hpb = p["groups_per_tile"], p["heads_per_block"]
+    span = gpt * runs
+    bpv = -(-G // span)
+    b, g_first = block // bpv, block % bpv * span
+    none = np.zeros((0, 4), np.int64)
+    if run >= -(-min(span, G - g_first) // gpt):  # the block's runs
+        return none
+    g0 = g_first + run * gpt
+    groups = min(gpt, G - g0)
+    h0 = chunk * hpb
+    if warp >= min(hpb, p["heads"] - h0):
+        return none
+    r = np.arange(16)
+    r = r[(r < gpt * L) & (r // L < groups)]
+    return np.stack([np.full_like(r, b), g0 + r // L, r % L, np.full_like(r, h0 + warp)], 1)
+
+
+def _token_rows_coverage(B, G, L, heads, which):
+    """How many warp tiles of the token-row forward or backward (``which``)
+    hold each (b, g, position, head) under the plan, after checking that
+    every tile lies in one video; the tiled path's items, the divided row
+    launch's tiles above."""
+    p = {**tr.plan(B, G, L, heads), "heads": heads}
+    seen = np.zeros((B, G, L, heads), np.int64)
+    if p["tiled"]:
+        runs = p["bwd_runs"] if which == "bwd" else 1
+        blocks = p[f"{which}_blocks"]
+        assert p["threads"] == 32 * p["heads_per_block"] <= 256
+        assert blocks == B * -(-G // (p["groups_per_tile"] * runs))
+        for block in range(blocks):
+            for chunk in range(p["head_chunks"]):
+                for run in range(runs):
+                    for warp in range(p["threads"] // 32):
+                        rows = _token_tile_rows(p, G, L, runs, block, chunk, run, warp)
+                        if len(rows):
+                            assert len(set(rows[:, 0])) == 1 and rows[0, 0] < B, (block, warp)
+                            assert 1 <= len(rows) <= 16 and (rows[:, 1] < G).all()
+                            np.add.at(seen, tuple(rows.T), 1)
+        return seen
+    # above 16 positions: the divided backward's row launch, a tile one group's
+    # 16 rows at every head (``_tile`` finds them as the kernel does)
+    assert p["head_chunks"] == heads
+    for block in range(p["blocks"]):
+        for warp in range(p["threads"] // 32):
+            tile = _tile(p, B, G, L, block, warp)
+            if tile is not None:
+                n, first, count = tile
+                seen[n // G, n % G, first:first + count] += 1
+    return seen
+
+
+@pytest.mark.parametrize("G", TOKEN_ROWS_GROUPS)
+@pytest.mark.parametrize("L", range(1, 65))
+def test_token_rows_plan_covers_every_row_once(L, G):
+    """Every (b, g, position, head) of the token rows falls in exactly one
+    warp tile of the forward and one of the backward, and no tile holds rows
+    of two videos: up to 16 positions a tile holds 16 // L whole groups of
+    one video, above it 16 rows of one group."""
+    for which in ("fwd", "bwd"):
+        seen = _token_rows_coverage(2, G, L, 6, which)
+        assert (seen == 1).all(), (which, G, L, np.argwhere(seen != 1)[:4])
+
+
+@pytest.mark.parametrize("heads", [1, 8, 9, 16])
+@pytest.mark.parametrize("L", [1, 5, 8, 16])
+def test_token_rows_plan_splits_many_heads_over_blocks(heads, L):
+    """More heads than a block's eight warps go to several head chunks of
+    the same rows; each (row, head) still falls in one tile."""
+    p = tr.plan(3, 7, L, heads)
+    assert p["heads_per_block"] * p["head_chunks"] >= heads > p["heads_per_block"] * (
+        p["head_chunks"] - 1)
+    assert p["threads"] <= 256
+    assert (_token_rows_coverage(3, 7, L, heads, "bwd") == 1).all()
+
+
+@pytest.mark.parametrize("L", range(1, 65))
+def test_token_rows_scratch_is_what_the_wrapper_allocates(L):
+    """The backward's fp32 scratch has the plan's shapes, and those are the
+    kernels' layouts: up to 16 positions a CLS-key partial a block and head
+    (the tile launch writes element ((x * H + h) * 2 + k/v) * dh + e of
+    block x), above a partial a group chunk and head and three statistics
+    a row; the tile launches' shared memory fits an SM."""
+    for G in TOKEN_ROWS_GROUPS:
+        p = tr.plan(2, G, L, 6)
+        kv_part, row_stats = tr.bwd_scratch(p, "cpu")
+        assert kv_part.dtype == torch.float32
+        if p["tiled"]:
+            assert kv_part.shape == (p["bwd_blocks"], 6, 2, 64) and row_stats is None
+            assert max(p["smem_fwd"], p["smem_bwd"]) <= 227 * 1024
+            assert p["bwd_launches"] == 2
+        else:
+            assert kv_part.shape == (2 * G * p["row_chunks"], 6, 2, 64)
+            assert row_stats.shape == (2, G, 6, L, 3) and p["bwd_launches"] == 3
+        assert p["fwd_launches"] == 1
+
+
+def test_token_rows_plan_at_the_main_path_shape():
+    """The conv time axis (8 videos, 1280 groups of 8 frames, 6 heads): two
+    groups a warp tile and all six heads a block (six warps); the forward a
+    pair of groups a block, 640 blocks a video; the backward four pairs in
+    turn, double-buffered, 160 blocks a video and one partial a block."""
+    p = tr.plan(8, 1280, 8, 6)
+    assert {k: p[k] for k in ("tiled", "groups_per_tile", "heads_per_block", "head_chunks",
+                              "threads", "fwd_blocks", "bwd_runs", "bwd_blocks")} == {
+        "tiled": True, "groups_per_tile": 2, "heads_per_block": 6, "head_chunks": 1,
+        "threads": 192, "fwd_blocks": 5120, "bwd_runs": 4, "bwd_blocks": 1280}
+    assert p["kv_part"] == (1280, 6, 2, 64)
+    assert (p["smem_fwd"], p["smem_bwd"]) == (6 * 6144 + 3072, 2 * 6 * 8192 + 6144)
+
+
+@pytest.mark.parametrize("G,runs", [(1280, 4), (96, 1), (7, 1), (200, 3)])
+def test_token_rows_backward_runs_leave_two_blocks_an_sm(G, runs):
+    """The backward takes up to four runs a block, as many as leave at least
+    two blocks an SM of the H100 (8 videos of G groups of 8 frames)."""
+    p = tr.plan(8, G, 8, 6)
+    assert p["bwd_runs"] == runs
+    assert runs == 1 or p["bwd_blocks"] >= 2 * 132
+
+
+def test_token_rows_long_axes_take_the_divided_backward_plan():
+    """Above 16 positions the token-row backward launches the divided
+    backward's row and column launches with that plan's group packs."""
+    for L in (17, 33, 49, 64):
+        p = tr.plan(8, 96, L, 6)
+        want = da.bwd_plan(8, 96, L)
+        assert {k: p[k] for k in ("groups_per_block", "row_chunks", "threads", "blocks")} == {
+            k: want[k] for k in ("groups_per_block", "row_chunks", "threads", "blocks")}

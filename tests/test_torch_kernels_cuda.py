@@ -536,3 +536,97 @@ def test_token_rows_backward_kernel_on_card_at_long_axes(L, masked):
     assert not got[1][..., :H * dh].any()
     _close_per_gradient(got, port_rows.token_rows_attention_bwd_plain(qkv, qkvc, sb, d_tok, **kw),
                         f"token rows L={L} seq_bias={masked}")
+
+
+def _token_rows_case(gen, B, G, L, masked, H=6, dh=64, unaligned=False):
+    """The time axis as the conv model passes it, qkv (B, L, G, 3*H*dh) seen
+    as its (B, G, L, ·) transpose, its cotangent likewise; with ``masked`` a
+    seq_bias that masks video 1's frames from 5 on (the CLS key kept);
+    ``unaligned`` takes both from buffers one value wider, so that no row
+    starts on 16 bytes."""
+    c3, inner, pad = 3 * H * dh, H * dh, int(unaligned)
+    qkv = torch.randn(B, L, G, c3 + pad, generator=gen).cuda().bfloat16()[..., pad:]
+    d_tok = torch.randn(B, L, G, inner + pad, generator=gen).cuda().bfloat16()[..., pad:]
+    qkvc = torch.randn(B, 1, c3, generator=gen).cuda().bfloat16()
+    sb = None
+    if masked:
+        mask = torch.ones(B, L, dtype=torch.bool)
+        mask[1, min(5, L - 1):] = False
+        frame = torch.cat([torch.ones(B, L, 1, dtype=torch.bool),
+                           mask[:, None, :].expand(B, L, L)], dim=-1)
+        sb = port_divided.mask_to_bias(frame.cuda())
+    return qkv.transpose(1, 2), qkvc, sb, d_tok.transpose(1, 2), dict(heads=H, dim_head=dh)
+
+
+def _check_token_rows(qkv, qkvc, sb, d_tok, kw, what):
+    """Forward within 2e-2 of plain, each gradient within 2e-2 of its max
+    |plain|, the outputs in qkv's stride order, the CLS query's third of
+    d_qkvc exactly zero."""
+    H, dh = kw["heads"], kw["dim_head"]
+    got = port_rows.token_rows_attention_cuda(qkv, qkvc, sb, **kw)
+    torch.testing.assert_close(got.float(),
+                               port_rows.token_rows_attention_plain(qkv, qkvc, sb, **kw).float(),
+                               atol=2e-2, rtol=2e-2, msg=lambda m: f"{what}: {m}")
+    assert got.stride() == port_rows._empty_grouped(qkv, H * dh).stride()
+    got = port_rows.token_rows_attention_bwd_cuda(qkv, qkvc, sb, d_tok, **kw)
+    torch.cuda.synchronize()
+    assert got[0].stride() == port_rows._empty_grouped(qkv, 3 * H * dh).stride()
+    assert not got[1][..., :H * dh].any(), what
+    _close_per_gradient(got, port_rows.token_rows_attention_bwd_plain(qkv, qkvc, sb, d_tok, **kw),
+                        what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("L", list(range(1, 17)) + [33, 49, 64])
+def test_token_rows_kernels_on_card_at_every_short_length(L, masked):
+    """Forward and backward against plain at every L the tile launches take
+    (16 // L groups a warp tile) and at the long axes, on 3 videos of an odd
+    7 groups, so that video 1 (masked with ``masked``) begins mid-tile in a
+    numbering across videos (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(16 + L)
+    _check_token_rows(*_token_rows_case(gen, 3, 7, L, masked), f"L={L} seq_bias={masked}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 7, 1281])
+def test_token_rows_kernels_on_card_at_odd_group_counts(G):
+    """At the conv time axis's 8 frames and odd group counts, so that each
+    video's last tile holds one group, with video 1's frames masked (needs
+    the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(17)
+    _check_token_rows(*_token_rows_case(gen, 2, G, 8, True), f"G={G}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 49])
+def test_token_rows_kernels_on_card_through_an_unaligned_view(L):
+    """Views whose rows do not start on 16 bytes are copied by the wrappers
+    and give the same results (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(18)
+    qkv, qkvc, sb, d_tok, kw = _token_rows_case(gen, 2, 9, L, True, unaligned=True)
+    assert qkv.data_ptr() % 16 and d_tok.data_ptr() % 16
+    _check_token_rows(qkv, qkvc, sb, d_tok, kw, f"unaligned L={L}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,L", [(1280, 8), (96, 49)])
+def test_token_rows_kernels_are_bitwise_stable(G, L):
+    """Two reruns of the forward and the backward give the same bits (no
+    atomics; the CLS key's partials are summed in order) (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(19)
+    qkv, qkvc, sb, d_tok, kw = _token_rows_case(gen, 2, G, L, False)
+    fwd = port_rows.token_rows_attention_cuda(qkv, qkvc, sb, **kw)
+    bwd = port_rows.token_rows_attention_bwd_cuda(qkv, qkvc, sb, d_tok, **kw)
+    for _ in range(2):
+        assert torch.equal(port_rows.token_rows_attention_cuda(qkv, qkvc, sb, **kw), fwd)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(port_rows.token_rows_attention_bwd_cuda(qkv, qkvc, sb, d_tok, **kw), bwd))
