@@ -64,6 +64,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    launches for that forward; kernel-mode logits must match plain-mode logits
    within 2e-2 on the card and a CPU fp32 run of the same weights within
    5e-2; throughput at batch 8 and latency at batch 1 are printed;
+3b. detect: the port's face detector and embedder at DFDC's frame size, with
+   no hand-written kernel. 8 synthetic BGR videos of 150 frames (5 s at
+   30 fps) at 1920 x 1080 (8-px blocks of seeded noise drifting 4 px a
+   frame), made one video at a time, so the host holds at most two; seeded
+   random-init P/R/O-Nets (seed 1) with their score layers x75 and
+   thresholds (0.03, 0.75, 0.94), which leave about 150 stage-1 candidates
+   and 3.5 faces a frame. ``MTCNNDetector(input_scale=2,
+   channel_order="bgr", device_crops=True)`` runs ``detect_videos`` over all
+   8 (every frame), ``predict.crops_from_frames`` takes a crop a second at
+   full resolution and ``predict.cluster_crops`` embeds them with the
+   ``FaceEmbedder`` (random-init InceptionResnetV1 at 128 px, fp32). Checks:
+   the nets' parameters on the card; the native NMS library loaded; no
+   P-Net truncation warning; on two frames of video 0 the card's boxes
+   against the same detector on the CPU and against ``device_crops=False``
+   on the card within 2e-2, with the same counts; video 0's embeddings on
+   the card against the CPU's within 1e-4 and the same cluster memberships;
+   no kernel launched. Printed: detection frames/s by host clock (frame
+   making excluded), device ms of stage 1 and of stages 2-3 by CUDA events,
+   host ms of NMS and of the box bookkeeping, candidates and faces a frame,
+   the embedder's crops/s and device ms, clustering ms, peak memory;
 4. profile: one forward at batch 8 and at batch 1 under ``torch.profiler``:
    the device's busy and idle share of the host window, device time by
    layer (cuDNN convolutions, cuBLAS matmuls, the kernels, copies, the rest)
@@ -1345,6 +1365,253 @@ def phase_slice(smi):
     return launches, model, stacked
 
 
+# 3b. detect: the port's face detector and embedder at DFDC's frame size
+DETECT_VIDEOS = 8
+DETECT_FRAMES = 150  # 5 s at 30 fps
+DETECT_FPS = 30
+DETECT_SIZE = (1080, 1920)  # DFDC's frame size, BGR
+DETECT_SEED = 1
+#: with the x75 score layers at seed 1, these leave about 150 stage-1
+#: candidates and 0-10 faces (3.5 on average) a frame of the synthetic
+#: videos, and no P-Net level near the 512-cell cap
+DETECT_THRESHOLDS = (0.03, 0.75, 0.94)
+
+
+def _detect_weights(seed: int) -> dict:
+    """Random-init P/R/O-Nets from ``seed``, their score layers x75 (as
+    ``tests/test_mtcnn_oracle.py``), so no threshold decision sits within
+    backend noise of a cut."""
+    from mintime_torch.preprocessing.mtcnn import MTCNNDetector
+
+    sds = MTCNNDetector.init_state_dicts(seed)
+    for net, layer in (("pnet", "conv4_1"), ("rnet", "dense5_1"), ("onet", "dense6_1")):
+        for k in ("weight", "bias"):
+            sds[net][f"{layer}.{k}"] = sds[net][f"{layer}.{k}"] * 75.0
+    return sds
+
+
+def _detect_video(v: int, seed: int) -> list:
+    """One synthetic BGR video: 8-px blocks of seeded noise drifting 4 px a
+    frame to the right."""
+    import numpy as np
+
+    H, W = DETECT_SIZE
+    rng = np.random.default_rng([seed, v])
+    base = np.kron(rng.integers(0, 256, (H // 8, W // 8, 3), dtype=np.uint8),
+                   np.ones((8, 8, 1), np.uint8))
+    return [np.roll(base, 4 * t, axis=1) for t in range(DETECT_FRAMES)]
+
+
+def _instrument(det, mtcnn_mod, stats):
+    """Time the detector's stages: CUDA events around stage 1 and the
+    stage-2/3 crops and nets, host clocks around NMS, the wait for stage 1's
+    head and the whole host finish; count each stage's candidates. Returns a
+    function that takes the module's NMS wrappers off again."""
+    import torch
+
+    def host_timed(fn, key):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                stats[key + "_host_s"] += time.perf_counter() - t
+        return run
+
+    def device_timed(fn, key):
+        def run(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = host_timed(fn, key)(*a, **k)
+            end.record()
+            stats["events"].append((key, start, end))
+            return out
+        return run
+
+    def counted(fn):
+        def run(frames, cand, size, name, *rest):
+            stats[name + "_candidates"] += sum(len(b) for b in cand)
+            return fn(frames, cand, size, name, *rest)
+        return run
+
+    det._pnet_pyramid = device_timed(det._pnet_pyramid, "stage1")
+    det._stage_net_device = device_timed(det._stage_net_device, "stages23")
+    det._head = host_timed(det._head, "head_wait")
+    det._finish_detect = host_timed(det._finish_detect, "finish")
+    det._run_stage = counted(det._run_stage)
+    saved = {name: getattr(mtcnn_mod, name) for name in ("nms_tv", "nms")}
+    for name, fn in saved.items():
+        setattr(mtcnn_mod, name, host_timed(fn, "nms"))
+    return lambda: [setattr(mtcnn_mod, n, f) for n, f in saved.items()]
+
+
+def _device_ms(stats, key) -> float:
+    return sum(s.elapsed_time(e) for k, s, e in stats["events"] if k == key)
+
+
+def phase_detect(smi):
+    """Find and cluster faces on the card: 8 videos of 150 frames at
+    1920 x 1080 through ``MTCNNDetector.detect_videos`` (one video of
+    lookahead), a crop a second, then ``predict.cluster_crops`` with the
+    FaceEmbedder's full InceptionResnetV1 at 128 px. No hand-written kernel
+    runs here. Returns the launch counts of that path (all 0) and its
+    seconds."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from mintime_torch import native, predict
+    from mintime_torch.preprocessing import mtcnn
+    from mintime_torch.preprocessing.cluster_faces import FaceEmbedder, connected_components
+
+    sds = _detect_weights(DETECT_SEED)
+    kw = dict(thresholds=DETECT_THRESHOLDS, input_scale=2, channel_order="bgr")
+    det = mtcnn.MTCNNDetector(sds, device_crops=True, device="cuda", **kw)
+    emb_sd = FaceEmbedder.init_state_dict(DETECT_SEED)
+    emb = FaceEmbedder(emb_sd, device="cuda")
+    devices = {p.device.type for n in det.nets.values() for p in n.parameters()}
+    devices |= {p.device.type for p in emb.net.parameters()}
+    if devices != {"cuda"}:
+        raise AssertionError(f"detector and embedder parameters on {devices}, want cuda only")
+
+    stats = collections.defaultdict(float)
+    stats["events"] = []
+    restore = _instrument(det, mtcnn, stats)
+    kept, two, gen_s = {}, [], [0.0]
+
+    def videos():
+        for v in range(DETECT_VIDEOS):
+            t = time.perf_counter()
+            frames = _detect_video(v, DETECT_SEED)
+            kept[v] = {i: frames[i] for i in range(0, DETECT_FRAMES, DETECT_FPS)}
+            if v == 0:
+                two.extend([frames[0], frames[DETECT_FRAMES // 2]])
+            gen_s[0] += time.perf_counter() - t
+            yield frames
+
+    def embed(crops):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        out = emb(crops)
+        end.record()
+        torch.cuda.synchronize()
+        stats["embed_host_s"] += time.perf_counter() - t
+        stats["embed_crops"] += len(crops)
+        stats["events"].append(("embed", start, end))
+        return out
+
+    def main_path():
+        t0 = time.perf_counter()
+        per_video = det.detect_videos(videos())
+        torch.cuda.synchronize()
+        stats["detect_host_s"] = time.perf_counter() - t0 - gen_s[0]
+        out = []
+        for v, boxes_v in enumerate(per_video):
+            boxes = {str(i): b[:, :4].tolist() if len(b) else None for i, b in enumerate(boxes_v)}
+            crops = predict.crops_from_frames(kept[v], boxes, DETECT_FPS)
+            t = time.perf_counter()
+            identities, _ = predict.cluster_crops(crops, embed)
+            stats["cluster_host_s"] += time.perf_counter() - t
+            out.append((boxes_v, crops, identities))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            results, launches = _step_launches(main_path)
+        finally:
+            restore()
+    seconds = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if any(launches.values()):
+        raise AssertionError(f"the detect path launched hand-written kernels: {launches}")
+    truncation = [str(w.message) for w in caught if "P-Net" in str(w.message)]
+
+    frames_total = DETECT_VIDEOS * DETECT_FRAMES
+    faces = [[len(b) for b in r[0]] for r in results]
+    n_faces = sum(map(sum, faces))
+    n_crops = [len(r[1]) for r in results]
+    finish_s = stats["finish_host_s"]
+    bookkeeping_s = (finish_s - stats["nms_host_s"] - stats["stages23_host_s"]
+                     - stats["head_wait_host_s"])
+    emit({"phase": "detect", "card": smi, "videos": DETECT_VIDEOS,
+          "frames_per_video": DETECT_FRAMES, "frame_hw": list(DETECT_SIZE),
+          "thresholds": list(DETECT_THRESHOLDS), "input_scale": 2, "device_crops": True,
+          "seconds": seconds, "launches": launches,
+          "detect_host_s": stats["detect_host_s"],
+          "detect_frames_per_s": frames_total / stats["detect_host_s"],
+          "frame_generation_s": gen_s[0],
+          "stage1_device_ms": _device_ms(stats, "stage1"),
+          "stages23_device_ms": _device_ms(stats, "stages23"),
+          "stage1_head_wait_host_ms": 1e3 * stats["head_wait_host_s"],
+          "stages23_host_ms": 1e3 * stats["stages23_host_s"],
+          "nms_host_ms": 1e3 * stats["nms_host_s"],
+          "bookkeeping_host_ms": 1e3 * bookkeeping_s,
+          "finish_host_ms": 1e3 * finish_s,
+          "candidates_per_frame": {"rnet": stats["rnet_candidates"] / frames_total,
+                                   "onet": stats["onet_candidates"] / frames_total},
+          "faces_per_frame": n_faces / frames_total,
+          "faces_per_frame_min_max": [min(map(min, faces)), max(map(max, faces))],
+          "crops_per_video": n_crops,
+          "identities_per_video": [len(r[2]) for r in results],
+          "embed_crops_per_s": stats["embed_crops"] / stats["embed_host_s"],
+          "embed_device_ms": _device_ms(stats, "embed"),
+          "cluster_ms": 1e3 * (stats["cluster_host_s"] - stats["embed_host_s"]),
+          "peak_mem_gib": peak_gib, "truncation_warnings": truncation})
+    if truncation:
+        raise AssertionError(f"P-Net truncation warnings: {truncation}")
+    if not n_faces:
+        raise AssertionError("the detector found no face")
+
+    # checks, off the main path
+    lib = native._lib
+    native_ok = lib is not None and lib._name == str(native.library_path())
+    card = det.detect_batch(two)
+    cpu = mtcnn.MTCNNDetector(sds, device_crops=True, device="cpu", **kw).detect_batch(two)
+    host_crops = mtcnn.MTCNNDetector(sds, device_crops=False, device="cuda", **kw).detect_batch(two)
+
+    def box_err(a, b):
+        if [len(x) for x in a] != [len(x) for x in b]:
+            return None
+        return max([float(np.abs(x - y).max()) for x, y in zip(a, b) if len(x)], default=0.0)
+
+    cpu_err, host_crops_err = box_err(card, cpu), box_err(card, host_crops)
+    crops = results[0][1]
+    e_card = emb([c[2] for c in crops])
+    e_cpu = FaceEmbedder(emb_sd, device="cpu")([c[2] for c in crops])
+    emb_err = float(np.abs(e_card - e_cpu).max())
+    same_members = (connected_components(e_card @ e_card.T)
+                    == connected_components(e_cpu @ e_cpu.T))
+    sims = e_card @ e_card.T
+    warm_ms = time_ms(lambda: emb([c[2] for c in crops]), iters=3, warmup=1)
+    emit({"phase": "detect_check", "card": smi, "native_nms_loaded": native_ok,
+          "native_nms_library": str(native.library_path().name),
+          "boxes_per_frame_card": [len(b) for b in card],
+          "boxes_per_frame_cpu": [len(b) for b in cpu],
+          "boxes_per_frame_host_crops": [len(b) for b in host_crops],
+          "card_vs_cpu_box_err": cpu_err, "device_vs_host_crops_box_err": host_crops_err,
+          "embed_crops": len(crops), "embed_warm_ms_per_call": warm_ms,
+          "card_vs_cpu_embedding_err": emb_err,
+          "memberships_equal": same_members,
+          "similarity_min_max": [float(sims.min()), float(sims.max())]})
+    if not native_ok:
+        raise AssertionError("the native NMS library is not the one loaded")
+    if cpu_err is None or cpu_err > TOL:
+        raise AssertionError(f"card vs CPU boxes: {cpu_err} (None: other box counts) > {TOL}")
+    if host_crops_err is None or host_crops_err > TOL:
+        raise AssertionError(f"device vs host crops boxes: {host_crops_err} > {TOL}")
+    if not emb_err <= 1e-4:
+        raise AssertionError(f"card vs CPU embeddings differ by {emb_err} > 1e-4")
+    if not same_members:
+        raise AssertionError("card and CPU cluster memberships differ")
+    return {"seconds": seconds, **launches}
+
+
 def _kind(name: str) -> str:
     """Coarse layer of a CUDA kernel, from its name."""
     low = name.lower()
@@ -1922,9 +2189,13 @@ def main() -> int:
     phase_profile(smi, model, stacked)
     del model
     torch.cuda.empty_cache()
+    detect = phase_detect(smi)
+    torch.cuda.empty_cache()
     # each main path's launches, read just after it: one flagship serving
-    # forward, one flagship train step, one conv forward, one conv train step
-    paths = {"flagship_forward": launches, "flagship_train_step": phase_train(smi)}
+    # forward, the detector and embedder over 8 videos (no hand-written
+    # kernel), one flagship train step, one conv forward, one conv train step
+    paths = {"flagship_forward": launches, "detect": detect,
+             "flagship_train_step": phase_train(smi)}
     torch.cuda.empty_cache()
     paths["conv_forward"] = phase_conv(smi)
     torch.cuda.empty_cache()

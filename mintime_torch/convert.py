@@ -163,3 +163,63 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.M
         sd = classifier_state_dict(variables, model.config, model.backbone, model.head_kind)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _conv_weight(leaf) -> torch.Tensor:
+    """flax conv kernel ``(kh, kw, in, out)`` → torch ``(out, in, kh, kw)``."""
+    return _t(leaf["kernel"]).permute(3, 2, 0, 1).contiguous()
+
+
+def facenet_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """``InceptionResnetV1`` variables → the port's (facenet-pytorch's)
+    state_dict; the inverse of ``facenet_params_from_torch``. BatchNorm's
+    ``num_batches_tracked``, which that converter drops, comes back as 0."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def convbn(prefix, pleaf, sleaf):
+        sd[f"{prefix}.conv.weight"] = _conv_weight(pleaf["conv"])
+        sd[f"{prefix}.bn.weight"] = _t(pleaf["bn"]["scale"])
+        sd[f"{prefix}.bn.bias"] = _t(pleaf["bn"]["bias"])
+        sd[f"{prefix}.bn.running_mean"] = _t(sleaf["bn"]["mean"])
+        sd[f"{prefix}.bn.running_var"] = _t(sleaf["bn"]["var"])
+        sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+
+    for name in ("conv2d_1a", "conv2d_2a", "conv2d_2b", "conv2d_3b", "conv2d_4a", "conv2d_4b"):
+        convbn(name, params[name], stats[name])
+    blocks = [(f"repeat_1_{i}", f"repeat_1.{i}") for i in range(5)] + [("mixed_6a", "mixed_6a")]
+    blocks += [(f"repeat_2_{i}", f"repeat_2.{i}") for i in range(10)] + [("mixed_7a", "mixed_7a")]
+    blocks += [(f"repeat_3_{i}", f"repeat_3.{i}") for i in range(5)] + [("block8", "block8")]
+    for flax_name, torch_name in blocks:
+        p, s = params[flax_name], stats[flax_name]
+        for branch in s:  # branch0, branch1_0, ... → branch0, branch1.0, ...
+            convbn(f"{torch_name}.{branch.replace('_', '.')}", p[branch], s[branch])
+        if "conv2d" in p:
+            sd[f"{torch_name}.conv2d.weight"] = _conv_weight(p["conv2d"])
+            sd[f"{torch_name}.conv2d.bias"] = _t(p["conv2d"]["bias"])
+    sd["last_linear.weight"] = _t(params["last_linear"]["kernel"]).T.contiguous()
+    sd["last_bn.weight"] = _t(params["last_bn"]["scale"])
+    sd["last_bn.bias"] = _t(params["last_bn"]["bias"])
+    sd["last_bn.running_mean"] = _t(stats["last_bn"]["mean"])
+    sd["last_bn.running_var"] = _t(stats["last_bn"]["var"])
+    sd["last_bn.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def mtcnn_state_dicts(variables: Mapping) -> dict[str, dict[str, torch.Tensor]]:
+    """``{"pnet", "rnet", "onet"}`` variables → facenet-pytorch P/R/O-Net
+    state_dicts; the inverse of ``mtcnn_params_from_torch``."""
+    out = {}
+    for net, v in variables.items():
+        sd: dict[str, torch.Tensor] = {}
+        for name, leaf in v["params"].items():
+            if "alpha" in leaf:  # PReLU
+                sd[f"{name}.weight"] = _t(leaf["alpha"])
+            elif np.ndim(leaf["kernel"]) == 4:
+                sd[f"{name}.weight"] = _conv_weight(leaf)
+                sd[f"{name}.bias"] = _t(leaf["bias"])
+            else:
+                sd[f"{name}.weight"] = _t(leaf["kernel"]).T.contiguous()
+                sd[f"{name}.bias"] = _t(leaf["bias"])
+        out[net] = sd
+    return out

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 def default_dtype(device: torch.device) -> torch.dtype:
     """bf16 on the card (the serving dtype), fp32 on the CPU."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """fp32 products and convolutions without TF32 inside the block (the
+    detector's thresholds and the embedder's 0.45 clustering cut are read
+    off fp32 outputs); the process's settings come back after it."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

@@ -1,10 +1,13 @@
 """End-to-end video inference, the product API (counterpart of
 ``mintime_tpu/predict.py:50-582``).
 
-decode → detect (injected detector) → square crops (one a second) → embed
-(injected embedder) and cluster into identities → adaptive sequence
-assembly → classifier forward with the last layer's CLS attentions →
-sigmoid probability and per-identity attention.
+decode → detect → square crops (one a second) → embed and cluster into
+identities → adaptive sequence assembly → classifier forward with the last
+layer's CLS attentions → sigmoid probability and per-identity attention.
+The detector and embedder are the caller's: the port's own are
+:class:`mintime_torch.preprocessing.mtcnn.MTCNNDetector` (its
+``input_scale`` and ``channel_order`` choose the decode) and
+:class:`mintime_torch.preprocessing.cluster_faces.FaceEmbedder`.
 
 ``model`` is a :class:`mintime_torch.models.classifier.MintimeVideoClassifier`
 built with ``require_attention=True``; ``state`` is an optional mapping of

@@ -1,8 +1,8 @@
 """Import hygiene and device policy of the PyTorch port.
 
-The port must run where there is no JAX, no Flax, no cv2 and no yaml: it
-never imports JAX, Flax or ``mintime_tpu``, and imports cv2 and yaml only
-inside the functions that need them. Its default device is the card, and
+The port must run where there is no JAX, no Flax, no PIL, no cv2 and no
+yaml: it never imports JAX, Flax, PIL or ``mintime_tpu``, and imports cv2
+and yaml only inside the functions that need them. Its default device is the card, and
 without one it raises instead of falling back to the CPU.
 """
 
@@ -17,7 +17,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mintime_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "mintime_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "mintime_tpu", "PIL")
 LAZY_ONLY = ("cv2", "yaml")
 
 
@@ -43,8 +43,11 @@ def test_no_forbidden_or_top_level_lazy_imports(path):
 
 def test_import_pulls_in_no_jax_cv2_or_yaml():
     code = ("import sys, mintime_torch.predict, mintime_torch.models.classifier, "
-            "mintime_torch.convert, mintime_torch.train, mintime_torch.train_loop\n"
-            "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'mintime_tpu') if m in sys.modules]\n"
+            "mintime_torch.convert, mintime_torch.train, mintime_torch.train_loop, "
+            "mintime_torch.preprocessing.mtcnn, mintime_torch.preprocessing.facenet, "
+            "mintime_torch.preprocessing.cluster_faces, mintime_torch.native\n"
+            "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'PIL', 'mintime_tpu') "
+            "if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env, timeout=120)
@@ -59,6 +62,24 @@ def test_default_device_raises_without_a_card():
     cfg = ModelConfig(num_frames=8, num_patches=1, dim=32, depth=1, heads=1, dim_head=32)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         MintimeVideoClassifier(cfg)
+
+
+def test_detector_and_embedder_default_to_the_card():
+    """``MTCNNDetector`` and ``FaceEmbedder`` raise without a card unless the
+    caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from mintime_torch.preprocessing.cluster_faces import FaceEmbedder
+    from mintime_torch.preprocessing.mtcnn import MTCNNDetector
+
+    sds = MTCNNDetector.init_state_dicts()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        MTCNNDetector(sds)
+    sd = FaceEmbedder.init_state_dict()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        FaceEmbedder(sd)
+    assert MTCNNDetector(sds, device="cpu").device.type == "cpu"
+    assert FaceEmbedder(sd, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("device_kw", [{}, {"device": "cuda"}])
