@@ -84,6 +84,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    making excluded), device ms of stage 1 and of stages 2-3 by CUDA events,
    host ms of NMS and of the box bookkeeping, candidates and faces a frame,
    the embedder's crops/s and device ms, clustering ms, peak memory;
+3c. predict (after 3b): the predict CLI's loading code and the whole
+   pipeline from decoded frames, for MINTIME-EF (EfficientNet-B0, 1280
+   channels) and MINTIME-XC (Xception, 2048 channels) at full width (the
+   published Size-Invariant TimeSformer otherwise: 224 px, dim 512, depth 9,
+   8 x 64 heads, F = 16, n = 49, bf16 compute on fp32 parameters).
+   Reference-format weight files of seeded random weights (the TimeSformer
+   head with the reference's oversized embedding tables, each extractor,
+   the three MTCNN nets and FaceNet of phase 3b) are written to a temporary
+   directory in the checkout and read back through
+   ``predict.load_predict_models``; phase 3b's 8 videos run through
+   ``predict.stage_decoded`` (detection with phase 3b's options, crops,
+   identities, the evaluation transform on the card, assembly) and
+   ``predict.predict_assembled`` at batch 8. Checks per backbone: 16
+   attention and 18 FFN launches for the run (one forward); kernel-mode
+   logits against plain mode within 2e-2, the first video's against a CPU
+   fp32 run within 5e-2; the card's evaluation transform against the CPU's
+   on every crop of the run (all under 224 px: the cubic path) and on five
+   larger crops of a frame (the area path; at most one level, on at most
+   0.1% of the pixels); finite probabilities and maps; the identities of
+   phase 3b.
+   Printed: videos/s of the whole pipeline (a second, warm run by host
+   clock ending in a synchronise, frame making excluded), its split into
+   detection, crops, clustering, transform and forward, the forward's
+   device ms at batch 8, peak memory;
 4. profile: one forward at batch 8 and at batch 1 under ``torch.profiler``:
    the device's busy and idle share of the host window, device time by
    layer (cuDNN convolutions, cuBLAS matmuls, the kernels, copies, the rest)
@@ -1216,9 +1240,9 @@ def _token_rows_bwd_rows(smi, gen):
 
 def _synthetic_videos(n_videos, seed):
     """In-memory videos with up to two faces and boxes sized so every square
-    crop is exactly 224 px (the val transform is then the identity, so no
-    cv2 is needed). Face A sits in the top-left corner, face B in the
-    bottom-right; each is tinted so the stand-in embedder tells them apart."""
+    crop is exactly 224 px (the val transform then only uploads it). Face A
+    sits in the top-left corner, face B in the bottom-right; each is tinted
+    so the stand-in embedder tells them apart."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1307,7 +1331,7 @@ def phase_slice(smi):
             assert a.shape == (16,) and abs(float(a.sum()) - 1.0) < 1e-6
 
     # kernel mode vs plain mode on the same batch and weights
-    stacked = {k: np.concatenate([s[0][k] for s in staged]) for k in staged[0][0]}
+    stacked = predict.stack_inputs(staged)
     logits_k, maps_k = predict.forward_batch(model, None, stacked)
     set_use_kernels(model, False)
     logits_p, maps_p = predict.forward_batch(model, None, stacked)
@@ -1609,7 +1633,241 @@ def phase_detect(smi):
         raise AssertionError(f"card vs CPU embeddings differ by {emb_err} > 1e-4")
     if not same_members:
         raise AssertionError("card and CPU cluster memberships differ")
-    return {"seconds": seconds, **launches}
+    return {"seconds": seconds, **launches}, [_members(r[2]) for r in results]
+
+
+def _members(identities) -> dict:
+    """Each identity's key and its crops' (frame, face) indices."""
+    return {str(k): sorted((i, j) for i, j, *_ in items) for k, items in identities.items()}
+
+
+# 3c. predict: the CLI's loading code and the whole pipeline from decoded frames
+PREDICT_MODELS = (("predict_ef", 0, "efficientnet-b0", 1280), ("predict_xc", 1, "xception", 2048))
+
+
+def _predict_config(channels: int):
+    """The published Size-Invariant TimeSformer (``configs/
+    size_invariant_timesformer.yaml``), built in code: the card's machine
+    has no yaml. Channels 1280 for EfficientNet-B0 (MINTIME-EF), 2048 for
+    Xception (MINTIME-XC)."""
+    from mintime_torch.config import MintimeConfig, ModelConfig
+
+    return MintimeConfig(model=ModelConfig(
+        image_size=224, num_frames=16, num_patches=49, channels=channels, dim=512, depth=9,
+        heads=8, dim_head=64, max_identities=2))
+
+
+def _write_weight_files(d: str) -> dict:
+    """Reference-format weight files of seeded random weights: for each
+    model the TimeSformer head's ``Model_checkpoint`` (its position and size
+    tables padded to the reference's ``num_frames * channels + 1`` rows) and
+    the extractor's ``Extractor_checkpoint``; the three MTCNN nets of phase
+    ``detect`` and its FaceNet."""
+    import os
+
+    import torch
+
+    from mintime_torch.models.classifier import MintimeVideoClassifier
+    from mintime_torch.preprocessing.cluster_faces import FaceEmbedder
+
+    files = {"mtcnn": os.path.join(d, "mtcnn"), "facenet": os.path.join(d, "facenet.pt")}
+    os.makedirs(files["mtcnn"])
+    for name, sd in _detect_weights(DETECT_SEED).items():
+        torch.save(sd, os.path.join(files["mtcnn"], f"{name}.pt"))
+    torch.save(FaceEmbedder.init_state_dict(DETECT_SEED), files["facenet"])
+    for path, model_id, backbone, channels in PREDICT_MODELS:
+        mcfg = _predict_config(channels).model
+        sd = MintimeVideoClassifier(mcfg, backbone=backbone, device="cpu",
+                                    seed=model_id).state_dict()
+        rows = mcfg.num_frames * channels + 1
+        head = {}
+        for k, v in sd.items():
+            if k.startswith("head."):
+                if k in ("head.pos_emb.weight", "head.size_emb.weight"):
+                    v = torch.cat([v, v.new_zeros(rows - v.shape[0], v.shape[1])])
+                head[k[len("head."):]] = v
+        ext = {k[len("extractor."):]: v for k, v in sd.items() if k.startswith("extractor.")}
+        files[path] = (os.path.join(d, f"Model_checkpoint_{backbone}"),
+                       os.path.join(d, f"Extractor_checkpoint_{backbone}"))
+        torch.save(head, files[path][0])
+        torch.save(ext, files[path][1])
+    return files
+
+
+def _stage_timers(predict, augment, stats):
+    """Host clocks, each ending in a synchronise, around the pipeline's
+    stages: detection, crops, clustering (embedder included), the
+    evaluation transform and the forward. Returns a function that takes them
+    off again."""
+    import torch
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stats[key] += time.perf_counter() - t
+            return out
+        return run
+
+    saved = {n: getattr(predict, n) for n in ("detect_on_frames", "crops_from_frames",
+                                               "cluster_crops", "forward_batch")}
+    keys = {"detect_on_frames": "detect_s", "crops_from_frames": "crops_s",
+            "cluster_crops": "cluster_s", "forward_batch": "forward_s"}
+    for n, fn in saved.items():
+        setattr(predict, n, timed(fn, keys[n]))
+    call = augment.ValTransform.__call__
+    augment.ValTransform.__call__ = timed(call, "transform_s")
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(predict, n, fn)
+        augment.ValTransform.__call__ = call
+    return restore
+
+
+def phase_predict(smi, detect_members):
+    """The predict CLI's loading code and the whole pipeline on the card, for
+    MINTIME-EF and MINTIME-XC at full width: weight files written and read
+    back through ``predict.load_predict_models``; phase ``detect``'s 8 videos
+    of 150 frames at 1920 x 1080 from decoded frames through
+    ``predict.stage_decoded`` (detect → crops → identities → the evaluation
+    transform on the card → assembly) and ``predict.predict_assembled`` at
+    batch 8. Returns each path's launch counts."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mintime_torch import predict
+    from mintime_torch.data import augment
+    from mintime_torch.models.classifier import MintimeVideoClassifier
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    videos = []
+    for v in range(DETECT_VIDEOS):
+        frames = _detect_video(v, DETECT_SEED)
+        videos.append((frames, {i: frames[i] for i in range(0, DETECT_FRAMES, DETECT_FPS)}))
+    gen_s = time.perf_counter() - t0
+    options = dict(thresholds=DETECT_THRESHOLDS, input_scale=2, device_crops=True)
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix=".predict_weights_",
+                                     dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        t0 = time.perf_counter()
+        files = _write_weight_files(d)
+        write_s = time.perf_counter() - t0
+        for path, model_id, backbone, channels in PREDICT_MODELS:
+            cfg = _predict_config(channels)
+            t0 = time.perf_counter()
+            model, det, emb = predict.load_predict_models(
+                cfg, files[path][0], files["mtcnn"], files["facenet"],
+                extractor_weights=files[path][1], extractor_model=model_id, device="cuda",
+                detector_options=options)
+            load_s = time.perf_counter() - t0
+
+            def pipeline():
+                staged = [predict.stage_decoded(half, full, DETECT_FPS, det, emb, cfg,
+                                                device="cuda") for half, full in videos]
+                return staged, predict.predict_assembled(staged, model, None, cfg)
+
+            # the main path: counters at 0 just before, read just after
+            t0 = time.perf_counter()
+            (staged, results), launches = _step_launches(pipeline)
+            first_s = time.perf_counter() - t0
+            paths[path] = launches
+            want = {"divided_attention": 16, "geglu_ffn": 18, "token_rows_attention": 0,
+                    **NO_PROBE_LAUNCHES}
+            got = {k: launches[k] for k in want}
+            if got != want:
+                raise AssertionError(f"{path}: launches per forward {got}, want {want}")
+
+            # the same run again, warm, timed by stage
+            stats = collections.defaultdict(float)
+            restore = _stage_timers(predict, augment, stats)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                t0 = time.perf_counter()
+                pipeline()
+                torch.cuda.synchronize()
+                warm_s = time.perf_counter() - t0
+            finally:
+                restore()
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+            # what came out, against plain mode, the CPU and phase detect
+            members = [_members(s[2]) for s in staged]
+            stacked = predict.stack_inputs(staged)
+            logits_k, maps_k = predict.forward_batch(model, None, stacked)
+            set_use_kernels(model, False)
+            logits_p, _ = predict.forward_batch(model, None, stacked)
+            set_use_kernels(model, True)
+            fwd_ms = time_ms(lambda: predict.forward_batch(model, None, stacked), iters=5,
+                             warmup=1)
+            cpu = MintimeVideoClassifier(cfg.model, backbone=backbone, require_attention=True,
+                                         device="cpu")
+            cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+            logits_cpu, _ = predict.forward_batch(cpu, None, {k: v[:1] for k, v in stacked.items()})
+            del cpu
+            crops = [c for s in staged for items in s[2].values() for _, _, c, _ in items]
+            # the run's faces are all under 224 px: crops of a frame at the
+            # sides of larger faces take the INTER_AREA path too
+            frame = videos[0][1][0]
+            crops += [frame[:h, :w] for h, w in ((225, 225), (300, 448), (448, 448), (700, 365),
+                                                 (1080, 1080))]
+            vt = augment.create_val_transform(224)
+            levels = (vt(crops, "cuda").cpu().to(torch.int16)
+                      - vt(crops, "cpu").to(torch.int16)).abs()
+            sides = [max(c.shape[:2]) for c in crops]
+            check = {
+                "kernel_vs_plain_logit_err": float(np.abs(logits_k - logits_p).max()),
+                "card_vs_cpu_fp32_logit_err": float(abs(logits_cpu[0] - logits_k[0])),
+                "cpu_fp32_logit": float(logits_cpu[0]),
+                "transform_max_level_diff": int(levels.max()),
+                "transform_differing_share": float((levels > 0).float().mean()),
+                "transform_crops": len(crops), "crop_sides_min_max": [min(sides), max(sides)],
+                "crops_down_up_same": [sum(x > 224 for x in sides), sum(x < 224 for x in sides),
+                                       sum(x == 224 for x in sides)],
+                "finite": bool(np.isfinite(logits_k).all()
+                               and all(np.isfinite(a).all() for r in results
+                                       for a in r.aggregated_attentions)
+                               and all(np.isfinite(m).all() for m in maps_k)),
+                "identities_as_detect": members == detect_members,
+            }
+            n = len(videos)
+            emit({"phase": "predict", "path": path, "backbone": backbone, "channels": channels,
+                  "card": smi, "videos": n, "batch": 8, "launches": got,
+                  "frame_generation_s": gen_s, "weight_files_write_s": write_s, "load_s": load_s,
+                  "first_pipeline_s": first_s, "pipeline_s": warm_s,
+                  "videos_per_s": n / warm_s,
+                  "stage_s": {k: stats[k] for k in ("detect_s", "crops_s", "cluster_s",
+                                                    "transform_s", "forward_s")},
+                  "assemble_rest_s": warm_s - sum(stats.values()),
+                  "forward_batch8_device_ms": fwd_ms, "peak_mem_gib": peak_gib,
+                  "identities_per_video": [len(m) for m in members],
+                  "probabilities": [r.probability for r in results],
+                  "identity_attentions": [r.identity_attentions for r in results]})
+            emit({"phase": "predict_check", "path": path, "card": smi, **check})
+            if not check["kernel_vs_plain_logit_err"] <= TOL:
+                raise AssertionError(f"{path}: kernel vs plain logits differ by "
+                                     f"{check['kernel_vs_plain_logit_err']} > {TOL}")
+            if not check["card_vs_cpu_fp32_logit_err"] <= 5e-2:
+                raise AssertionError(f"{path}: bf16 card vs fp32 CPU logit differs by "
+                                     f"{check['card_vs_cpu_fp32_logit_err']} > 5e-2")
+            if not (check["transform_max_level_diff"] <= 1
+                    and check["transform_differing_share"] <= 1e-3):
+                raise AssertionError(f"{path}: the card's val transform differs from the CPU's: "
+                                     f"{check}")
+            if not check["finite"]:
+                raise AssertionError(f"{path}: a probability or attention map is not finite")
+            if not check["identities_as_detect"]:
+                raise AssertionError(f"{path}: identities {members} differ from phase detect's "
+                                     f"{detect_members}")
+            del model, det, emb, staged, results, stacked
+            torch.cuda.empty_cache()
+    return paths
 
 
 def _kind(name: str) -> str:
@@ -1841,8 +2099,8 @@ def phase_train(smi):
     for full, boxes, fps, dims in _synthetic_videos(8, seed=2):
         crops = predict.crops_from_frames(full, boxes, fps)
         identities, _ = predict.cluster_crops(crops, stand_in_embedder)
-        staged.append(predict.assemble_inputs(identities, dims, cfg)[0])
-    batch = {k: np.concatenate([s[k] for s in staged]) for k in staged[0]}
+        staged.append(predict.assemble_inputs(identities, dims, cfg))
+    batch = predict.stack_inputs(staged)
     batch["labels"] = np.array([0.0, 1.0] * 4, np.float32)
     pos_weight = train.pos_weight_from_labels(batch["labels"])
 
@@ -2189,13 +2447,15 @@ def main() -> int:
     phase_profile(smi, model, stacked)
     del model
     torch.cuda.empty_cache()
-    detect = phase_detect(smi)
+    detect, detect_members = phase_detect(smi)
     torch.cuda.empty_cache()
     # each main path's launches, read just after it: one flagship serving
     # forward, the detector and embedder over 8 videos (no hand-written
-    # kernel), one flagship train step, one conv forward, one conv train step
+    # kernel), the whole predict pipeline for each backbone (one forward of
+    # 8 videos each), one flagship train step, one conv forward, one conv
+    # train step
     paths = {"flagship_forward": launches, "detect": detect,
-             "flagship_train_step": phase_train(smi)}
+             **phase_predict(smi, detect_members), "flagship_train_step": phase_train(smi)}
     torch.cuda.empty_cache()
     paths["conv_forward"] = phase_conv(smi)
     torch.cuda.empty_cache()

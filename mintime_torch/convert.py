@@ -12,8 +12,9 @@ return the port's ``state_dict`` under the reference's key names:
 * embedding tables stay at the rows that are indexed.
 
 The keys and values are the ones ``mintime_tpu.utils.torch_convert.
-timesformer_params_to_torch`` / ``efficientnet_params_to_torch`` emit, apart
-from those exporters' zero rows below the embedding tables.
+timesformer_params_to_torch`` / ``efficientnet_params_to_torch`` /
+``xception_params_to_torch`` emit, apart from those exporters' zero rows below
+the embedding tables.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from mintime_torch.config import ModelConfig
 from mintime_torch.models.efficientnet import expand_blocks
+from mintime_torch.models.xception import BLOCK_SPECS
 
 
 def _t(a) -> torch.Tensor:
@@ -109,6 +111,41 @@ def efficientnet_state_dict(variables: Mapping, variant: str = "efficientnet-b0"
     return sd
 
 
+def xception_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """``Xception`` variables → the port's Xception state_dict (the
+    reference's SenseTime key names)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def bn(prefix, pleaf, sleaf):
+        sd[f"{prefix}.weight"] = _t(pleaf["scale"])
+        sd[f"{prefix}.bias"] = _t(pleaf["bias"])
+        sd[f"{prefix}.running_mean"] = _t(sleaf["mean"])
+        sd[f"{prefix}.running_var"] = _t(sleaf["var"])
+
+    def sep(prefix, leaf):
+        sd[f"{prefix}.conv1.weight"] = _conv_weight(leaf["depthwise"])
+        sd[f"{prefix}.pointwise.weight"] = _conv_weight(leaf["pointwise"])
+
+    for name in ("conv1", "conv2"):
+        sd[f"{name}.weight"] = _conv_weight(params[name])
+    bn("bn1", params["bn1"], stats["bn1"])
+    bn("bn2", params["bn2"], stats["bn2"])
+    for b, (cin, cout, reps, stride, start_with_relu, _) in enumerate(BLOCK_SPECS, start=1):
+        blk, bst = params[f"block_{b}"], stats[f"block_{b}"]
+        off = 1 if start_with_relu else 0  # rep: [relu] sep bn (relu sep bn)*
+        for i in range(reps):
+            sep(f"block{b}.rep.{3 * i + off}", blk[f"sep_{i}"])
+            bn(f"block{b}.rep.{3 * i + off + 1}", blk[f"bn_{i}"], bst[f"bn_{i}"])
+        if cout != cin or stride != 1:
+            sd[f"block{b}.skip.weight"] = _conv_weight(blk["skip_conv"])
+            bn(f"block{b}.skipbn", blk["skip_bn"], bst["skip_bn"])
+    for i in (3, 4):
+        sep(f"conv{i}", params[f"conv{i}"])
+        bn(f"bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
+    return sd
+
+
 def baseline_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     """``Baseline`` params → the port's ``mlp_head`` state_dict."""
     return {
@@ -125,13 +162,12 @@ def classifier_state_dict(variables: Mapping, config: ModelConfig,
     """``MintimeVideoClassifier`` variables → the port's classifier state_dict."""
     params = variables["params"]
     sd: dict[str, torch.Tensor] = {}
-    if backbone == "efficientnet-b0":
-        ext = efficientnet_state_dict(
-            {"params": params["extractor"], "batch_stats": variables["batch_stats"]["extractor"]}
-        )
+    if backbone != "none":
+        convert = {"efficientnet-b0": efficientnet_state_dict,
+                   "xception": xception_state_dict}[backbone]
+        ext = convert({"params": params["extractor"],
+                       "batch_stats": variables["batch_stats"]["extractor"]})
         sd.update({f"extractor.{k}": v for k, v in ext.items()})
-    elif backbone != "none":
-        raise ValueError(f"backbone {backbone!r} is not ported")
     if head == "timesformer":
         hd = timesformer_state_dict(params["head"], config)
     else:

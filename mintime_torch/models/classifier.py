@@ -3,8 +3,9 @@
 
 Frames ``(B, F, H, W, 3)`` (uint8 or float, NHWC) → logits ``(B, 1)`` fp32,
 plus the last layer's CLS-row attention maps with ``require_attention``.
-``backbone="none"`` takes pre-extracted feature maps ``(B, F, h, w, C)``.
-The Xception backbone is not ported yet.
+``backbone`` is EfficientNet-B0 (MINTIME-EF, 1280 channels) or Xception
+(MINTIME-XC, 2048 channels); ``"none"`` takes pre-extracted feature maps
+``(B, F, h, w, C)``.
 
 The model is built on ``device`` (default ``"cuda"``, which raises when
 there is no card), computes in ``dtype`` (default bf16 on the card, fp32 on
@@ -33,8 +34,9 @@ from mintime_torch.device import default_dtype, resolve_device
 from mintime_torch.models.baseline import Baseline, video_logits
 from mintime_torch.models.efficientnet import EfficientNet
 from mintime_torch.models.timesformer import SizeInvariantTimeSformer
+from mintime_torch.models.xception import Xception
 
-BACKBONES = ("efficientnet-b0", "none")
+BACKBONES = ("efficientnet-b0", "xception", "none")
 HEADS = ("timesformer", "baseline")
 
 
@@ -108,8 +110,8 @@ class CastModel(nn.Module):
 
 
 class MintimeVideoClassifier(CastModel):
-    """Flagship model: EfficientNet-B0 per face, then the Size-Invariant
-    TimeSformer (or the baseline MLP head) per video.
+    """Flagship model: EfficientNet-B0 (or Xception) per face, then the
+    Size-Invariant TimeSformer (or the baseline MLP head) per video.
 
     ``use_kernels`` routes the TimeSformer's FFNs and divided attentions
     through the CUDA kernels on the card (their plain versions on the CPU).
@@ -125,7 +127,7 @@ class MintimeVideoClassifier(CastModel):
         super().__init__()
         dev = resolve_device(device)
         if backbone not in BACKBONES:
-            raise ValueError(f"backbone {backbone!r} is not ported; choose from {BACKBONES}")
+            raise ValueError(f"unknown backbone {backbone!r}; choose from {BACKBONES}")
         if head not in HEADS:
             raise ValueError(f"unknown head {head!r}; choose from {HEADS}")
         self.config = config
@@ -134,6 +136,8 @@ class MintimeVideoClassifier(CastModel):
         self.freeze_backbone = freeze_backbone
         if backbone == "efficientnet-b0":
             self.extractor = EfficientNet("efficientnet-b0")
+        elif backbone == "xception":
+            self.extractor = Xception()
         if head == "timesformer":
             self.head = SizeInvariantTimeSformer(config, require_attention, use_kernels)
         else:

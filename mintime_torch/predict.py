@@ -18,10 +18,16 @@ of the JAX package's ``variables``), or None for the model's own weights.
 :func:`predict_videos` stages and runs one batch at a time, so at most
 ``batch_size`` videos' inputs are held at once; the JAX package stages the
 whole run before the first forward.
+
+:func:`stage_decoded` takes a video's frames already decoded, so everything
+after the decode (detection, crops, clustering, the evaluation transform on
+the device) runs without cv2. ``python -m mintime_torch.predict`` is the
+reference's predict CLI (:func:`main`).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
@@ -31,11 +37,12 @@ import torch
 from mintime_torch.config import MintimeConfig
 from mintime_torch.data.assembler import IdentityFaces, build_sequence_plan, size_bucket
 from mintime_torch.data.augment import create_val_transform
+from mintime_torch.device import resolve_device
 from mintime_torch.preprocessing.cluster_faces import connected_components
+from mintime_torch.preprocessing.detect_faces import _validate_channel_order
 from mintime_torch.preprocessing.extract_crops import pick_detection_frame, square_crop
-from mintime_torch.utils.attention_viz import aggregate_attentions
+from mintime_torch.utils.attention_viz import aggregate_attentions, draw_border
 
-CHANNEL_ORDERS = ("rgb", "bgr")
 _INPUT_KEYS = ("frames", "mask", "identities_mask", "size_embedding", "positions")
 
 
@@ -47,11 +54,6 @@ class PredictionResult:
     identities: dict  # identity key → list[(frame_idx, face_idx, crop, bbox)]
     frames_per_identity: list[int]
     plan: Any = None
-
-
-def _validate_channel_order(order: str) -> None:
-    if order not in CHANNEL_ORDERS:
-        raise ValueError(f"channel_order must be one of {CHANNEL_ORDERS}, got {order!r}")
 
 
 def decode_for_predict(video_path: str, crop_step: int | None = None,
@@ -153,9 +155,11 @@ def cluster_crops(crops, embedder, threshold: float = 0.45):
     return identities, discarded
 
 
-def assemble_inputs(identities: dict, video_dims, cfg: MintimeConfig):
-    """Fixed-shape model inputs (numpy, batch axis 1) from one video's
-    identity crops; frames stay uint8 (the model casts on the device)."""
+def assemble_inputs(identities: dict, video_dims, cfg: MintimeConfig,
+                    device: str | torch.device = "cuda"):
+    """Fixed-shape model inputs (batch axis 1) from one video's identity
+    crops: the frames through the evaluation transform on ``device`` (a uint8
+    tensor there; the model casts), the rest numpy."""
     m = cfg.model
     infos, crop_store = [], {}
     for key, items in identities.items():
@@ -183,9 +187,8 @@ def assemble_inputs(identities: dict, video_dims, cfg: MintimeConfig):
         size_embeddings[slot] = size_bucket(crop.shape[0], crop.shape[1], vh, vw,
                                             legacy_predict_double_ratio=True)
         frames.append(crop)
-    frames = transform(frames)
     return {
-        "frames": np.asarray(frames)[None],
+        "frames": transform(frames, device)[None],
         "mask": plan.mask[None],
         "identities_mask": plan.identities_mask[None],
         "size_embedding": size_embeddings[None],
@@ -193,42 +196,69 @@ def assemble_inputs(identities: dict, video_dims, cfg: MintimeConfig):
     }, plan, crop_store
 
 
+def stage_decoded(half: Sequence[np.ndarray], full: dict, fps: int, detector, embedder,
+                  cfg: MintimeConfig, similarity_threshold: float = 0.45, every_n: int = 1,
+                  device: str | torch.device = "cuda"):
+    """The stages after the decode for one video: detect on ``half`` (as
+    :func:`decode_for_predict` returns them for the detector) → crops from
+    the full-resolution frames ``full`` → identities → inputs assembled on
+    ``device``. Returns what :func:`assemble_inputs` returns."""
+    if not half:
+        raise ValueError("the video has no frames")
+    boxes = detect_on_frames(half, detector, every_n)
+    if not any(v for v in boxes.values()):
+        raise ValueError("No faces found.")
+    scale = getattr(detector, "input_scale", 1)
+    h = half[0].shape[0] // scale  # detection (half-res) dims
+    w = half[0].shape[1] // scale
+    crops = crops_from_frames(full, boxes, fps)
+    identities, _ = cluster_crops(crops, embedder, similarity_threshold)
+    return assemble_inputs(identities, (w * 2, h * 2), cfg, device)
+
+
 def _stage_video(video_path: str, detector, embedder, cfg: MintimeConfig,
-                 similarity_threshold: float, every_n: int, boxes: dict | None):
-    """All host stages of one video: decode → detect → crop → cluster → assemble."""
+                 similarity_threshold: float, every_n: int, boxes: dict | None,
+                 device: str | torch.device = "cuda"):
+    """All stages of one video before the forward: decode, then
+    :func:`stage_decoded`; or, with precomputed ``boxes``, the crops they
+    give."""
     if boxes is None:
-        scale = getattr(detector, "input_scale", 1)
         half, full, fps = decode_for_predict(
             video_path, channel_order=getattr(detector, "channel_order", "rgb"),
-            resize_on_device=scale > 1,
+            resize_on_device=getattr(detector, "input_scale", 1) > 1,
         )
         if not half:
             raise ValueError(f"could not decode {video_path}")
-        boxes = detect_on_frames(half, detector, every_n)
-        if not any(v for v in boxes.values()):
-            raise ValueError("No faces found.")
-        h = half[0].shape[0] // scale  # detection (half-res) dims
-        w = half[0].shape[1] // scale
-        video_dims = (w * 2, h * 2)
-        crops = crops_from_frames(full, boxes, fps)
-    else:
-        import cv2
+        return stage_decoded(half, full, fps, detector, embedder, cfg, similarity_threshold,
+                             every_n, device)
+    import cv2
 
-        cap = cv2.VideoCapture(video_path)
-        fps = int(cap.get(cv2.CAP_PROP_FPS)) or 30
-        video_dims = (cap.get(cv2.CAP_PROP_FRAME_WIDTH), cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
-        cap.release()
-        crops = extract_video_crops(video_path, boxes, fps)
+    cap = cv2.VideoCapture(video_path)
+    fps = int(cap.get(cv2.CAP_PROP_FPS)) or 30
+    video_dims = (cap.get(cv2.CAP_PROP_FRAME_WIDTH), cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    cap.release()
+    crops = extract_video_crops(video_path, boxes, fps)
     identities, _ = cluster_crops(crops, embedder, similarity_threshold)
-    return assemble_inputs(identities, video_dims, cfg)
+    return assemble_inputs(identities, video_dims, cfg, device)
+
+
+def stack_inputs(staged: Sequence, pad: int = 0) -> dict:
+    """One batch from assembled videos ``[(inputs, plan, crop_store), ...]``,
+    ``pad`` copies of the first appended: the frames stay a tensor on their
+    device, the rest numpy."""
+    rows = [s[0] for s in staged] + [staged[0][0]] * pad
+    return {k: torch.cat([r[k] for r in rows]) if isinstance(rows[0][k], torch.Tensor)
+            else np.concatenate([r[k] for r in rows]) for k in _INPUT_KEYS}
 
 
 @torch.inference_mode()
-def forward_batch(model, state: Mapping[str, torch.Tensor] | None, batch: Mapping[str, np.ndarray]):
-    """Run the classifier on one stacked numpy batch on the model's device;
-    returns ``(logits (B,) numpy, [space, time] maps numpy)``."""
+def forward_batch(model, state: Mapping[str, torch.Tensor] | None, batch: Mapping[str, Any]):
+    """Run the classifier on one stacked batch (numpy arrays, or tensors
+    already on the model's device, which are not copied again); returns
+    ``(logits (B,) numpy, [space, time] maps numpy)``."""
     dev = model.device
-    args = [torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev, non_blocking=True)
+    args = [torch.as_tensor(np.ascontiguousarray(batch[k]) if isinstance(batch[k], np.ndarray)
+                            else batch[k]).to(dev, non_blocking=True)
             for k in _INPUT_KEYS]
     if state is None:
         logits, attns = model(*args)
@@ -257,10 +287,7 @@ def predict_assembled(staged: Sequence, model, state, cfg: MintimeConfig,
     repeating the first; pad outputs are discarded. Attention maps are
     sliced per video, ``heads`` rows each."""
     heads = cfg.model.heads
-    pad = max(pad_to - len(staged), 0)
-    stacked = {k: np.concatenate([s[0][k] for s in staged] + [staged[0][0][k]] * pad)
-               for k in _INPUT_KEYS}
-    logits, attns = forward_batch(model, state, stacked)
+    logits, attns = forward_batch(model, state, stack_inputs(staged, max(pad_to - len(staged), 0)))
     return [
         _result(logits[b], [a[b * heads:(b + 1) * heads] for a in attns], heads, cfg, plan,
                 crop_store)
@@ -274,7 +301,7 @@ def predict_video(video_path: str, model, state, cfg: MintimeConfig, detector, e
     """The full pipeline for one video. ``boxes``: optional precomputed
     half-res detections, which skip the detector."""
     staged = _stage_video(video_path, detector, embedder, cfg, similarity_threshold, every_n,
-                          boxes)
+                          boxes, model.device)
     return predict_assembled([staged], model, state, cfg)[0]
 
 
@@ -293,8 +320,149 @@ def predict_videos(video_paths: Sequence[str], model, state, cfg: MintimeConfig,
     for start in range(0, len(video_paths), batch_size):
         staged = [
             _stage_video(video_paths[i], detector, embedder, cfg, similarity_threshold,
-                         every_n, boxes_per_video[i] if boxes_per_video else None)
+                         every_n, boxes_per_video[i] if boxes_per_video else None, model.device)
             for i in range(start, min(start + batch_size, len(video_paths)))
         ]
         results.extend(predict_assembled(staged, model, state, cfg, pad_to))
     return results
+
+
+def generate_output_video(video_path: str, result: PredictionResult,
+                          output_dir: str = "examples/preds") -> str:
+    """The video annotated as the reference's (``predict.py:432-479``): each
+    identity's face box in red to green by its attention (fake) or by the
+    probability (pristine), with a label; written as XVID ``.avi`` into
+    ``output_dir``. Host only (cv2)."""
+    import cv2
+
+    identities_bboxes: dict[int, list] = {}  # frame → a box per identity
+    for identity_index, items in enumerate(result.identities.values()):
+        for frame_idx, _, _, bbox in items:
+            identities_bboxes.setdefault(frame_idx, [None] * len(result.identities))
+            identities_bboxes[frame_idx][identity_index] = bbox
+    available = sorted(identities_bboxes)
+
+    cap = cv2.VideoCapture(video_path)
+    width, height = int(cap.get(3)), int(cap.get(4))
+    fps = int(cap.get(5)) or 30
+    os.makedirs(output_dir, exist_ok=True)
+    out_path = os.path.join(output_dir, os.path.basename(video_path).replace(".mp4", ".avi"))
+    writer = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"XVID"), fps, (width, height))
+    pred = result.probability
+    frame_index = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        nearest = min(available, key=lambda x: abs(x - frame_index))
+        if nearest - frame_index <= fps:
+            for identity_index, bbox in enumerate(identities_bboxes[nearest]):
+                if bbox is None:
+                    continue
+                xmin, ymin, xmax, ymax = [int(b * 2) for b in bbox]
+                if pred > 0.5:
+                    red = 255 * result.identity_attentions[identity_index]
+                    green = 255 - red
+                    text = f"Fake {round(pred * 100, 2)}%" if red > green else "Pristine"
+                else:
+                    green = int(255 * (1 - pred))
+                    red = 255 - green
+                    text = f"Pristine {round((1 - pred) * 100, 2)}%"
+                color = (0, int(green), int(red))
+                frame = draw_border(frame, (xmin, ymin), (xmax, ymax), color, 2, 10, 20)
+                cv2.putText(frame, text, (xmin, ymin - 10), cv2.FONT_HERSHEY_SIMPLEX, 0.9, color, 2)
+        writer.write(frame)
+        frame_index += 1
+    writer.release()
+    cap.release()
+    return out_path
+
+
+def load_predict_models(cfg: MintimeConfig, model_weights: str, mtcnn_weights: str,
+                        facenet_weights: str, extractor_weights: str | None = None,
+                        extractor_model: int = 0, device: str | torch.device = "cuda",
+                        detector_options: Mapping[str, Any] | None = None):
+    """What the CLI serves with, from weight files: the classifier
+    (EfficientNet-B0 for ``extractor_model`` 0, Xception for 1; TimeSformer
+    head with its attention maps; fp32 parameters computing in bf16 with the
+    kernels, as the JAX CLI's bf16 model with its Pallas kernels) through
+    :func:`load_model_state`; the MTCNN cascade from ``pnet.pt``, ``rnet.pt``
+    and ``onet.pt`` in ``mtcnn_weights`` (BGR frames in, swapped on the
+    device; ``detector_options`` are further :class:`MTCNNDetector` fields,
+    which the CLI leaves at their defaults); the FaceNet embedder from
+    ``facenet_weights``. Returns ``(model, detector, embedder)`` on
+    ``device``."""
+    from mintime_torch.models.classifier import MintimeVideoClassifier
+    from mintime_torch.preprocessing.cluster_faces import FaceEmbedder
+    from mintime_torch.preprocessing.mtcnn import NETS, MTCNNDetector
+    from mintime_torch.utils.checkpoint import load_model_state
+
+    dev = resolve_device(device)
+    model = MintimeVideoClassifier(
+        cfg.model, backbone="efficientnet-b0" if extractor_model == 0 else "xception",
+        head="timesformer", require_attention=True, use_kernels=True, device=dev,
+        dtype=torch.bfloat16, param_dtype=torch.float32)
+    model.load_state_dict(load_model_state(model, cfg, model_weights, extractor_weights))
+    nets = {name: torch.load(os.path.join(mtcnn_weights, f"{name}.pt"), map_location="cpu")
+            for name in NETS}
+    detector = MTCNNDetector(nets, channel_order="bgr", device=dev, **(detector_options or {}))
+    embedder = FaceEmbedder(torch.load(facenet_weights, map_location="cpu"), device=dev)
+    return model, detector, embedder
+
+
+def main(argv=None):
+    """The reference's predict CLI: one video → fake probability, and
+    optionally the attention plots and the annotated video."""
+    import argparse
+
+    from mintime_torch.config import load_config
+    from mintime_torch.utils.attention_viz import save_attention_plots
+
+    p = argparse.ArgumentParser("mintime-torch predict (predict.py parity)")
+    p.add_argument("--video_path", required=True)
+    p.add_argument("--config", default="configs/size_invariant_timesformer.yaml")
+    p.add_argument("--model_weights", required=True)
+    p.add_argument("--extractor_weights", default=None)
+    p.add_argument("--extractor_model", type=int, default=0, help="0 EfficientNet-B0 | 1 Xception")
+    p.add_argument("--mtcnn_weights", default=None)
+    p.add_argument("--facenet_weights", default=None)
+    p.add_argument("--output_type", type=int, default=0, help="0 prob | 1 video")
+    p.add_argument("--save_attentions", action="store_true")
+    # the reference's flags: FacenetDetector is its only detector, and the
+    # prediction is deterministic and single-video, so seed and workers are
+    # accepted and have no effect
+    p.add_argument("--detector_type", default="FacenetDetector", choices=["FacenetDetector"])
+    p.add_argument("--random_state", type=int, default=42,
+                   help="(reference CLI compatibility; prediction is deterministic)")
+    p.add_argument("--workers", type=int, default=1, help="(reference CLI compatibility; unused)")
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    opt = p.parse_args(argv)
+
+    # a random cascade detects nothing and a random embedder clusters at
+    # random: real weights are required, before any model is built
+    if not opt.mtcnn_weights or not opt.facenet_weights:
+        p.error("--mtcnn_weights (dir with pnet.pt/rnet.pt/onet.pt) and --facenet_weights "
+                "(InceptionResnetV1 vggface2 state_dict) are required: the facenet-pytorch "
+                "pretrained weights the reference loads implicitly (face_detector.py:42-46, "
+                "preprocessing/utils.py:32-34) cannot be auto-downloaded here.")
+    if not os.path.exists(opt.model_weights):
+        p.error(f"--model_weights not found: {opt.model_weights}")
+
+    cfg = load_config(opt.config)
+    model, detector, embedder = load_predict_models(
+        cfg, opt.model_weights, opt.mtcnn_weights, opt.facenet_weights,
+        extractor_weights=opt.extractor_weights, extractor_model=opt.extractor_model,
+        device=opt.device)
+    result = predict_video(opt.video_path, model, None, cfg, detector, embedder)
+    print(f"fake probability: {result.probability:.4f}")
+    if opt.save_attentions:
+        save_attention_plots(result.aggregated_attentions, list(result.identities.keys()),
+                             result.frames_per_identity, cfg.model.num_frames,
+                             os.path.basename(opt.video_path))
+    if opt.output_type == 1:
+        print("annotated video:", generate_output_video(opt.video_path, result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

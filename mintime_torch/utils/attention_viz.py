@@ -1,11 +1,15 @@
-"""Attention-map aggregation (copy of ``aggregate_attentions`` from
-``mintime_tpu/utils/attention_viz.py:22-67``)."""
+"""Attention-map aggregation, bar plots and the face-box overlay (copy of
+``mintime_tpu/utils/attention_viz.py:18-127``). The plots and the overlay run
+on the host and import matplotlib and cv2 only when called."""
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
+
+PLOTS_NAMES = ["space", "time", "combined"]
 
 
 def _softmax(x):
@@ -52,3 +56,53 @@ def aggregate_attentions(
             identity_attention = float(np.sum(out[-1][prev - 1 : identity_frames - 1]))
         identity_attentions.append(identity_attention)
     return out, identity_attentions
+
+
+def save_attention_plots(aggregated_attentions, identity_names, frames_per_identity, num_frames,
+                         video_id, output_dir="outputs/tokens"):
+    """Bar plots of the space, time and combined per-frame attention, a line
+    where each identity's frames end; ``<video_id>_<name>.jpg`` each."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    os.makedirs(output_dir, exist_ok=True)
+    colors = np.random.rand(len(frames_per_identity), 4)
+    paths = []
+    for index, tokens_means in enumerate(aggregated_attentions):
+        plt.bar([i + 1 for i in range(num_frames)], tokens_means)
+        for i in range(len(frames_per_identity)):
+            plt.vlines(frames_per_identity[i], ymin=float(np.min(tokens_means)),
+                       ymax=float(np.max(tokens_means)), colors=colors[i],
+                       label=str(identity_names[i]))
+        plt.legend()
+        path = os.path.join(output_dir, f"{video_id}_{PLOTS_NAMES[index]}.jpg")
+        plt.savefig(path)
+        plt.clf()
+        paths.append(path)
+    return paths
+
+
+def draw_border(img, pt1, pt2, color, thickness, r, d):
+    """Rounded-rectangle face box: at each corner two lines and a quarter arc."""
+    import cv2
+
+    x1, y1 = pt1
+    x2, y2 = pt2
+    cv2.line(img, (x1 + r, y1), (x1 + r + d, y1), color, thickness)
+    cv2.line(img, (x1, y1 + r), (x1, y1 + r + d), color, thickness)
+    cv2.ellipse(img, (x1 + r, y1 + r), (r, r), 180, 0, 90, color, thickness)
+
+    cv2.line(img, (x2 - r, y1), (x2 - r - d, y1), color, thickness)
+    cv2.line(img, (x2, y1 + r), (x2, y1 + r + d), color, thickness)
+    cv2.ellipse(img, (x2 - r, y1 + r), (r, r), 270, 0, 90, color, thickness)
+
+    cv2.line(img, (x1 + r, y2), (x1 + r + d, y2), color, thickness)
+    cv2.line(img, (x1, y2 - r), (x1, y2 - r - d), color, thickness)
+    cv2.ellipse(img, (x1 + r, y2 - r), (r, r), 90, 0, 90, color, thickness)
+
+    cv2.line(img, (x2 - r, y2), (x2 - r - d, y2), color, thickness)
+    cv2.line(img, (x2, y2 - r), (x2, y2 - r - d), color, thickness)
+    cv2.ellipse(img, (x2 - r, y2 - r), (r, r), 0, 0, 90, color, thickness)
+    return img

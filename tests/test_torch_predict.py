@@ -117,7 +117,7 @@ def test_raw_maps_match_jax(setup):
     jb, jplan, _ = jax_predict._stage_video(paths[0], FakeDetector(), FakeEmbedder(), jcfg,
                                             0.45, 1, None)
     tb, tplan, _ = port_predict._stage_video(paths[0], FakeDetector(), FakeEmbedder(), tcfg,
-                                             0.45, 1, None)
+                                             0.45, 1, None, device="cpu")
     for k in jb:
         np.testing.assert_array_equal(tb[k], jb[k])
     want_logits, want_maps = jax.jit(jmodel.apply)(
