@@ -108,6 +108,38 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    clock ending in a synchronise, frame making excluded), its split into
    detection, crops, clustering, transform and forward, the forward's
    device ms at batch 8, peak memory;
+3d. evaluate (after 3c): the evaluation CLI's function,
+   ``evaluate.evaluate_split`` (what ``python -m mintime_torch.evaluate``
+   calls after reading its yaml), on a test split written to a temporary
+   directory in the checkout: 48 videos as ``crops.pack`` shards from
+   ``crop_store.write_pack`` (8-pixel block noise in a band of 64 levels
+   that each video draws, square faces of 64-320 px as in DFDC's 1920 x
+   1080 frames, one crop a second for 10 s an identity;
+   16 videos of one identity, 24 of two, 8 of three; every sixth with loose
+   crops that merge into identity 0; every eighth with its frame size in a
+   ``video_dims.json`` sidecar, the rest in the pack header) and a
+   ``test.csv`` (half fake with methods 1-4, pristine with none). MINTIME-EF
+   from phase 3c's weight files at full width, but for the output layer:
+   a random head maps every video to nearly one logit, so the output layer
+   is fitted first, by a plain fp32 run on the card, to the direction in
+   which the split's CLS embeddings vary with the videos' crop level, apart
+   from identity count (logits of standard deviation 0.15 around their
+   median); 4 spawned workers. Checks: 18 attention and
+   18 FFN launches a forward (6 forwards at batch 8, the counted main path;
+   48 at the yaml's test batch of 1); kernel logits within 2e-2 of a plain
+   run's (``fused_attention=0``) and within a quarter of the plain logits'
+   standard deviation, the same sign on every video whose plain logit lies
+   more than 2e-2 from 0 (a quarter of the videos or more on each side),
+   the reports' ``n_videos`` equal and their accuracy equal when no logit
+   lies within 2e-2 of 0; the first two videos' logits within 5e-2 of a
+   CPU fp32 run of the same files; ``n_videos`` 48, and 32 with
+   ``only_multiidentity``; every field of every report finite. Printed:
+   the time of the counted ``evaluate_split`` call, the CLI's whole work,
+   with its split by stage; videos/s from the files on disk to the report
+   at batch 8 and 1 (a warm second pass of a loader built as
+   ``evaluate_split`` builds it, whose workers are up), its split into the
+   wait on the loader, the transform on the card and the forward with its
+   copies (host clocks ending in a synchronise), peak memory, the reports;
 4. profile: one forward at batch 8 and at batch 1 under ``torch.profiler``:
    the device's busy and idle share of the host window, device time by
    layer (cuDNN convolutions, cuBLAS matmuls, the kernels, copies, the rest)
@@ -1657,17 +1689,42 @@ def _predict_config(channels: int):
         heads=8, dim_head=64, max_identities=2))
 
 
-def _write_weight_files(d: str) -> dict:
-    """Reference-format weight files of seeded random weights: for each
-    model the TimeSformer head's ``Model_checkpoint`` (its position and size
-    tables padded to the reference's ``num_frames * channels + 1`` rows) and
-    the extractor's ``Extractor_checkpoint``; the three MTCNN nets of phase
-    ``detect`` and its FaceNet."""
+def _write_model_files(d: str, model_id: int, backbone: str, channels: int) -> tuple:
+    """Reference-format weight files of the classifier drawn from seed
+    ``model_id``: the TimeSformer head's ``Model_checkpoint`` (its position
+    and size tables padded to the reference's ``num_frames * channels + 1``
+    rows) and the extractor's ``Extractor_checkpoint``; returns their paths."""
     import os
 
     import torch
 
     from mintime_torch.models.classifier import MintimeVideoClassifier
+
+    mcfg = _predict_config(channels).model
+    sd = MintimeVideoClassifier(mcfg, backbone=backbone, device="cpu", seed=model_id).state_dict()
+    rows = mcfg.num_frames * channels + 1
+    head = {}
+    for k, v in sd.items():
+        if k.startswith("head."):
+            if k in ("head.pos_emb.weight", "head.size_emb.weight"):
+                v = torch.cat([v, v.new_zeros(rows - v.shape[0], v.shape[1])])
+            head[k[len("head."):]] = v
+    ext = {k[len("extractor."):]: v for k, v in sd.items() if k.startswith("extractor.")}
+    paths = (os.path.join(d, f"Model_checkpoint_{backbone}"),
+             os.path.join(d, f"Extractor_checkpoint_{backbone}"))
+    torch.save(head, paths[0])
+    torch.save(ext, paths[1])
+    return paths
+
+
+def _write_weight_files(d: str) -> dict:
+    """The classifiers' weight files for each model of ``PREDICT_MODELS``
+    (:func:`_write_model_files`), the three MTCNN nets of phase ``detect``
+    and its FaceNet."""
+    import os
+
+    import torch
+
     from mintime_torch.preprocessing.cluster_faces import FaceEmbedder
 
     files = {"mtcnn": os.path.join(d, "mtcnn"), "facenet": os.path.join(d, "facenet.pt")}
@@ -1676,21 +1733,7 @@ def _write_weight_files(d: str) -> dict:
         torch.save(sd, os.path.join(files["mtcnn"], f"{name}.pt"))
     torch.save(FaceEmbedder.init_state_dict(DETECT_SEED), files["facenet"])
     for path, model_id, backbone, channels in PREDICT_MODELS:
-        mcfg = _predict_config(channels).model
-        sd = MintimeVideoClassifier(mcfg, backbone=backbone, device="cpu",
-                                    seed=model_id).state_dict()
-        rows = mcfg.num_frames * channels + 1
-        head = {}
-        for k, v in sd.items():
-            if k.startswith("head."):
-                if k in ("head.pos_emb.weight", "head.size_emb.weight"):
-                    v = torch.cat([v, v.new_zeros(rows - v.shape[0], v.shape[1])])
-                head[k[len("head."):]] = v
-        ext = {k[len("extractor."):]: v for k, v in sd.items() if k.startswith("extractor.")}
-        files[path] = (os.path.join(d, f"Model_checkpoint_{backbone}"),
-                       os.path.join(d, f"Extractor_checkpoint_{backbone}"))
-        torch.save(head, files[path][0])
-        torch.save(ext, files[path][1])
+        files[path] = _write_model_files(d, model_id, backbone, channels)
     return files
 
 
@@ -1868,6 +1911,358 @@ def phase_predict(smi, detect_members):
             del model, det, emb, staged, results, stacked
             torch.cuda.empty_cache()
     return paths
+
+
+# 3d. evaluate: a test split from disk through the evaluation CLI's function
+EVAL_VIDEOS = 48
+#: identities a video: 16 with one, 24 with two, 8 with three (cut to two)
+EVAL_IDENTITIES = (1,) * 16 + (2,) * 24 + (3,) * 8
+EVAL_SECONDS = 10  # one crop a second an identity
+EVAL_FPS = 30
+EVAL_SEED = 2
+EVAL_SIDES = (64, 320)  # face sides in DFDC's 1920 x 1080 frames
+EVAL_DIMS = {"width": 1920, "height": 1080, "fps": EVAL_FPS}
+#: levels of a video's band of block values; the band's floor is drawn a video
+EVAL_BAND = 64
+#: standard deviation of the logits of the fitted output layer over the split
+EVAL_LOGIT_STD = 0.15
+
+
+def _block_crop(rng, side: int, lo: int = 0, band: int = 256):
+    """A square crop of 8-pixel block noise with values in ``[lo, lo +
+    band)``, BGR uint8."""
+    import numpy as np
+
+    n = -(-side // 8)
+    blocks = rng.integers(lo, lo + band, (n, n, 3)).astype(np.uint8)
+    return np.kron(blocks, np.ones((8, 8, 1), np.uint8))[:side, :side]
+
+
+def _write_test_split(root: str) -> tuple:
+    """``EVAL_VIDEOS`` videos as ``crops.pack`` shards under ``root/faces``,
+    written by ``crop_store.write_pack`` from seeded crops (block noise in
+    a band of ``EVAL_BAND`` levels a video, so that videos differ in more
+    than their noise), and a ``test.csv``
+    of ``video label 8_cls`` rows (odd videos fake with method 1-4, even
+    pristine with no method). Every sixth video also holds three loose crops
+    (identity None) that merge into identity 0; every eighth keeps its frame
+    size in a ``video_dims.json`` sidecar, the rest in the pack header.
+    Returns the faces root, the split file and the number of crops."""
+    import json
+    import os
+
+    import numpy as np
+
+    from mintime_torch.data.crop_store import PACK_NAME, write_pack
+
+    rng = np.random.default_rng(EVAL_SEED)
+    identities = rng.permutation(EVAL_IDENTITIES)
+    faces = os.path.join(root, "faces")
+    rows, n_crops = [], 0
+    for v in range(EVAL_VIDEOS):
+        name = f"{'fake' if v % 2 else 'real'}/video_{v:02d}"
+        vdir = os.path.join(faces, name)
+        os.makedirs(vdir)
+        entries = []
+        band = (int(rng.integers(0, 256 - EVAL_BAND + 1)), EVAL_BAND)
+        for ident in range(int(identities[v])):
+            side = int(rng.integers(EVAL_SIDES[0], EVAL_SIDES[1] + 1))
+            for sec in range(EVAL_SECONDS):
+                s = int(np.clip(side + rng.integers(-8, 9), *EVAL_SIDES))
+                entries.append((str(ident), sec * EVAL_FPS, ident, _block_crop(rng, s, *band)))
+        if v % 6 == 5:
+            entries += [(None, f, 3, _block_crop(rng, 96, *band))
+                        for f in (15, 105, EVAL_SECONDS * EVAL_FPS)]
+        sidecar = v % 8 == 3
+        write_pack(os.path.join(vdir, PACK_NAME), entries, dims=None if sidecar else EVAL_DIMS)
+        if sidecar:
+            with open(os.path.join(vdir, "video_dims.json"), "w") as f:
+                json.dump(EVAL_DIMS, f)
+        n_crops += len(entries)
+        rows.append(f"{name} 1 {1 + (v // 2) % 4}" if v % 2 else f"{name} 0")
+    split = os.path.join(root, "test.csv")
+    with open(split, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return faces, split, n_crops
+
+
+def _fit_output_layer(cfg, head: str, ext: str, man, faces: str) -> dict:
+    """Refit the head file's output layer (``to_out.1``) to the split, so
+    that its logits read the videos' crops. A plain fp32 run on the card
+    gives each video's normalised CLS embedding. The layer projects onto
+    their covariance with the video's mean crop level (the band its block
+    noise was drawn from), made orthogonal to the difference between the
+    mean embeddings of one identity and of more, which would otherwise part
+    the logits by identity count. It is scaled to logits of standard
+    deviation ``EVAL_LOGIT_STD`` around their median. Returns the fit's
+    numbers."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from mintime_torch import evaluate
+    from mintime_torch.data.crop_store import CropPack, find_pack
+
+    model = evaluate.build_model(cfg, head, ext, use_kernels=False, device="cuda",
+                                 dtype=torch.float32)
+    rows = []
+    hook = model.head.to_out[0].register_forward_hook(
+        lambda mod, args, out: rows.append(out.float().cpu().numpy()))
+    with evaluate.split_loader(cfg, man.videos, man.labels, man.multiclass, faces, 8,
+                               workers=4, device="cuda") as loader:
+        evaluate.evaluate(model, None, loader)
+    hook.remove()
+    del model
+    z = np.concatenate(rows).astype(np.float64)
+    mu = z.mean(0)
+    packs = [CropPack(find_pack(os.path.join(faces, v))) for v in man.videos]
+    level = np.array([np.mean([p.read(i).mean() for i in range(len(p.entries))]) for p in packs])
+    multi = np.isin(np.arange(len(z)), evaluate.filter_multi_identity(man.videos, faces))
+    gap = z[multi].mean(0) - z[~multi].mean(0)
+    gap /= np.linalg.norm(gap)
+    w = (z - mu).T @ (level - level.mean())
+    w -= (w @ gap) * gap
+    proj = (z - mu) @ w
+    scale = EVAL_LOGIT_STD / proj.std()
+    w *= scale
+    b = -(mu @ w) - np.median(proj) * scale
+    sd = torch.load(head, map_location="cpu")
+    sd["to_out.1.weight"] = torch.tensor(w[None], dtype=torch.float32)
+    sd["to_out.1.bias"] = torch.tensor([b], dtype=torch.float32)
+    torch.save(sd, head)
+    return {"corr_with_level": float(np.corrcoef(proj, level)[0, 1]),
+            "direction_std": float(proj.std() / np.linalg.norm(w / scale)),
+            "embedding_norm": float(np.linalg.norm(z, axis=1).mean())}
+
+
+def _eval_timers(evaluate, loader_mod, stats, logits, embeddings=None):
+    """Host clocks around an evaluation's stages, each ending in a
+    synchronise: waiting on the loader's workers, the transform on the card,
+    the forward with its copies; the forward's logits recorded by video, and
+    into ``embeddings`` the normalised CLS embedding the output layer reads.
+    Returns a function that takes them off again."""
+    import torch
+
+    forward, finish, raw = evaluate._forward, loader_mod.DataLoader._finish, \
+        loader_mod.DataLoader._iter_process
+
+    def timed_forward(model, state, batch):
+        rows = []  # kept on the device until the synchronise below
+        hook = model.head.to_out[0].register_forward_hook(
+            lambda mod, args, out: rows.append(out.float()))
+        t = time.perf_counter()
+        try:
+            out = forward(model, state, batch)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        stats["forward_s"] += time.perf_counter() - t
+        logits.update(zip(batch["video_id"], out[0].tolist()))
+        if embeddings is not None:
+            embeddings.update(zip(batch["video_id"], rows[0].cpu().numpy()))
+        return out
+
+    def timed_finish(self, batch):
+        t = time.perf_counter()
+        out = finish(self, batch)
+        torch.cuda.synchronize()
+        stats["transform_s"] += time.perf_counter() - t
+        return out
+
+    def timed_raw(self, batches):
+        it = raw(self, batches)
+        while True:
+            t = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            finally:
+                stats["loader_wait_s"] += time.perf_counter() - t
+            yield item
+
+    evaluate._forward = timed_forward
+    loader_mod.DataLoader._finish = timed_finish
+    loader_mod.DataLoader._iter_process = timed_raw
+
+    def restore():
+        evaluate._forward = forward
+        loader_mod.DataLoader._finish = finish
+        loader_mod.DataLoader._iter_process = raw
+    return restore
+
+
+def _finite_report(report: dict) -> bool:
+    import math
+
+    return (all(math.isfinite(report[k]) for k in ("loss", "accuracy", "f1", "auc"))
+            and all(math.isfinite(x) for x in report["per_method_errors"].values()))
+
+
+def phase_evaluate(smi):
+    """The evaluation CLI's function (``evaluate.evaluate_split``, what
+    ``python -m mintime_torch.evaluate`` calls after reading its yaml) on a
+    test split written to disk: MINTIME-EF from reference-format weight
+    files at full width, 4 spawned workers, batch 8 and the yaml's test
+    batch of 1. Returns the launches of the batch-8 run."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mintime_torch import evaluate
+    from mintime_torch.data import loader as loader_mod
+    from mintime_torch.data.manifest import load_manifest
+    from mintime_torch.device import resolve_device
+
+    _, model_id, backbone, channels = PREDICT_MODELS[0]
+    cfg = _predict_config(channels)
+    want_forward = {"divided_attention": 18, "geglu_ffn": 18, "token_rows_attention": 0,
+                    **NO_PROBE_LAUNCHES}
+    with tempfile.TemporaryDirectory(prefix=".evaluate_split_",
+                                     dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        t0 = time.perf_counter()
+        faces, split, n_crops = _write_test_split(d)
+        head, ext = _write_model_files(d, model_id, backbone, channels)
+        write_s = time.perf_counter() - t0
+        man = load_manifest(split, faces)
+        t0 = time.perf_counter()
+        fit = _fit_output_layer(cfg, head, ext, man, faces)
+        fit["fit_s"] = time.perf_counter() - t0
+        run = dict(extractor_weights=ext, workers=4, device="cuda")
+        logits, emb = {}, {}
+        stats = collections.defaultdict(float)
+        restore = _eval_timers(evaluate, loader_mod, stats, logits, emb)
+        try:
+            # the main path: counters at 0 just before, read just after
+            t0 = time.perf_counter()
+            report, launches = _step_launches(
+                lambda: evaluate.evaluate_split(cfg, head, split, faces, batch_size=8, **run))
+            split_s = time.perf_counter() - t0
+            split_stage_s = dict(stats)
+            kernel, kernel_emb = dict(logits), dict(emb)
+            forwards = -(-EVAL_VIDEOS // 8)
+            got = {k: launches[k] for k in want_forward}
+            if got != {k: forwards * n for k, n in want_forward.items()}:
+                raise AssertionError(f"evaluate: launches {got} for {forwards} forwards, want "
+                                     f"{want_forward} a forward")
+
+            logits.clear()
+            emb.clear()
+            plain = evaluate.evaluate_split(cfg, head, split, faces, batch_size=8,
+                                            fused_attention=0, **run)
+            plain_logits, plain_emb = dict(logits), dict(emb)
+            multi = evaluate.evaluate_split(cfg, head, split, faces, batch_size=8,
+                                            only_multiidentity=True, **run)
+
+            # warm passes by stage: the loader's workers kept from a first pass; the
+            # model and the loader built as evaluate_split builds them
+            dev = resolve_device("cuda")
+            t0 = time.perf_counter()
+            model = evaluate.build_model(cfg, head, ext, device=dev)
+            build_s = time.perf_counter() - t0
+            passes = {}
+            for batch in (8, cfg.test.bs):
+                with evaluate.split_loader(cfg, man.videos, man.labels, man.multiclass, faces,
+                                           batch, 4, None, 0, 42, dev) as loader:
+                    t0 = time.perf_counter()
+                    evaluate.evaluate(model, None, loader)
+                    torch.cuda.synchronize()
+                    cold_s = time.perf_counter() - t0
+                    stats.clear()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    warm, counts = _step_launches(lambda: evaluate.evaluate(model, None, loader))
+                    warm_s = time.perf_counter() - t0
+                n_fwd = -(-EVAL_VIDEOS // batch)
+                per_forward = {k: counts[k] / n_fwd for k in want_forward}
+                if per_forward != want_forward:
+                    raise AssertionError(f"evaluate batch {batch}: launches a forward "
+                                         f"{per_forward}, want {want_forward}")
+                passes[batch] = {
+                    "first_pass_s": cold_s, "pass_s": warm_s, "videos_per_s": EVAL_VIDEOS / warm_s,
+                    "stage_s": {k: stats[k] for k in ("loader_wait_s", "transform_s",
+                                                      "forward_s")},
+                    "rest_s": warm_s - sum(stats.values()), "forwards": n_fwd,
+                    "launches_per_forward": per_forward,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "report": warm}
+        finally:
+            restore()
+        del model
+        torch.cuda.empty_cache()
+
+        # the same files in fp32 on the CPU, the split's first two videos
+        cpu = evaluate.build_model(cfg, head, ext, device="cpu", dtype=torch.float32)
+        logits_cpu, emb_cpu = {}, {}
+        restore = _eval_timers(evaluate, loader_mod, collections.defaultdict(float), logits_cpu,
+                               emb_cpu)
+        try:
+            with evaluate.split_loader(cfg, man.videos[:2], man.labels[:2], man.multiclass[:2],
+                                       faces, 2, workers=1, device="cpu") as loader:
+                evaluate.evaluate(cpu, None, loader)
+        finally:
+            restore()
+        del cpu
+
+    ids = sorted(kernel)
+    k_arr = np.array([kernel[i] for i in ids])
+    p_arr = np.array([plain_logits[i] for i in ids])
+    near_zero = bool((np.abs(k_arr) <= TOL).any())
+    # the CLS embeddings' differences against their spread over the split
+    zp = np.stack([plain_emb[i] for i in ids]).astype(np.float64)
+    spread = float(np.sqrt(((zp - zp.mean(0)) ** 2).sum(1).mean()))
+    cls_rel = lambda a, b: float(np.linalg.norm(a - b) / spread)  # noqa: E731
+    decided = np.abs(p_arr) > TOL
+    check = {
+        "kernel_vs_plain_logit_err": float(np.abs(k_arr - p_arr).max()),
+        "plain_logit_std": float(p_arr.std()),
+        "plain_logit_range": [float(p_arr.min()), float(p_arr.max())],
+        "signs_decided": [int((p_arr[decided] < 0).sum()), int((p_arr[decided] > 0).sum())],
+        "signs_agree": bool(((k_arr > 0) == (p_arr > 0))[decided].all()),
+        "card_vs_cpu_fp32_logit_err": max(abs(kernel[i] - v) for i, v in logits_cpu.items()),
+        "cls_spread": spread,
+        "cls_kernel_vs_plain_rel": max(cls_rel(kernel_emb[i], plain_emb[i]) for i in ids),
+        "cls_card_vs_cpu_rel": max(cls_rel(kernel_emb[i], z) for i, z in emb_cpu.items()),
+        "cpu_fp32_logits": logits_cpu,
+        "n_videos": report["n_videos"], "n_videos_plain": plain["n_videos"],
+        "n_videos_multiidentity": multi["n_videos"],
+        "accuracy_kernel_plain": [report["accuracy"], plain["accuracy"]],
+        "logit_within_tol_of_zero": near_zero,
+        "finite": all(_finite_report(r) for r in (report, plain, multi,
+                                                  *(p["report"] for p in passes.values()))),
+        "warm_reports_as_split": all(p["report"]["n_videos"] == report["n_videos"]
+                                     and abs(p["report"]["loss"] - report["loss"]) <= TOL
+                                     for p in passes.values()),
+    }
+    emit({"phase": "evaluate", "card": smi, "videos": EVAL_VIDEOS, "crops": n_crops,
+          "workers": 4, "files_write_s": write_s, "output_layer_fit": fit,
+          "evaluate_split_s": split_s, "evaluate_split_stage_s": split_stage_s,
+          "model_build_s": build_s,
+          "launches": got, "passes": {f"batch{b}": p for b, p in passes.items()},
+          "report": report, "report_plain": plain, "report_multiidentity": multi})
+    emit({"phase": "evaluate_check", "card": smi, **check})
+    if not check["kernel_vs_plain_logit_err"] <= min(TOL, check["plain_logit_std"] / 4):
+        raise AssertionError(f"evaluate: kernel vs plain logits differ by "
+                             f"{check['kernel_vs_plain_logit_err']} > min({TOL}, a quarter of "
+                             f"the plain logits' std {check['plain_logit_std']})")
+    if not (check["signs_agree"] and min(check["signs_decided"]) >= EVAL_VIDEOS // 4):
+        raise AssertionError(f"evaluate: kernel and plain logits differ in sign, or too few "
+                             f"lie clear of 0 on each side: {check}")
+    if not (len(logits_cpu) == 2 and check["card_vs_cpu_fp32_logit_err"] <= 5e-2):
+        raise AssertionError(f"evaluate: bf16 card vs fp32 CPU logits differ by "
+                             f"{check['card_vs_cpu_fp32_logit_err']} > 5e-2")
+    if not (report["n_videos"] == plain["n_videos"] == EVAL_VIDEOS
+            and multi["n_videos"] == sum(n > 1 for n in EVAL_IDENTITIES)):
+        raise AssertionError(f"evaluate: n_videos {check}")
+    if not near_zero and report["accuracy"] != plain["accuracy"]:
+        raise AssertionError(f"evaluate: kernel and plain accuracy differ: {check}")
+    if not (check["finite"] and check["warm_reports_as_split"]):
+        raise AssertionError(f"evaluate: a report is not finite or differs between runs: "
+                             f"{check}")
+    return got
 
 
 def _kind(name: str) -> str:
@@ -2452,10 +2847,15 @@ def main() -> int:
     # each main path's launches, read just after it: one flagship serving
     # forward, the detector and embedder over 8 videos (no hand-written
     # kernel), the whole predict pipeline for each backbone (one forward of
-    # 8 videos each), one flagship train step, one conv forward, one conv
-    # train step
+    # 8 videos each), a 48-video test split from disk through the evaluation
+    # function (6 forwards at batch 8), one flagship train step, one conv
+    # forward, one conv train step
     paths = {"flagship_forward": launches, "detect": detect,
-             **phase_predict(smi, detect_members), "flagship_train_step": phase_train(smi)}
+             **phase_predict(smi, detect_members)}
+    torch.cuda.empty_cache()
+    paths["evaluate"] = phase_evaluate(smi)
+    torch.cuda.empty_cache()
+    paths["flagship_train_step"] = phase_train(smi)
     torch.cuda.empty_cache()
     paths["conv_forward"] = phase_conv(smi)
     torch.cuda.empty_cache()

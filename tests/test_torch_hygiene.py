@@ -1,8 +1,9 @@
 """Import hygiene and device policy of the PyTorch port.
 
-The port must run where there is no JAX, no Flax, no PIL, no cv2 and no
-yaml: it never imports JAX, Flax, PIL or ``mintime_tpu``, and imports cv2
-and yaml only inside the functions that need them. Its default device is the card, and
+The port must run where there is no JAX, no Flax, no PIL, no cv2, no yaml
+and no pandas: it never imports JAX, Flax, PIL or ``mintime_tpu``, and
+imports cv2, yaml, pandas and matplotlib only inside the functions that need
+them. Its default device is the card, and
 without one it raises instead of falling back to the CPU.
 """
 
@@ -18,7 +19,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mintime_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "mintime_tpu", "PIL")
-LAZY_ONLY = ("cv2", "yaml", "matplotlib")
+LAZY_ONLY = ("cv2", "yaml", "matplotlib", "pandas")
 
 
 def _imports(tree):
@@ -48,8 +49,13 @@ def test_import_pulls_in_no_jax_cv2_or_yaml():
             "mintime_torch.preprocessing.cluster_faces, mintime_torch.native, "
             "mintime_torch.models.xception, mintime_torch.data.augment, "
             "mintime_torch.utils.checkpoint, mintime_torch.utils.attention_viz, "
-            "mintime_torch.preprocessing.detect_faces\n"
-            "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'PIL', 'mintime_tpu', 'matplotlib') "
+            "mintime_torch.preprocessing.detect_faces, mintime_torch.evaluate, "
+            "mintime_torch.data.dataset, mintime_torch.data.loader, mintime_torch.data.manifest, "
+            "mintime_torch.data.crop_store, mintime_torch.utils.metrics, "
+            "mintime_torch.preprocessing.extract_crops, mintime_torch.preprocessing.pack_crops, "
+            "mintime_torch.preprocessing.split_dataset, mintime_torch.preprocessing.stats\n"
+            "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'PIL', 'mintime_tpu', 'matplotlib', "
+            "'pandas') "
             "if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
