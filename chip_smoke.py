@@ -158,6 +158,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    after the 5 steps must be below the first; the BatchNorm statistics must
    move. Steps/s, videos/s, device ms per step, peak memory and a profile of
    one step are printed;
+5b. augment (after 5): the train-mode augmentations on the card, on 8
+   videos of 16 slots (dummy slots included) of a train split written as
+   phase 3d writes its test split (48 videos as packs, faces of 64-320 px,
+   1-3 identities, 24 of each label, DFDC's 1920 x 1080): each video's
+   natural ``max`` resize chain, then each of the 26 transforms forced once
+   a video (a one-member ``OneOf(p=1.0)``, drawn from a seed), held against
+   the port on the CPU on the same stack and draws: bitwise for
+   HorizontalFlip, InvertImg, CoarseDropout, RandomBrightnessContrast,
+   RandomGamma, RGBShift, GaussNoise, MultiplicativeNoise and MedianBlur,
+   within one level for the rest; its ms a video, the largest difference and
+   the share of values that differ are printed. Then the natural ``max``
+   and ``min`` draws of those videos: ms a slot of the resize chain and of
+   the augmentations, and what a batch of 8 would be of phase 5's step;
+5c. train_disk: ``DeepfakesDataset(mode="train", augmentation="max")``
+   over that split through the port's ``DataLoader`` (batch 8, shuffled, 4
+   spawned workers), the flagship of phase 5 (fp32 masters in bf16, SGD)
+   trained for 2 epochs of 6 steps through ``train.make_train_step``. Each
+   step must launch 18 / 18 attention / FFN kernels forward and 18 / 17
+   backward and none of the others, and give a finite loss; one step's loss
+   kernels vs plain on the same augmented batch within 2e-2; every video's
+   frames bitwise equal in both epochs (the JAX package's ``(seed, index)``
+   draw, which ignores the epoch). Printed: each epoch's steps/s and
+   videos/s, split by host clocks ending in a synchronise into the wait on
+   the loader, the transform (resize chain, augmentations) and the step;
+   the launches a step; the losses; peak memory;
 6. conv: the Convolutional TimeSformer preset (``configs/
    convolutional_timesformer.yaml``: EfficientNet-B0 tapped at block 20, 1280
    channel tokens of width 49 per frame, dim 256, depth 4, 6 x 64 heads,
@@ -1759,13 +1784,13 @@ def _stage_timers(predict, augment, stats):
             "cluster_crops": "cluster_s", "forward_batch": "forward_s"}
     for n, fn in saved.items():
         setattr(predict, n, timed(fn, keys[n]))
-    call = augment.ValTransform.__call__
-    augment.ValTransform.__call__ = timed(call, "transform_s")
+    chain = augment.resize_chain
+    augment.resize_chain = timed(chain, "transform_s")
 
     def restore():
         for n, fn in saved.items():
             setattr(predict, n, fn)
-        augment.ValTransform.__call__ = call
+        augment.resize_chain = chain
     return restore
 
 
@@ -2044,8 +2069,7 @@ def _eval_timers(evaluate, loader_mod, stats, logits, embeddings=None):
     Returns a function that takes them off again."""
     import torch
 
-    forward, finish, raw = evaluate._forward, loader_mod.DataLoader._finish, \
-        loader_mod.DataLoader._iter_process
+    forward = evaluate._forward
 
     def timed_forward(model, state, batch):
         rows = []  # kept on the device until the synchronise below
@@ -2063,12 +2087,23 @@ def _eval_timers(evaluate, loader_mod, stats, logits, embeddings=None):
             embeddings.update(zip(batch["video_id"], rows[0].cpu().numpy()))
         return out
 
-    def timed_finish(self, batch):
-        t = time.perf_counter()
-        out = finish(self, batch)
-        torch.cuda.synchronize()
-        stats["transform_s"] += time.perf_counter() - t
-        return out
+    evaluate._forward = timed_forward
+    untime = _time_loader(loader_mod, stats)
+
+    def restore():
+        evaluate._forward = forward
+        untime()
+    return restore
+
+
+def _time_loader(loader_mod, stats, extra=()):
+    """Host clocks around the loader's stages, into ``stats``: the main
+    process's wait on the workers (``loader_wait_s``), the transform on the
+    card (``transform_s``, ending in a synchronise) and each ``(owner, name,
+    key)`` of ``extra`` the same way. Returns a function that takes them off
+    again."""
+    loader = loader_mod.DataLoader
+    raw = loader._iter_process
 
     def timed_raw(self, batches):
         it = raw(self, batches)
@@ -2082,14 +2117,23 @@ def _eval_timers(evaluate, loader_mod, stats, logits, embeddings=None):
                 stats["loader_wait_s"] += time.perf_counter() - t
             yield item
 
-    evaluate._forward = timed_forward
-    loader_mod.DataLoader._finish = timed_finish
-    loader_mod.DataLoader._iter_process = timed_raw
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            out, s = _cuda_s(lambda: fn(*a, **kw))
+            stats[key] += s
+            return out
+        return wrapper
+
+    patches = [(loader, "_finish", "transform_s"), *extra]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
+    for owner, name, key in patches:
+        setattr(owner, name, timed(getattr(owner, name), key))
+    loader._iter_process = timed_raw
 
     def restore():
-        evaluate._forward = forward
-        loader_mod.DataLoader._finish = finish
-        loader_mod.DataLoader._iter_process = raw
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+        loader._iter_process = raw
     return restore
 
 
@@ -2552,7 +2596,219 @@ def phase_train(smi):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     emit({"phase": "profile", "card": smi, "what": "train step", "batch": 8,
           **_profile(lambda: step(state, batch))})
+    return launches[0], 1e3 * steady[len(steady) // 2]
+
+
+#: videos of phase ``augment``, and the seed of its forced draws
+AUG_VIDEOS = 8
+AUG_SEED = 16
+#: the transforms held bitwise between the card and the CPU (the rest within one level)
+AUG_BITWISE = ("HorizontalFlip", "InvertImg", "CoarseDropout", "RandomBrightnessContrast",
+               "RandomGamma", "RGBShift", "GaussNoise", "MultiplicativeNoise", "MedianBlur")
+#: the flagship's train-mode loader in phase ``train_disk``
+DISK_BATCH, DISK_EPOCHS, DISK_WORKERS = 8, 2, 4
+
+
+def _flagship_train_config():
+    from mintime_torch.config import MintimeConfig, ModelConfig, TrainingConfig
+
+    mcfg = ModelConfig(image_size=224, num_frames=16, num_patches=49, channels=1280, dim=512,
+                       depth=9, heads=8, dim_head=64, max_identities=2)
+    return MintimeConfig(model=mcfg, training=TrainingConfig(
+        lr=0.01, weight_decay=1e-4, optimizer="SGD", scheduler="cosinelr", bs=DISK_BATCH))
+
+
+def _train_dataset(cfg, man, faces, augmentation, device="cuda"):
+    from mintime_torch.data.dataset import DeepfakesDataset
+
+    m = cfg.model
+    return DeepfakesDataset(man.videos, man.labels, data_path=faces, image_size=m.image_size,
+                            num_frames=m.num_frames, num_patches=m.num_patches,
+                            max_identities=m.max_identities, mode="train",
+                            augmentation=augmentation, device=device)
+
+
+def _cuda_s(fn):
+    """``fn()`` and its seconds by the host's clock, ending in a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_augment(smi, cfg, man, faces, step_ms):
+    """The train-mode augmentations on the card: ``AUG_VIDEOS`` videos of the
+    train split (16 slots, dummy slots included) through the resize chain of
+    their natural ``max`` draws, then each transform forced once a video (a
+    one-member ``OneOf(p=1.0)``), held against the port on the CPU on the
+    same stack and draws; then the natural ``max`` and ``min`` presets, timed
+    by stage against a flagship train step of ``step_ms``."""
+    import numpy as np
+    import torch
+
+    from mintime_torch.data import augment, augment_plan
+
+    size = cfg.model.image_size
+    ds = _train_dataset(cfg, man, faces, "max")
+    raws = [ds.load(i) for i in range(AUG_VIDEOS)]
+    stacks = [augment.resize_chain(r["crops"], r["steps"], "cuda")[0] for r in raws]
+    chain_differ = sum(int((st.cpu() != augment.resize_chain(r["crops"], r["steps"], "cpu")[0])
+                           .sum()) for st, r in zip(stacks, raws))
+    rows = {}
+    for k, name in enumerate(sorted(augment.STACK_STEPS)):
+        one = augment_plan.OneOf([getattr(augment_plan, name)()], p=1.0)
+        steps = []
+        for v in range(AUG_VIDEOS):
+            drawn = []
+            one.draw(drawn, (size, size, 3), np.random.default_rng((AUG_SEED, k, v)))
+            steps.append(drawn[0])
+        for stack, step in zip(stacks, steps):  # warm-up: allocations, tables
+            augment.apply_step(stack, step)
+        outs, card_s = _cuda_s(lambda: [augment.apply_step(st, sp)
+                                        for st, sp in zip(stacks, steps)])
+        worst, differ, total = 0, 0, 0
+        for stack, step, out in zip(stacks, steps, outs):
+            cpu = augment.apply_step(stack.cpu(), step)
+            diff = (out.cpu().to(torch.int16) - cpu.to(torch.int16)).abs()
+            worst = max(worst, int(diff.max()))
+            differ += int((diff > 0).sum())
+            total += diff.numel()
+        rows[name] = {"ms_per_video": 1e3 * card_s / AUG_VIDEOS, "max_diff_levels": worst,
+                      "share_differing": differ / total,
+                      "bound": "bitwise" if name in AUG_BITWISE else "one level"}
+    presets = {}
+    for aug in ("max", "min"):
+        ds = _train_dataset(cfg, man, faces, aug)
+        raws = [ds.load(i) for i in range(AUG_VIDEOS)]
+        for r in raws[:2]:  # warm-up
+            augment.train_transform(r["crops"], r["steps"], "cuda")
+        chain_s = aug_s = 0.0
+        fired = collections.Counter()
+        for r in raws:
+            (stack, rest), s1 = _cuda_s(
+                lambda: augment.resize_chain(r["crops"], r["steps"], "cuda"))
+            _, s2 = _cuda_s(lambda: augment.apply_steps(stack, rest))
+            chain_s += s1
+            aug_s += s2
+            fired.update(t.name for t, _ in rest)
+        slots = AUG_VIDEOS * cfg.model.num_frames
+        batch_ms = 1e3 * (chain_s + aug_s) / AUG_VIDEOS * DISK_BATCH
+        presets[aug] = {"resize_chain_ms_per_slot": 1e3 * chain_s / slots,
+                        "augment_ms_per_slot": 1e3 * aug_s / slots,
+                        "ms_per_video": 1e3 * (chain_s + aug_s) / AUG_VIDEOS,
+                        "ms_per_batch8": batch_ms, "train_step_ms": step_ms,
+                        "share_of_train_step": batch_ms / step_ms, "fired": dict(fired)}
+    emit({"phase": "augment", "card": smi, "videos": AUG_VIDEOS, "slots": cfg.model.num_frames,
+          "resize_chain_values_differing_card_vs_cpu": chain_differ,
+          "transforms": rows, "presets": presets})
+    bad = {n: r for n, r in rows.items()
+           if r["max_diff_levels"] > (0 if r["bound"] == "bitwise" else 1)}
+    if bad:
+        raise AssertionError(f"augment: card vs CPU beyond the bound: {bad}")
+    if chain_differ:
+        raise AssertionError(f"augment: the resize chain differs card vs CPU on {chain_differ}")
+
+
+def phase_train_disk(smi, cfg, man, faces):
+    """The flagship trained from a train split on disk: ``DeepfakesDataset(
+    mode="train", augmentation="max")`` through the port's ``DataLoader``
+    (batch 8, shuffled, 4 spawned workers), ``DISK_EPOCHS`` epochs through
+    ``train.make_train_step``. Returns one step's launches."""
+    import numpy as np
+    import torch
+
+    from mintime_torch import train
+    from mintime_torch.data import augment
+    from mintime_torch.data import loader as loader_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ds = _train_dataset(cfg, man, faces, "max")
+    n = len(ds)
+    steps_per_epoch = -(-n // DISK_BATCH)
+    pos_weight = train.pos_weight_from_labels(np.asarray(man.labels, np.float32))
+    model = train.training_model(cfg.model, device="cuda", seed=0)
+    state = train.create_train_state(model, cfg, steps_per_epoch=steps_per_epoch,
+                                     num_epochs=DISK_EPOCHS, seed=0)
+    step = train.make_train_step(model, pos_weight)
+    want = {"divided_attention": 18, "geglu_ffn": 18, "token_rows_attention": 0,
+            "divided_attention_bwd": 18, "geglu_ffn_bwd": 17, "token_rows_attention_bwd": 0,
+            **NO_PROBE_LAUNCHES}
+
+    stats = collections.defaultdict(float)
+    untime = _time_loader(loader_mod, stats, [(augment, "resize_chain", "resize_chain_s"),
+                                              (augment, "apply_steps", "augment_s")])
+    epochs, frames, launches, losses = [], [], [], []
+    last = None
+    try:
+        with loader_mod.DataLoader(ds, DISK_BATCH, shuffle=True, num_workers=DISK_WORKERS, seed=0,
+                                   worker_mode="process") as loader:
+            for epoch in range(DISK_EPOCHS):
+                order = loader._batches()
+                stats.clear()
+                torch.cuda.reset_peak_memory_stats()
+                seen = {}
+                t0 = time.perf_counter()
+                for b, batch in enumerate(loader):
+                    for i, v in enumerate(order[b]):
+                        seen[v] = batch["frames"][i].cpu()
+                    (metrics, counts), s = _cuda_s(
+                        lambda: _step_launches(lambda: step(state, batch)))
+                    stats["step_s"] += s
+                    launches.append(counts)
+                    losses.append(float(metrics["loss"]))
+                    last = batch
+                epoch_s = time.perf_counter() - t0
+                frames.append(seen)
+                epochs.append({"epoch_s": epoch_s, "steps": len(order),
+                               "steps_per_s": len(order) / epoch_s, "videos_per_s": n / epoch_s,
+                               "stage_s": {k: stats[k] for k in (
+                                   "loader_wait_s", "transform_s", "resize_chain_s",
+                                   "augment_s", "step_s")},
+                               "rest_s": epoch_s - stats["loader_wait_s"] - stats["transform_s"]
+                               - stats["step_s"],
+                               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    finally:
+        untime()
+    loss_k, _ = _one_step_grads(model, last, pos_weight, True)
+    loss_p, _ = _one_step_grads(model, last, pos_weight, False)
+    same = [v for v in frames[0] if torch.equal(frames[0][v], frames[1][v])]
+    emit({"phase": "train_disk", "card": smi, "videos": n, "batch": DISK_BATCH,
+          "workers": DISK_WORKERS, "epochs": epochs, "launches_per_step": launches[0],
+          "losses": losses, "loss_kernel": loss_k, "loss_plain": loss_p,
+          "videos_same_frames_both_epochs": len(same), "pos_weight": pos_weight})
+    if any(c != want for c in launches):
+        raise AssertionError(f"train_disk: launches per step {launches}, want {want}")
+    if not all(np.isfinite(losses)) or len(losses) != DISK_EPOCHS * steps_per_epoch:
+        raise AssertionError(f"train_disk: losses {losses}")
+    if not abs(loss_k - loss_p) <= TOL:
+        raise AssertionError(f"train_disk: kernel vs plain loss {loss_k} vs {loss_p}")
+    if len(same) != n or len(frames[1]) != n:
+        raise AssertionError(f"train_disk: {n - len(same)} videos' frames differ between epochs")
+    del model, state
     return launches[0]
+
+
+def phase_train_from_disk(smi, step_ms):
+    """Phases ``augment`` and ``train_disk`` on one train split written to a
+    temporary directory in the checkout (phase ``evaluate``'s writer: 48
+    videos as packs, faces of 64-320 px, 1-3 identities, 24 of each label,
+    DFDC's 1920 x 1080). Returns ``train_disk``'s launches a step."""
+    import os
+    import tempfile
+
+    from mintime_torch.data.manifest import load_manifest
+
+    cfg = _flagship_train_config()
+    with tempfile.TemporaryDirectory(prefix=".train_split_",
+                                     dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        faces, split, _ = _write_test_split(d)
+        man = load_manifest(split, faces)
+        phase_augment(smi, cfg, man, faces, step_ms)
+        return phase_train_disk(smi, cfg, man, faces)
 
 
 def conv_model_config(tap: int = 20):
@@ -2855,7 +3111,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["evaluate"] = phase_evaluate(smi)
     torch.cuda.empty_cache()
-    paths["flagship_train_step"] = phase_train(smi)
+    paths["flagship_train_step"], step_ms = phase_train(smi)
+    torch.cuda.empty_cache()
+    # a train split on disk: the augmentations on the card, then the flagship
+    # trained from it through the train-mode dataset and loader
+    paths["flagship_train_step_from_disk"] = phase_train_from_disk(smi, step_ms)
     torch.cuda.empty_cache()
     paths["conv_forward"] = phase_conv(smi)
     torch.cuda.empty_cache()

@@ -9,9 +9,11 @@ sample contract: fixed-shape frames and side tensors from the host-side
 plan of :mod:`mintime_torch.data.assembler`.
 
 A sample is made in two steps, so that a loader's workers do the file work
-and the card does the resize: :meth:`DeepfakesDataset.load` (index, plan,
-crop reads, size buckets; numpy only) and
-:meth:`DeepfakesDataset.transform_crops` (the evaluation transform of
+and the card does the pixels: :meth:`DeepfakesDataset.load` (index, plan,
+crop reads, size buckets and, in mode ``"train"``, the augmentation's
+draws from :mod:`mintime_torch.data.augment_plan`; numpy only) and
+:meth:`DeepfakesDataset.transform_crops` (the evaluation transform, or in
+mode ``"train"`` the resize chain and the drawn augmentations, of
 :mod:`mintime_torch.data.augment`, torch on the dataset's ``device``).
 ``dataset[i]`` does both. The module imports torch only inside the
 transform and ``collate`` of frames, so a spawned worker that only loads
@@ -30,8 +32,10 @@ As in the JAX package:
   them a sample raises, since a wrong frame size corrupts the size
   embedding.
 
-Only modes ``"val"`` and ``"test"`` exist here: the train-mode
-augmentations are ROADMAP.md queue 1 item 4.
+In mode ``"train"`` a video's generator, ``np.random.default_rng((seed,
+index))``, draws the plan's seed first and then the whole augmentation, as
+in the JAX package: the draws do not depend on the epoch, so a video gets
+the same augmentation in every epoch.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from mintime_torch.data.assembler import (
     IdentityFaces,
     build_sequence_plan,
 )
+from mintime_torch.data.augment_plan import create_train_plan
 from mintime_torch.data.crop_store import CropPack, find_pack, image_dims_header
 
 if TYPE_CHECKING:
@@ -275,9 +280,11 @@ class DeepfakesDataset:
     ``tokens_per_identity`` and ``multiclass_label`` in test mode (numpy
     and Python values).
 
-    ``device`` is where the evaluation transform runs (default the card,
-    which raises without one). It is kept as a string, so that the dataset
-    unpickles without torch in a loader's spawned worker.
+    ``device`` is where the transform runs (default the card, which raises
+    without one). It is kept as a string, so that the dataset unpickles
+    without torch in a loader's spawned worker. ``augmentation`` names the
+    train-mode preset: ``"min"``, or ``"max"`` for any other name, as in the
+    JAX package.
     """
 
     def __init__(
@@ -290,6 +297,7 @@ class DeepfakesDataset:
         num_patches: int = 49,
         max_identities: int = 2,
         mode: str = "test",
+        augmentation: str = "max",
         identities_ordering: int = 0,
         multiclass_labels: Sequence[float] | None = None,
         video_dims: Mapping[str, tuple[int, int]] | None = None,
@@ -298,11 +306,6 @@ class DeepfakesDataset:
         seed: int = 42,
         device: str | torch.device = "cuda",
     ):
-        if mode == "train":
-            raise ValueError(
-                "mode 'train' needs the train-mode augmentations "
-                "(mintime_tpu/data/augment.py:713-760), which are not ported yet: ROADMAP.md "
-                "queue 1 item 4; modes 'val' and 'test' run the evaluation transform")
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
         self.videos = list(videos)
@@ -320,6 +323,8 @@ class DeepfakesDataset:
         self.default_video_dims = default_video_dims
         self.seed = seed
         self.device = str(device)
+        #: the train-mode draws (numpy only), None in the other modes
+        self.train_plan = create_train_plan(image_size, augmentation) if mode == "train" else None
         #: per-video index, built lazily or by preload_index, reused across epochs
         self._index: dict[int, VideoIndex] = {}
 
@@ -381,7 +386,8 @@ class DeepfakesDataset:
     def load(self, index: int) -> dict:
         """The sample with ``crops`` (``F`` BGR uint8 arrays of any size, a
         black ``S`` x ``S`` square in each dummy slot) in place of
-        ``frames``: the file work only, no torch."""
+        ``frames`` and, in mode ``"train"``, ``steps``, the video's drawn
+        augmentation: the file work and the draws only, no torch."""
         video_rel = self.videos[index]
         vi = self.get_index(index)
         rng = np.random.default_rng((self.seed, index))
@@ -420,6 +426,8 @@ class DeepfakesDataset:
             "positions": plan.positions,
             "labels": np.float32(self.labels[index]),
         }
+        if self.train_plan is not None:
+            sample["steps"] = self.train_plan([c.shape for c in crops], rng)
         if self.mode == "test":
             sample["video_id"] = video_rel.replace("/", "_")
             sample["tokens_per_identity"] = plan.tokens_per_identity
@@ -427,18 +435,29 @@ class DeepfakesDataset:
                 sample["multiclass_label"] = self.multiclass_labels[index]
         return sample
 
-    def transform_crops(self, crops: Sequence[Sequence[np.ndarray]]) -> torch.Tensor:
-        """``B`` samples' crops through the evaluation transform in one call:
-        ``(B, F, S, S, 3)`` uint8 on the dataset's device."""
-        from mintime_torch.data.augment import create_val_transform
+    def transform_crops(self, crops: Sequence[Sequence[np.ndarray]],
+                        steps: Sequence[list] | None = None) -> torch.Tensor:
+        """``B`` samples' crops through the transform in one call: ``(B, F,
+        S, S, 3)`` uint8 on the dataset's device. In mode ``"train"``
+        ``steps`` holds each sample's drawn augmentation: its resize chain
+        runs crop by crop, the rest once over the video's stack, dummy slots
+        included."""
+        import torch
 
-        flat = [c for sample in crops for c in sample]
-        out = create_val_transform(self.image_size)(flat, self.device)
-        return out.reshape((len(crops), -1) + out.shape[1:])
+        from mintime_torch.data.augment import create_val_transform, train_transform
+
+        if self.train_plan is None:
+            flat = [c for sample in crops for c in sample]
+            out = create_val_transform(self.image_size)(flat, self.device)
+            return out.reshape((len(crops), -1) + out.shape[1:])
+        if steps is None or len(steps) != len(crops):
+            raise ValueError("mode 'train' needs each sample's drawn steps (load()['steps'])")
+        return torch.stack([train_transform(c, s, self.device) for c, s in zip(crops, steps)])
 
     def __getitem__(self, index: int) -> dict:
         sample = self.load(index)
-        sample["frames"] = self.transform_crops([sample.pop("crops")])[0]
+        steps = [sample.pop("steps")] if "steps" in sample else None
+        sample["frames"] = self.transform_crops([sample.pop("crops")], steps)[0]
         return sample
 
 
@@ -452,8 +471,8 @@ def _bucket_of(ratio: int) -> int:
 
 def collate(samples: Sequence[dict]) -> dict:
     """Stack samples into a batch dict: ``frames`` tensors with
-    ``torch.stack``, ``crops`` as a list of each sample's list, the side
-    arrays with ``np.stack``."""
+    ``torch.stack``, ``crops`` and ``steps`` as lists of each sample's, the
+    side arrays with ``np.stack``."""
     batch = {k: np.stack([s[k] for s in samples])
              for k in ("size_embedding", "mask", "identities_mask", "positions")
              if k in samples[0]}
@@ -465,6 +484,8 @@ def collate(samples: Sequence[dict]) -> dict:
                            else np.stack(frames))
     if "crops" in samples[0]:
         batch["crops"] = [s["crops"] for s in samples]
+    if "steps" in samples[0]:
+        batch["steps"] = [s["steps"] for s in samples]
     batch["labels"] = np.asarray([s["labels"] for s in samples], np.float32)
     if "video_id" in samples[0]:
         batch["video_id"] = [s["video_id"] for s in samples]

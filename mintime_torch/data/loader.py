@@ -3,8 +3,9 @@
 Batches come in order, from ``_batches``' list (shuffled with
 ``np.random.default_rng((seed, epoch))`` when ``shuffle``). The workers do
 each batch's file work (:meth:`DeepfakesDataset.load`: index, plan, crop
-reads, size buckets) and :func:`collate` it; the main process then runs
-the evaluation transform on the dataset's device
+reads, size buckets and, in mode ``"train"``, the augmentation's draws)
+and :func:`collate` it; the main process then runs the transform on the
+dataset's device
 (:meth:`DeepfakesDataset.transform_crops`), so a batch's ``frames`` is a
 ``(B, F, S, S, 3)`` uint8 tensor there and the rest numpy.
 
@@ -92,8 +93,9 @@ class DataLoader:
         return [idx[i : i + self.batch_size].tolist() for i in range(0, len(idx), self.batch_size)]
 
     def _finish(self, batch: dict) -> dict:
-        """The evaluation transform of the batch's crops, on the dataset's device."""
-        batch["frames"] = self.dataset.transform_crops(batch.pop("crops"))
+        """The transform of the batch's crops (with their drawn steps in mode
+        ``"train"``), on the dataset's device."""
+        batch["frames"] = self.dataset.transform_crops(batch.pop("crops"), batch.pop("steps", None))
         return batch
 
     def __iter__(self) -> Iterator[dict]:

@@ -9,9 +9,9 @@ pack-only video, and frame sizes from a sidecar, a pack header and an
 ``.mp4`` under ``video_path``. Crops from 14 to 60 px at ``image_size`` 32
 take both of the transform's resizes (area down, cubic up) and the pad.
 
-Side tensors, ``video_id`` and ``tokens_per_identity`` must be equal; frames
-may differ by one level on at most 1e-4 of the values (the port's cubic
-resize against cv2's, ``tests/test_torch_val_transform.py``).
+Side tensors, ``video_id`` and ``tokens_per_identity`` must be equal, and so
+must the frames (the port's resizes are bitwise equal to cv2's,
+``tests/test_torch_val_transform.py``).
 """
 
 import json
@@ -112,8 +112,9 @@ def _datasets(tree, layout, mode="test", ordering=0, **kw):
             jax_ds.DeepfakesDataset(tree["videos"], tree["labels"], **args))
 
 
-def assert_frames_close(got, want, share=1e-4):
-    """At most one level apart, on at most ``share`` of the values."""
+def assert_frames_close(got, want, share=0.0):
+    """At most one level apart, on at most ``share`` of the values (by
+    default none: bitwise)."""
     got = np.asarray(got.cpu() if isinstance(got, torch.Tensor) else got).astype(np.int16)
     diff = np.abs(got - np.asarray(want).astype(np.int16))
     assert got.shape == diff.shape == np.asarray(want).shape
@@ -222,9 +223,18 @@ def test_unknown_dims_raise_as_in_jax(tree, layout):
     assert_samples_equal(got, want)
 
 
-def test_train_mode_raises_and_names_the_work_item():
-    with pytest.raises(ValueError, match="queue 1 item 4"):
-        port_ds.DeepfakesDataset(["v"], [0.0], mode="train", device="cpu")
+@pytest.mark.parametrize("aug", ["min", "max", "anything else"])
+def test_train_mode_builds_with_each_preset_name(aug):
+    """Mode ``"train"`` builds with either preset, and a name other than
+    ``"min"`` gives ``max``, as in the JAX package."""
+    from mintime_tpu.data.augment import create_train_transforms
+
+    port = port_ds.DeepfakesDataset(["v"], [0.0], mode="train", augmentation=aug, device="cpu")
+    jax = jax_ds.DeepfakesDataset(["v"], [0.0], mode="train", augmentation=aug)
+    names = lambda c: [type(t).__name__ for t in c.transforms]  # noqa: E731
+    assert names(port.train_plan) == names(jax.transform)
+    assert names(port.train_plan) == names(create_train_transforms(
+        IMAGE, "min" if aug == "min" else "max")) != []
 
 
 def test_default_device_is_the_card(tree):

@@ -48,6 +48,8 @@ def test_import_pulls_in_no_jax_cv2_or_yaml():
             "mintime_torch.preprocessing.mtcnn, mintime_torch.preprocessing.facenet, "
             "mintime_torch.preprocessing.cluster_faces, mintime_torch.native, "
             "mintime_torch.models.xception, mintime_torch.data.augment, "
+            "mintime_torch.data.augment_plan, mintime_torch.data.colorspace, "
+            "mintime_torch.data.draw, mintime_torch.data.jpeg, "
             "mintime_torch.utils.checkpoint, mintime_torch.utils.attention_viz, "
             "mintime_torch.preprocessing.detect_faces, mintime_torch.evaluate, "
             "mintime_torch.data.dataset, mintime_torch.data.loader, mintime_torch.data.manifest, "

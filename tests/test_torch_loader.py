@@ -107,7 +107,7 @@ def test_the_workers_modules_import_no_torch():
     import sys
 
     code = ("import sys, mintime_torch.data.loader, mintime_torch.data.dataset, "
-            "mintime_torch.evaluate\n"
+            "mintime_torch.data.augment_plan, mintime_torch.evaluate\n"
             "assert 'torch' not in sys.modules, 'torch imported'\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root, timeout=120,
