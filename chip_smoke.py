@@ -183,6 +183,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    videos/s, split by host clocks ending in a synchronise into the wait on
    the loader, the transform (resize chain, augmentations) and the step;
    the launches a step; the losses; peak memory;
+5d. train_main: the training CLI's function (``train_loop.main`` with an
+   argv list and the config of ``configs/size_invariant_timesformer.yaml``
+   built in code; its 2048 channels are Xception's, so ``--extractor_model
+   1``, MINTIME-XC) on that split: 48 train videos, 16 of them as the
+   validation list, batch 8, 4 spawned workers, 2 epochs, then an automatic
+   resumption that runs one more epoch from the last checkpoint. Each train
+   step must launch 18 / 18 attention / FFN kernels forward and 18 / 17
+   backward and none of the others, each validation forward 18 / 18; the
+   losses finite, ``Validation/Loss`` logged every epoch, a checkpoint
+   written, and the resumed run starting at that checkpoint's epoch + 1 and
+   step. Printed: each epoch's steps/s and videos/s, its validation pass and
+   its checkpoint write timed apart;
+5e. slowfast: SlowFast R-50 (``configs/slowfast.yaml``: 256 px, 32 fast and
+   8 slow frames, widths 64 to 2048 and 8 to 256) from a weight file in
+   pytorchvideo's ``slowfast_r50`` keys that the phase writes (seeded
+   draws): ``evaluate.evaluate_split(model=2)`` over phase ``evaluate``'s
+   48-video split at the yaml's batch of 32, the first video's logit against
+   a CPU fp32 run within 5e-2; SGD steps at batch 32 through
+   ``train.make_train_step`` (every parameter a finite non-zero gradient,
+   every BatchNorm's statistics moved); one epoch of ``train_loop.main
+   --model 2``. No hand-written kernel may launch. Printed: videos/s,
+   steps/s, device ms a step, peak memory;
 6. conv: the Convolutional TimeSformer preset (``configs/
    convolutional_timesformer.yaml``: EfficientNet-B0 tapped at block 20, 1280
    channel tokens of width 49 per frame, dim 256, depth 4, 6 x 64 heads,
@@ -2073,14 +2095,15 @@ def _eval_timers(evaluate, loader_mod, stats, logits, embeddings=None):
 
     def timed_forward(model, state, batch):
         rows = []  # kept on the device until the synchronise below
-        hook = model.head.to_out[0].register_forward_hook(
+        hook = None if embeddings is None else model.head.to_out[0].register_forward_hook(
             lambda mod, args, out: rows.append(out.float()))
         t = time.perf_counter()
         try:
             out = forward(model, state, batch)
             torch.cuda.synchronize()
         finally:
-            hook.remove()
+            if hook is not None:
+                hook.remove()
         stats["forward_s"] += time.perf_counter() - t
         logits.update(zip(batch["video_id"], out[0].tolist()))
         if embeddings is not None:
@@ -2397,6 +2420,23 @@ PROBE_KERNELS = ("grouped_attention", "chunked_attention", "dw_conv", "dw_conv_w
 NO_PROBE_LAUNCHES = {k: 0 for k in PROBE_KERNELS}
 
 
+def _launch_counts() -> dict:
+    """The ten wrappers' launch counters as they stand."""
+    from mintime_torch.ops import chunked_attention as ca
+    from mintime_torch.ops import divided_attention as da
+    from mintime_torch.ops import dw_conv
+    from mintime_torch.ops import geglu_ffn as ffn
+    from mintime_torch.ops import grouped_attention as ga
+    from mintime_torch.ops import token_rows as tr
+
+    return {"divided_attention": da.launches, "geglu_ffn": ffn.launches,
+            "token_rows_attention": tr.launches,
+            "divided_attention_bwd": da.bwd_launches, "geglu_ffn_bwd": ffn.bwd_launches,
+            "token_rows_attention_bwd": tr.bwd_launches,
+            "grouped_attention": ga.launches, "chunked_attention": ca.launches,
+            "dw_conv": dw_conv.launches, "dw_conv_wgrad": dw_conv.wgrad_launches}
+
+
 def _step_launches(fn) -> tuple:
     """Kernel launches of the ten wrappers during ``fn()``, counted from 0."""
     import torch
@@ -2413,12 +2453,7 @@ def _step_launches(fn) -> tuple:
         mod.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, {"divided_attention": da.launches, "geglu_ffn": ffn.launches,
-                 "token_rows_attention": tr.launches,
-                 "divided_attention_bwd": da.bwd_launches, "geglu_ffn_bwd": ffn.bwd_launches,
-                 "token_rows_attention_bwd": tr.bwd_launches,
-                 "grouped_attention": ga.launches, "chunked_attention": ca.launches,
-                 "dw_conv": dw_conv.launches, "dw_conv_wgrad": dw_conv.wgrad_launches}
+    return out, _launch_counts()
 
 
 def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bool = False):
@@ -2793,10 +2828,11 @@ def phase_train_disk(smi, cfg, man, faces):
 
 
 def phase_train_from_disk(smi, step_ms):
-    """Phases ``augment`` and ``train_disk`` on one train split written to a
-    temporary directory in the checkout (phase ``evaluate``'s writer: 48
-    videos as packs, faces of 64-320 px, 1-3 identities, 24 of each label,
-    DFDC's 1920 x 1080). Returns ``train_disk``'s launches a step."""
+    """Phases ``augment``, ``train_disk`` and ``train_main`` on one train
+    split written to a temporary directory in the checkout (phase
+    ``evaluate``'s writer: 48 videos as packs, faces of 64-320 px, 1-3
+    identities, 24 of each label, DFDC's 1920 x 1080). Returns the launches
+    of ``train_disk``'s step and of ``train_main``'s runs."""
     import os
     import tempfile
 
@@ -2808,7 +2844,381 @@ def phase_train_from_disk(smi, step_ms):
         faces, split, _ = _write_test_split(d)
         man = load_manifest(split, faces)
         phase_augment(smi, cfg, man, faces, step_ms)
-        return phase_train_disk(smi, cfg, man, faces)
+        disk = phase_train_disk(smi, cfg, man, faces)
+        return disk, phase_train_main(smi, d, faces, split)
+
+
+#: phase ``train_main``: epochs of the first run (``--num_epochs 1``), the
+#: validation list (every third video of the split), spawned workers
+MAIN_EPOCHS, MAIN_VAL_EVERY, MAIN_WORKERS = 2, 3, 4
+
+
+def train_main_config():
+    """``configs/size_invariant_timesformer.yaml`` built in code (the card's
+    machine has no yaml; a CPU test holds the two equal)."""
+    from mintime_torch.config import MintimeConfig, TestConfig, TrainingConfig
+
+    return MintimeConfig(model=_predict_config(2048).model, training=TrainingConfig(
+        lr=0.01, weight_decay=1e-4, bs=8, val_bs=8, optimizer="SGD", scheduler="cosinelr",
+        gamma=0.1, step_size=5, augmentation="max"), test=TestConfig(bs=1))
+
+
+def slowfast_config():
+    """``configs/slowfast.yaml`` built in code (a CPU test holds the two equal)."""
+    from mintime_torch.config import MintimeConfig, ModelConfig, TestConfig, TrainingConfig
+
+    return MintimeConfig(
+        model=ModelConfig(image_size=256, num_classes=1, num_frames=16, max_identities=1,
+                          enable_size_emb=False, enable_pos_emb=False,
+                          enable_identity_attention=False),
+        training=TrainingConfig(lr=0.001, weight_decay=1e-4, bs=32, val_bs=32, optimizer="SGD",
+                                scheduler="cosinelr", gamma=0.1, step_size=5,
+                                augmentation="max"),
+        test=TestConfig(bs=32))
+
+
+def _val_list(d, split) -> tuple:
+    """The split's rows and a validation list of every ``MAIN_VAL_EVERY``-th
+    of them written beside it."""
+    import os
+
+    with open(split) as f:
+        rows = f.read().split("\n")[:-1]
+    val = os.path.join(d, "val.csv")
+    with open(val, "w") as f:
+        f.write("\n".join(rows[::MAIN_VAL_EVERY]) + "\n")
+    return rows, val
+
+
+def _main_argv(d, split, val, *extra):
+    import os
+
+    return ["--train_list_file", split, "--validation_list_file", val,
+            "--data_path", os.path.join(d, "faces"), "--workers", str(MAIN_WORKERS),
+            "--models_output_path", os.path.join(d, "models"),
+            "--logger_name", os.path.join(d, "runs"), "--device", "cuda", *extra]
+
+
+def _watch_main():
+    """Hooks on what ``train_loop.main`` runs, read into the returned dict:
+    each train and validation step's launches (the counters' growth over the
+    step, never reset) and host time ending in a synchronise, the step count
+    each train step starts from, the losses, the scalars logged, and each
+    epoch's times (from its first step to its scalars: the steps, the
+    validation pass after them, then the checkpoint write). ``rec["undo"]()``
+    takes the hooks off."""
+    import torch
+
+    from mintime_torch import train, train_loop
+    from mintime_torch.utils import checkpoint
+
+    rec = {"train": [], "val": [], "epochs": [], "scalars": collections.defaultdict(dict),
+           "start_steps": []}
+    cur = {}
+    saved = [(train, "make_train_step", train.make_train_step),
+             (train, "make_eval_step", train.make_eval_step),
+             (checkpoint, "save_train_state", checkpoint.save_train_state),
+             (train_loop.ScalarLogger, "add_scalar", train_loop.ScalarLogger.add_scalar)]
+
+    def counted(fn, into):
+        def run(*a):
+            torch.cuda.synchronize()
+            before, t = _launch_counts(), time.perf_counter()
+            cur.setdefault("first", t)
+            out = fn(*a)
+            torch.cuda.synchronize()
+            after = time.perf_counter()
+            counts = _launch_counts()
+            rec[into].append({"launches": {k: counts[k] - before[k] for k in counts},
+                              "s": after - t, "loss": float(out["loss"])})
+            if into == "train":
+                cur["last"] = after
+                cur["steps"] = cur.get("steps", 0) + 1
+            return out
+        return run
+
+    def make_train_step(model, pos_weight=1.0):
+        step = counted(saved[0][2](model, pos_weight), "train")
+
+        def train_step(state, batch):
+            if "first" not in cur:
+                rec["start_steps"].append(state.step)
+            return step(state, batch)
+        return train_step
+
+    def make_eval_step(model, pos_weight=1.0):
+        return counted(saved[1][2](model, pos_weight), "val")
+
+    def save_train_state(*a, **k):
+        path, s = _cuda_s(lambda: saved[2][2](*a, **k))
+        rec["epochs"][-1]["checkpoint_s"] = s
+        return path
+
+    def add_scalar(self, tag, value, step):
+        rec["scalars"][step][tag] = float(value)
+        if tag == "Training/Loss":
+            now = time.perf_counter()
+            rec["epochs"].append({"epoch": step, "steps": cur["steps"],
+                                  "epoch_s": now - cur["first"],
+                                  "train_s": cur["last"] - cur["first"],
+                                  "val_s": now - cur["last"], "checkpoint_s": 0.0})
+            cur.clear()
+        return saved[3][2](self, tag, value, step)
+
+    for (owner, name, _), fn in zip(saved, (make_train_step, make_eval_step, save_train_state,
+                                            add_scalar)):
+        setattr(owner, name, fn)
+
+    def undo():
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    rec["undo"] = undo
+    return rec
+
+
+def phase_train_main(smi, d, faces, split):
+    """The training CLI through its function on phase ``train_disk``'s split
+    (see 5d in the module's docstring). Returns the launches of both runs."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from mintime_torch import train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, val = _val_list(d, split)
+    cfg = train_main_config()
+    argv = _main_argv(d, split, val, "--extractor_model", "1", "--patience", "5")
+    step = {"divided_attention": 18, "geglu_ffn": 18, "token_rows_attention": 0,
+            "divided_attention_bwd": 18, "geglu_ffn_bwd": 17, "token_rows_attention_bwd": 0,
+            **NO_PROBE_LAUNCHES}
+    forward = {**{k: 0 for k in step}, "divided_attention": 18, "geglu_ffn": 18}
+    runs, launches = [], {}
+    for name, epochs in (("first", MAIN_EPOCHS - 1), ("resumed", MAIN_EPOCHS)):
+        rec = _watch_main()
+        try:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            # the main path: counters at 0 just before, read just after
+            result, counts = _step_launches(lambda: train_loop.main(
+                argv + ["--num_epochs", str(epochs)], config=cfg))
+            run_s = time.perf_counter() - t0
+        finally:
+            rec["undo"]()
+        launches[name] = counts
+        n_train = len(rows)
+        epochs_out = [{**e, "steps_per_s": e["steps"] / e["train_s"],
+                       "videos_per_s": n_train / e["train_s"]} for e in rec["epochs"]]
+        runs.append({"run": name, "run_s": run_s, "launches": counts,
+                     "epochs": epochs_out, "start_step": rec["start_steps"][0],
+                     "checkpoints": [os.path.basename(p) for p in result.checkpoints],
+                     "losses": [r["loss"] for r in rec["train"]],
+                     "val_losses": [r["loss"] for r in rec["val"]],
+                     "val_forward_s": [r["s"] for r in rec["val"]],
+                     "train_step_s": [r["s"] for r in rec["train"]],
+                     "scalars": dict(rec["scalars"]),
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "_train": rec["train"], "_val": rec["val"], "_result": result})
+    emit({"phase": "train_main", "card": smi, "videos": len(rows),
+          "val_videos": len(rows[::MAIN_VAL_EVERY]), "batch": cfg.training.bs,
+          "workers": MAIN_WORKERS, "extractor": "xception",
+          "runs": [{k: v for k, v in r.items() if not k.startswith("_")} for r in runs]})
+    steps_per_epoch = -(-len(rows) // cfg.training.bs)
+    first, resumed = runs
+    last = max(int(p.split("_")[1]) for p in first["checkpoints"])
+    for r in runs:
+        bad = [x["launches"] for x in r["_train"] if x["launches"] != step]
+        bad += [x["launches"] for x in r["_val"] if x["launches"] != forward]
+        if bad:
+            raise AssertionError(f"train_main: launches {bad[:2]}, want {step} a train step "
+                                 f"and {forward} a validation forward")
+        if not all(np.isfinite(r["losses"] + r["val_losses"])):
+            raise AssertionError(f"train_main: losses {r['losses']} {r['val_losses']}")
+        if any("Validation/Loss" not in row for row in r["scalars"].values()):
+            raise AssertionError(f"train_main: scalars {r['scalars']}")
+    if [e["epoch"] for e in first["epochs"]] != list(range(MAIN_EPOCHS)) or not \
+            first["checkpoints"] or first["start_step"] != 0:
+        raise AssertionError(f"train_main: first run {first['epochs']} {first['checkpoints']}")
+    if [e["epoch"] for e in resumed["epochs"]] != list(range(last + 1, MAIN_EPOCHS + 1)) or \
+            resumed["start_step"] != (last + 1) * steps_per_epoch:
+        raise AssertionError(f"train_main: the resumed run starts at epoch "
+                             f"{resumed['epochs'][:1]} step {resumed['start_step']}, want epoch "
+                             f"{last + 1} step {(last + 1) * steps_per_epoch}")
+    torch.cuda.empty_cache()
+    return {k: launches["first"][k] + launches["resumed"][k] for k in launches["first"]}
+
+
+#: phase ``slowfast``: timed steps after the checked one; the head's weight scale
+SF_TIMED_STEPS, SF_PROJ_STD = 3, 0.002
+
+
+def slowfast_state_dict(model, seed: int) -> dict:
+    """A state_dict for ``model`` (SlowFast, pytorchvideo's keys) drawn from
+    ``seed`` on the CPU: convolutions He-normal, BatchNorm scales from [0.5,
+    1.5] but each residual branch's last from [0.05, 0.15] (pytorchvideo
+    initialises it at 0), shifts and running means N(0, 0.1), running
+    variances from [0.5, 1.5], the head N(0, ``SF_PROJ_STD``) with no bias."""
+    import math
+
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith("proj.weight"):
+            t = torch.randn(v.shape, generator=gen) * SF_PROJ_STD
+        elif k.endswith("proj.bias"):
+            t = torch.zeros(v.shape)
+        elif v.dim() == 5:
+            t = torch.randn(v.shape, generator=gen) * math.sqrt(2.0 / v[0].numel())
+        elif k.endswith("norm_c.weight"):
+            t = torch.rand(v.shape, generator=gen) * 0.1 + 0.05
+        elif k.endswith((".running_var", ".weight")):
+            t = torch.rand(v.shape, generator=gen) + 0.5
+        else:
+            t = torch.randn(v.shape, generator=gen) * 0.1
+        sd[k] = t
+    return sd
+
+
+def phase_slowfast(smi):
+    """SlowFast R-50 at full width (see 5e in the module's docstring).
+    Returns the launches of its three runs (all must be 0)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mintime_torch import evaluate, train, train_loop
+    from mintime_torch.data import loader as loader_mod
+    from mintime_torch.data.manifest import load_manifest
+    from mintime_torch.models.slowfast import SlowFastClassifier
+    from mintime_torch.utils.checkpoint import load_model_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = slowfast_config()
+    zero = {k: 0 for k in _launch_counts()}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix=".slowfast_",
+                                     dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        faces, split, _ = _write_test_split(d)
+        man = load_manifest(split, faces)
+        weights = os.path.join(d, "slowfast_r50.pth")
+        sd = slowfast_state_dict(SlowFastClassifier(device="cpu"), seed=5)
+        torch.save({**sd, **{k.replace("running_var", "num_batches_tracked"): torch.tensor(0)
+                             for k in sd if k.endswith("running_var")}}, weights)
+
+        # (i) the evaluation function at the yaml's batch, then one video on the CPU in fp32
+        logits, stats = {}, collections.defaultdict(float)
+        restore = _eval_timers(evaluate, loader_mod, stats, logits)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            report, counts = _step_launches(lambda: evaluate.evaluate_split(
+                cfg, weights, split, faces, model=2, workers=4, device="cuda"))
+            eval_s = time.perf_counter() - t0
+        finally:
+            restore()
+        eval_stats, eval_mem = dict(stats), torch.cuda.max_memory_allocated() / 2**30
+        out["evaluate"] = counts
+        cpu_logits = {}
+        restore = _eval_timers(evaluate, loader_mod, collections.defaultdict(float), cpu_logits)
+        try:
+            cpu = evaluate.build_model(cfg, weights, model=2, device="cpu", dtype=torch.float32)
+            with evaluate.split_loader(cfg, man.videos[:1], man.labels[:1], man.multiclass[:1],
+                                       faces, 1, workers=1, device="cpu") as loader:
+                evaluate.evaluate(cpu, None, loader)
+            del cpu
+        finally:
+            restore()
+        (first, cpu_logit), = cpu_logits.items()
+        card_vs_cpu = abs(logits[first] - cpu_logit)
+
+        # (ii) SGD steps at the yaml's batch through the train step
+        model = train.slowfast_training_model(cfg.model, device="cuda", seed=0)
+        model.load_state_dict(load_model_state(model, cfg, weights))
+        stats0 = {k: v.clone() for k, v in model.named_buffers()}
+        ds = _train_dataset(cfg, man, faces, cfg.training.augmentation)
+        with loader_mod.DataLoader(ds, cfg.training.bs, shuffle=True, num_workers=4, seed=0,
+                                   worker_mode="process") as loader:
+            batch = next(iter(loader))
+        n = len(batch["labels"])
+        pos_weight = train.pos_weight_from_labels(np.asarray(man.labels, np.float32))
+        state = train.create_train_state(model, cfg, steps_per_epoch=2, num_epochs=1)
+        step = train.make_train_step(model, pos_weight)
+        torch.cuda.reset_peak_memory_stats()
+        (metrics, counts), first_s = _cuda_s(lambda: _step_launches(lambda: step(state, batch)))
+        out["train_step"] = counts
+        no_grad = [k for k, p in model.named_parameters() if p.grad is None
+                   or not torch.isfinite(p.grad).all() or not p.grad.abs().max() > 0]
+        still = [k for k, v in model.named_buffers() if torch.equal(v, stats0[k])]
+        losses = [float(metrics["loss"])]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(SF_TIMED_STEPS):
+            losses.append(float(step(state, batch)["loss"]))
+        end.record()
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        step_ms = start.elapsed_time(end) / SF_TIMED_STEPS
+        train_mem = torch.cuda.max_memory_allocated() / 2**30
+        del model, state, step
+        torch.cuda.empty_cache()
+
+        # (iii) one epoch of the training CLI
+        rows, val = _val_list(d, split)
+        rec = _watch_main()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result, counts = _step_launches(lambda: train_loop.main(
+                _main_argv(d, split, val, "--model", "2", "--num_epochs", "0"), config=cfg))
+            main_s = time.perf_counter() - t0
+        finally:
+            rec["undo"]()
+        out["train_main"] = counts
+        epoch = rec["epochs"][0]
+        main_mem = torch.cuda.max_memory_allocated() / 2**30
+
+    emit({"phase": "slowfast", "card": smi, "videos": len(man), "batch": cfg.training.bs,
+          "frames": {"fast": 32, "slow": 8, "side": 256},
+          "evaluate": {"s": eval_s, "videos_per_s": report["n_videos"] / eval_s,
+                       "stage_s": eval_stats, "peak_mem_gib": eval_mem, "report": report,
+                       "first_video_logit_card_bf16": logits[first],
+                       "first_video_logit_cpu_fp32": cpu_logit,
+                       "card_vs_cpu": card_vs_cpu},
+          "train_steps": {"batch": n, "first_step_s": first_s, "device_ms_per_step": step_ms,
+                          "steps_per_s": SF_TIMED_STEPS / steps_s,
+                          "videos_per_s": SF_TIMED_STEPS * n / steps_s, "losses": losses,
+                          "params_without_finite_nonzero_grad": no_grad,
+                          "buffers_unmoved": still, "peak_mem_gib": train_mem},
+          "train_main": {"s": main_s, "epoch": {**epoch,
+                                                "steps_per_s": epoch["steps"] / epoch["train_s"],
+                                                "videos_per_s": len(rows) / epoch["train_s"]},
+                         "losses": [r["loss"] for r in rec["train"]],
+                         "val_losses": [r["loss"] for r in rec["val"]],
+                         "checkpoints": [os.path.basename(p) for p in result.checkpoints],
+                         "peak_mem_gib": main_mem},
+          "launches": out})
+    if any(c != zero for c in out.values()):
+        raise AssertionError(f"slowfast: hand-written kernels launched: {out}")
+    if not (report["n_videos"] == len(man) and _finite_report(report)):
+        raise AssertionError(f"slowfast: report {report}")
+    if not card_vs_cpu <= 5e-2:
+        raise AssertionError(f"slowfast: bf16 card vs fp32 CPU logit {logits[first]} vs "
+                             f"{cpu_logit}")
+    if no_grad or still or not np.isfinite(losses).all():
+        raise AssertionError(f"slowfast: gradients {no_grad[:4]}, unmoved statistics "
+                             f"{still[:4]}, losses {losses}")
+    main_losses = [r["loss"] for r in rec["train"] + rec["val"]]
+    if not (result.checkpoints and np.isfinite(main_losses).all() and main_losses):
+        raise AssertionError(f"slowfast: train_loop.main {result} {main_losses}")
+    return {k: sum(c[k] for c in out.values()) for k in zero}
 
 
 def conv_model_config(tap: int = 20):
@@ -3115,7 +3525,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # a train split on disk: the augmentations on the card, then the flagship
     # trained from it through the train-mode dataset and loader
-    paths["flagship_train_step_from_disk"] = phase_train_from_disk(smi, step_ms)
+    paths["flagship_train_step_from_disk"], paths["train_main"] = \
+        phase_train_from_disk(smi, step_ms)
+    torch.cuda.empty_cache()
+    # SlowFast R-50 through evaluation, the train step and the CLI: no kernel
+    paths["slowfast"] = phase_slowfast(smi)
     torch.cuda.empty_cache()
     paths["conv_forward"] = phase_conv(smi)
     torch.cuda.empty_cache()

@@ -5,7 +5,8 @@ nested dicts of arrays (anything ``numpy.asarray`` takes). These functions
 return the port's ``state_dict`` under the reference's key names:
 
 * Dense kernels ``(in, out)`` → Linear weights ``(out, in)``;
-* conv kernels ``(kh, kw, in, out)`` → ``(out, in, kh, kw)``;
+* conv kernels ``(kh, kw, in, out)`` → ``(out, in, kh, kw)``, and SlowFast's
+  3-D ``(t, h, w, in, out)`` → ``(out, in, t, h, w)``;
 * the TimeSformer's head-major qkv columns ``(H, [q|k|v], dh)`` → the
   ``[q|k|v]``-major ``to_qkv`` the port's attention kernel reads — the
   permutation happens here, once, never per call;
@@ -14,7 +15,8 @@ return the port's ``state_dict`` under the reference's key names:
 The keys and values are the ones ``mintime_tpu.utils.torch_convert.
 timesformer_params_to_torch`` / ``efficientnet_params_to_torch`` /
 ``xception_params_to_torch`` emit, apart from those exporters' zero rows below
-the embedding tables.
+the embedding tables; SlowFast's are pytorchvideo's, the ones
+``slowfast_params_from_torch`` reads.
 """
 
 from __future__ import annotations
@@ -189,12 +191,65 @@ def conv_timesformer_state_dict(variables: Mapping, config: ModelConfig) -> dict
                                   "batch_stats": variables["batch_stats"]}, config)
 
 
+#: (blocks, slow_temporal) of res2..res5 in pytorchvideo's ``slowfast_r50``
+SLOWFAST_STAGES = ((3, 1), (4, 1), (6, 3), (3, 3))
+
+
+def slowfast_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """``SlowFastR50`` variables (or ``SlowFastClassifier``'s, which hold
+    them under ``slowfast``) → pytorchvideo ``slowfast_r50`` keys, the port's
+    :class:`~mintime_torch.models.slowfast.SlowFastClassifier` state_dict;
+    the inverse of ``slowfast_params_from_torch``. Kernels ``(t, h, w, in,
+    out)`` → ``(out, in, t, h, w)``, BatchNorm ``mean`` / ``var`` →
+    ``running_mean`` / ``running_var``, ``proj``'s kernel transposed."""
+    params, stats = variables["params"], variables["batch_stats"]
+    if "slowfast" in params:
+        params, stats = params["slowfast"], stats["slowfast"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def convbn(pleaf, sleaf, conv, norm):
+        sd[f"{conv}.weight"] = _t(pleaf["conv"]["kernel"]).permute(4, 3, 0, 1, 2).contiguous()
+        sd[f"{norm}.weight"] = _t(pleaf["bn"]["scale"])
+        sd[f"{norm}.bias"] = _t(pleaf["bn"]["bias"])
+        sd[f"{norm}.running_mean"] = _t(sleaf["bn"]["mean"])
+        sd[f"{norm}.running_var"] = _t(sleaf["bn"]["var"])
+
+    def fusion(name, tb):
+        base = f"blocks.{tb}.multipathway_fusion"
+        convbn(params[name]["fuse"], stats[name]["fuse"], f"{base}.conv_fast_to_slow",
+               f"{base}.norm")
+
+    for p, stem in ((0, "slow_stem"), (1, "fast_stem")):
+        base = f"blocks.0.multipathway_blocks.{p}"
+        convbn(params[stem], stats[stem], f"{base}.conv", f"{base}.norm")
+    fusion("fuse_stem", 0)
+    for idx, (blocks, _) in enumerate(SLOWFAST_STAGES):
+        tb = idx + 1
+        for p, stage in ((0, f"slow_res{idx + 2}"), (1, f"fast_res{idx + 2}")):
+            for j in range(blocks):
+                pb, sb = params[stage][f"block_{j}"], stats[stage][f"block_{j}"]
+                base = f"blocks.{tb}.multipathway_blocks.{p}.res_blocks.{j}"
+                for part in ("a", "b", "c"):
+                    convbn(pb[f"conv_{part}"], sb[f"conv_{part}"], f"{base}.branch2.conv_{part}",
+                           f"{base}.branch2.norm_{part}")
+                if "shortcut" in pb:
+                    convbn(pb["shortcut"], sb["shortcut"], f"{base}.branch1_conv",
+                           f"{base}.branch1_norm")
+        if idx < 3:
+            fusion(f"fuse_res{idx + 2}", tb)
+    sd["blocks.5.proj.weight"] = _t(params["proj"]["kernel"]).T.contiguous()
+    sd["blocks.5.proj.bias"] = _t(params["proj"]["bias"])
+    return sd
+
+
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
-    """Load JAX variables into a port model (the classifier or the
-    Convolutional TimeSformer, by its ``head_kind``), in its device and dtype
-    (strict: every key must match)."""
+    """Load JAX variables into a port model (the classifier, the
+    Convolutional TimeSformer or SlowFast, by its ``head_kind``), in its
+    device and dtype (strict: every key must match)."""
     if model.head_kind == "conv_timesformer":
         sd = conv_timesformer_state_dict(variables, model.config)
+    elif model.head_kind == "slowfast":
+        sd = slowfast_state_dict(variables)
     else:
         sd = classifier_state_dict(variables, model.config, model.backbone, model.head_kind)
     model.load_state_dict(sd, strict=True)

@@ -143,22 +143,25 @@ def build_model(cfg: MintimeConfig, model_weights: str, extractor_weights: str |
     parameters computing in ``dtype`` (bf16, as the JAX CLI's): 0 the
     baseline head, 1 the Size-Invariant TimeSformer (each on EfficientNet-B0
     for ``extractor_model`` 0, Xception for 1; reference ``.pth`` files or
-    the port's checkpoint), 3 the Convolutional TimeSformer (the port's
-    checkpoint). ``use_kernels`` defaults to on for the card, off for the
-    CPU; ``dtype`` to bf16."""
+    the port's checkpoint), 2 SlowFast R-50 (a pytorchvideo ``slowfast_r50``
+    state_dict or the port's checkpoint; no hand-written kernel), 3 the
+    Convolutional TimeSformer (the port's checkpoint). ``use_kernels``
+    defaults to on for the card, off for the CPU; ``dtype`` to bf16."""
     import torch
 
     from mintime_torch.device import resolve_device
     from mintime_torch.models.classifier import MintimeVideoClassifier
     from mintime_torch.models.conv_timesformer import ConvolutionalTimeSformer
+    from mintime_torch.models.slowfast import SlowFastClassifier
     from mintime_torch.utils.checkpoint import load_model_state
 
     dev = resolve_device(device)
     dtype = torch.bfloat16 if dtype is None else dtype
     kernels = dev.type == "cuda" if use_kernels is None else bool(use_kernels)
-    if model == 2:
-        raise ValueError("--model 2 (SlowFast) is not ported yet: ROADMAP.md queue 1 item 7")
-    if model == 3:
+    if model == 2:  # the class's front end, as mintime_tpu/evaluate.py:213-217 builds it
+        net = SlowFastClassifier(num_classes=cfg.model.num_classes, device=dev, dtype=dtype,
+                                 param_dtype=torch.float32)
+    elif model == 3:
         net = ConvolutionalTimeSformer(cfg.model, use_kernels=kernels, device=dev, dtype=dtype,
                                        param_dtype=torch.float32)
     elif model in (0, 1):
@@ -239,8 +242,7 @@ def main(argv=None):
                    help="root of the original .mp4s for size buckets when no"
                         " video_dims.json sidecars exist (test.py:47)")
     p.add_argument("--model", type=int, default=1,
-                   help="0 baseline | 1 timesformer | 2 slowfast (not ported) "
-                        "| 3 conv-timesformer")
+                   help="0 baseline | 1 timesformer | 2 slowfast | 3 conv-timesformer")
     p.add_argument("--extractor_model", type=int, default=0, help="0 effnet | 1 xception")
     p.add_argument("--only_multiidentity", action="store_true", default=False)
     p.add_argument("--save_attentions", action="store_true", default=False)

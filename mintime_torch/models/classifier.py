@@ -50,7 +50,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.Conv2d):
+        elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
             fan_in = m.weight[0].numel()
             m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             if m.bias is not None:
@@ -71,23 +71,26 @@ def _cast_names(module: nn.Module) -> list[str]:
 
 
 class CastModel(nn.Module):
-    """An end-to-end model of the port: an ``extractor`` and a ``head`` child,
-    weights drawn from a seed, placed on a device, and kept in a parameter
-    dtype that each forward casts to the compute dtype.
+    """An end-to-end model of the port: children (an ``extractor`` and a
+    ``head``, unless :meth:`_place` names others), weights drawn from a seed,
+    placed on a device in a memory format for its convolutions, and kept in
+    a parameter dtype that each forward casts to the compute dtype.
 
     Subclasses build their children, then call :meth:`_place`.
     """
 
     def _place(self, device: torch.device, dtype: torch.dtype | None,
-               param_dtype: torch.dtype | None, seed: int) -> None:
+               param_dtype: torch.dtype | None, seed: int,
+               children: tuple[str, ...] = ("extractor", "head"),
+               memory_format: torch.memory_format = torch.channels_last) -> None:
         init_weights(self, torch.Generator().manual_seed(seed))
         self.eval()
         self.compute_dtype = dtype or default_dtype(device)
         self.to(device=device, dtype=param_dtype or self.compute_dtype)
         if device.type == "cuda":
-            self.to(memory_format=torch.channels_last)
+            self.to(memory_format=memory_format)
         self._cast_names = {child: _cast_names(getattr(self, child))
-                            for child in ("extractor", "head") if hasattr(self, child)}
+                            for child in children if hasattr(self, child)}
 
     @property
     def dtype(self) -> torch.dtype:

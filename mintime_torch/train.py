@@ -124,7 +124,7 @@ def extractor_unfreeze_mask(unfreeze_blocks: int):
 def model_inputs(batch: Mapping[str, Any], head: str, device) -> tuple:
     """The model's positional inputs from a batch dict (numpy arrays or
     tensors), on ``device`` (``train.py:157-168``)."""
-    if head == "baseline":
+    if head in ("baseline", "slowfast"):
         keys = ("frames",)
     elif head == "conv_timesformer":
         keys = ("frames", "mask", "size_embedding")
@@ -162,6 +162,17 @@ def conv_training_model(config, device: str | torch.device = "cuda", seed: int =
     ``device`` defaults to the card and raises without one."""
     return ConvolutionalTimeSformer(config, use_kernels=True, device=device,
                                     param_dtype=torch.float32, seed=seed)
+
+
+def slowfast_training_model(config, device: str | torch.device = "cuda", seed: int = 0):
+    """SlowFast R-50 (``--model 2``) as the JAX train state holds it: fp32
+    parameters and BatchNorm statistics, computing in bf16 on the card (fp32
+    on the CPU), the class's front end (32 fast frames at 256 px) as the JAX
+    CLIs build it. ``device`` defaults to the card and raises without one."""
+    from mintime_torch.models.slowfast import SlowFastClassifier
+
+    return SlowFastClassifier(num_classes=config.num_classes, device=device,
+                              param_dtype=torch.float32, seed=seed)
 
 
 def create_train_state(model, cfg: MintimeConfig, steps_per_epoch: int = 1000,

@@ -122,7 +122,8 @@ def load_model_state(model, cfg, model_weights: str,
     * a reference ``Model_checkpoint*`` file: the TimeSformer or baseline
       head's state_dict, with ``extractor_weights`` the reference
       ``Extractor_checkpoint*`` state_dict of the EfficientNet-B0 or the
-      Xception backbone.
+      Xception backbone; or, for SlowFast, a whole pytorchvideo
+      ``slowfast_r50`` state_dict (:func:`_slowfast_state`).
 
     The port keeps the reference's key names, so no key is converted.
     ``cfg`` is accepted for the JAX signature; the model holds its config.
@@ -136,6 +137,8 @@ def load_model_state(model, cfg, model_weights: str,
     if "params" in loaded and "batch_stats" in loaded:
         state = {**loaded["params"], **loaded["batch_stats"]}
         return {k: v.to("cpu", torch.float32) for k, v in state.items()}
+    if getattr(model, "head_kind", None) == "slowfast":
+        return _slowfast_state(model.state_dict(), loaded, model_weights)
     if getattr(model, "head_kind", None) == "conv_timesformer":
         raise ValueError(
             "the Convolutional TimeSformer has no reference checkpoint format; pass a "
@@ -150,3 +153,28 @@ def load_model_state(model, cfg, model_weights: str,
                              ("module.", "efficient_net."))
         state.update(_take(model_sd, "extractor.", ext, extractor_weights))
     return state
+
+
+def _slowfast_state(model_sd: Mapping[str, torch.Tensor], file_sd: Mapping[str, Any],
+                    path: str) -> dict[str, torch.Tensor]:
+    """A whole pytorchvideo ``slowfast_r50`` state_dict with ``module.``
+    stripped (``mintime_tpu/utils/checkpoint.py:117-124``): every key of the
+    model must be there at its shape, and a key the model lacks raises, as the
+    JAX converter's check of leftover keys does. BatchNorm's
+    ``num_batches_tracked`` has no counterpart and is dropped."""
+    sd = {k: v for k, v in strip_prefixes(file_sd).items()
+          if not k.endswith("num_batches_tracked")}
+    unknown = sorted(set(sd) - set(model_sd))
+    if unknown:
+        raise ValueError(f"{path}: slowfast_r50 keys the model does not have: "
+                         f"{unknown[:8]}{'...' if len(unknown) > 8 else ''}")
+    out = {}
+    for key, want in model_sd.items():
+        if key not in sd:
+            raise KeyError(f"{path} has no {key!r}")
+        t = torch.as_tensor(sd[key]).detach().to("cpu", torch.float32)
+        if t.shape != want.shape:
+            raise ValueError(f"{path}: {key!r} has shape {tuple(t.shape)}, "
+                             f"the model wants {tuple(want.shape)}")
+        out[key] = t
+    return out

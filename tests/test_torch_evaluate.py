@@ -60,6 +60,8 @@ test:
 SEED = 4
 #: the baseline's seed: every fp32 logit lies 1e-3 or more from 0
 BASELINE_SEED = 4
+#: SlowFast's seed: every fp32 logit of the split lies 1e-3 or more from 0, of both signs
+SLOWFAST_SEED = 0
 N_VIDEOS = 6
 
 
@@ -281,9 +283,98 @@ def test_baseline_and_conv_models_are_served(files, tmp_path, monkeypatch):
         np.testing.assert_allclose(got["loss"], want["loss"], atol=1e-4, rtol=0)
 
 
-def test_slowfast_raises(files):
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        port_eval.main(_argv(files, "png", "--model", "2", "--device", "cpu"))
+def _slowfast_file(path, seed=0, shift=0.0):
+    """A pytorchvideo ``slowfast_r50`` state_dict as a DataParallel run saves
+    it: ``module.`` before every key, BatchNorm's ``num_batches_tracked``
+    beside its statistics; ``shift`` is added to the head's bias."""
+    from mintime_torch.models.slowfast import SlowFastClassifier
+    from test_torch_slowfast import TOY, random_state_dict
+
+    sd = random_state_dict(SlowFastClassifier(device="cpu", **TOY), seed=seed)
+    sd["blocks.5.proj.bias"] += shift
+    for k in [k for k in sd if k.endswith("running_var")]:
+        sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(7)
+    torch.save({f"module.{k}": v for k, v in sd.items()}, path)
+    return path
+
+
+def test_fp32_slowfast_matches_jax(files, monkeypatch, tmp_path):
+    """``--model 2`` from a pytorchvideo-key weight file through
+    ``evaluate_split``, fp32, against the JAX ``evaluate()`` in fp32 with the
+    weights read by the JAX package's own loader. Both classifiers' front
+    ends are cut to 8 frames at 32 px inside the test (the 64 px crops
+    shrink to it); the class default, 32 frames at 256 px, is what both CLIs
+    build."""
+    from mintime_torch.models import slowfast as port_sf
+    from mintime_tpu.models import slowfast as jax_sf
+    from test_torch_slowfast import TOY
+
+    port_logits = _spy_logits(monkeypatch)
+    monkeypatch.setattr(port_sf, "SlowFastClassifier",
+                        functools.partial(port_sf.SlowFastClassifier, **TOY))
+    monkeypatch.setattr(port_eval, "build_model",
+                        functools.partial(port_eval.build_model, dtype=torch.float32))
+
+    def port_report(path):
+        port_logits.clear()
+        report = port_eval.evaluate_split(load_config(files["config"]), path, files["split"],
+                                          files["png"], model=2, batch_size=2, workers=2,
+                                          device="cpu")
+        return report, np.concatenate([lg for lg, _ in port_logits])
+
+    # a head bias that puts the split's logits on both sides of 0
+    _, g = port_report(_slowfast_file(str(tmp_path / "unshifted.pth"), seed=SLOWFAST_SEED))
+    path = _slowfast_file(str(tmp_path / "slowfast_r50.pth"), seed=SLOWFAST_SEED,
+                          shift=-float(np.median(g)))
+    got, g = port_report(path)
+
+    jcfg = jax_load_config(files["config"])
+    jmodel = jax_sf.SlowFastClassifier(num_classes=jcfg.model.num_classes, **TOY)
+    jvars = load_model_variables(jmodel, jcfg, path)
+    man = load_manifest(files["split"], files["png"])
+    m = jcfg.model
+    ds = JaxDataset(man.videos, man.labels, data_path=files["png"], image_size=m.image_size,
+                    num_frames=m.num_frames, num_patches=m.num_patches,
+                    max_identities=m.max_identities, mode="test", multiclass_labels=man.multiclass)
+    jax_logits = []
+    loop = jax_eval._evaluate_loop
+
+    def spy(fwd, *a, **k):
+        return loop(lambda *args: jax_logits.append(np.asarray(fwd(*args)).reshape(-1)) or
+                    jax_logits[-1], *a, **k)
+
+    monkeypatch.setattr(jax_eval, "_evaluate_loop", spy)
+    want = jax_eval.evaluate(jmodel, jvars, JaxDataLoader(ds, 2, shuffle=False, num_workers=2,
+                                                          worker_mode="thread"))
+    w = np.concatenate(jax_logits)
+    assert len(g) == len(w) == N_VIDEOS
+    assert np.abs(w).min() >= 1e-3 and (w > 0).any() and (w < 0).any(), w
+    np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
+    _assert_reports_equal(got, want, 1e-4)
+
+
+def test_slowfast_file_with_an_unknown_or_missing_key_raises(tmp_path):
+    from mintime_torch.models.slowfast import SlowFastClassifier
+    from mintime_torch.utils.checkpoint import load_model_state
+    from test_torch_slowfast import TOY
+
+    model = SlowFastClassifier(device="cpu", **TOY)
+    path = _slowfast_file(str(tmp_path / "good.pth"))
+    assert set(load_model_state(model, None, path)) == set(model.state_dict())
+    sd = torch.load(path)
+    torch.save({**sd, "module.blocks.6.proj.weight": torch.zeros(1, 2304)},
+               str(tmp_path / "extra.pth"))
+    with pytest.raises(ValueError, match="blocks.6.proj.weight"):
+        load_model_state(model, None, str(tmp_path / "extra.pth"))
+    del sd["module.blocks.5.proj.bias"]
+    torch.save(sd, str(tmp_path / "short.pth"))
+    with pytest.raises(KeyError, match="blocks.5.proj.bias"):
+        load_model_state(model, None, str(tmp_path / "short.pth"))
+    sd = torch.load(path)
+    sd["module.blocks.5.proj.weight"] = torch.zeros(400, 2304)  # a Kinetics head
+    torch.save(sd, str(tmp_path / "kinetics.pth"))
+    with pytest.raises(ValueError, match="shape"):
+        load_model_state(model, None, str(tmp_path / "kinetics.pth"))
 
 
 def test_entry_point_defaults_to_the_card(files):

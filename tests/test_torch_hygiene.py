@@ -47,7 +47,8 @@ def test_import_pulls_in_no_jax_cv2_or_yaml():
             "mintime_torch.convert, mintime_torch.train, mintime_torch.train_loop, "
             "mintime_torch.preprocessing.mtcnn, mintime_torch.preprocessing.facenet, "
             "mintime_torch.preprocessing.cluster_faces, mintime_torch.native, "
-            "mintime_torch.models.xception, mintime_torch.data.augment, "
+            "mintime_torch.models.xception, mintime_torch.models.slowfast, "
+            "mintime_torch.data.augment, "
             "mintime_torch.data.augment_plan, mintime_torch.data.colorspace, "
             "mintime_torch.data.draw, mintime_torch.data.jpeg, "
             "mintime_torch.utils.checkpoint, mintime_torch.utils.attention_viz, "
