@@ -205,6 +205,42 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    every BatchNorm's statistics moved); one epoch of ``train_loop.main
    --model 2``. No hand-written kernel may launch. Printed: videos/s,
    steps/s, device ms a step, peak memory;
+5f. profiling: the profiler CLI's function (``utils.profiling.main``) at
+   flagship width, batch 8, 3 traced calls of a forward and of ``--train``
+   (the real train step); the table must name the kernels, and each
+   kernel's launches in the trace (template variants summed) must equal its
+   wrapper's counter over the traced calls: 18 attention and 18 FFN a
+   forward (no attention maps, so every layer takes the kernels), 18 / 18 /
+   18 / 17 a step; a trace that lost a kernel is taken again (3 tries).
+   Printed: videos/s under the trace, the top rows by section;
+5g. extract_features: ``extract_features.extract_features`` over every
+   crop of a split of packs (phase ``evaluate``'s writer) at batch 64, B0 in
+   bf16 from a seeded ``Extractor_checkpoint`` file, the crops decoded from
+   the packs; one ``.npy`` a crop; the first 8 crops' maps against the CPU
+   in fp32 within 5e-2 of max |CPU|. Printed: crops/s, peak memory;
+5h. verify_weights: ``verify_weights.main`` on seeded files in the
+   published formats (MTCNN, FaceNet, MINTIME-EF's Model/Extractor, a
+   ``slowfast_r50`` hub file): rc 0, 8 ``[ OK ]`` lines, 16 / 18 launches;
+5i. pretrain: ``pretrain_extractor.main`` with
+   ``configs/extractor_pretraining.yaml``'s config (224 px, batch 16, the
+   ``min`` preset, SGD, StepLR) for 2 epochs on that split, every third
+   video the validation list, 4 spawned workers; finite losses, no kernel
+   launch, the exported ``Extractor_checkpoint`` equal to the checkpoint's
+   extractor and loaded into MINTIME-EF bitwise. Printed: a warm epoch's
+   steps/s and images/s, the step's share, peak memory;
+5j. parallel: ``train_loop.main`` in a spawned process of a one-rank NCCL
+   group (``torchrun``'s environment) for one step of 8 videos and its
+   validation (18 / 18 / 18 / 17 and 18 / 18 launches); then two spawned
+   ranks over gloo on the one card (NCCL refuses two ranks on one card):
+   the flagship's DP=2 train step at full width, batch 8 as 4 + 4, against
+   one process: in fp32 on the plain path (TF32 off) each gradient within
+   1e-3 of its tensor's max (tensors zero in fp32 aside, as in phase
+   ``train``) and the loss within 1e-4, then in bf16 with the
+   kernels the loss within 2e-2, the ranks' parameters bitwise equal, the
+   gradient gaps printed beside a kernel-free twin's; and TP=2 (4 heads and
+   1024 hidden units a rank) against TP=1 on the loss within 2e-2, each
+   rank's launches 18 / 18 / 18 / 17. Printed: each run's seconds, the
+   ranks' step seconds, losses, the worst gradients;
 6. conv: the Convolutional TimeSformer preset (``configs/
    convolutional_timesformer.yaml``: EfficientNet-B0 tapped at block 20, 1280
    channel tokens of width 49 per frame, dim 256, depth 4, 6 x 64 heads,
@@ -250,9 +286,17 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import subprocess
 import sys
 import time
+
+try:
+    # the profiler's machinery (padded windows opened by spin kernels, launches
+    # tied to their kernel records) is the port's own, shared with its profiler
+    from mintime_torch.utils.profiling import _profile, device_ms
+except ImportError as e:
+    sys.exit(f"chip_smoke: run from the root of a checkout of the repo ({e})")
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
@@ -283,95 +327,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-LEAD_IN = "spin_kernel"  # the kernel ``torch.cuda._sleep`` launches
-#: spin kernels that open each profiled window: the profiler drops a
-#: window's first kernel or two, and then they are these
-LEAD_INS = 4
-#: host seconds between a profile's start and its lead-in, and between the
-#: window's last kernel and the profile's stop: the profiler keeps only the
-#: kernels whose device times fall inside its window, and on the card some
-#: windows' device times read milliseconds early against the host's clock,
-#: which dropped the kernels the window began with
-PAD_S = 0.05
-#: windows profiled before a short one is given up on
-TRIES = 5
-
-
-def _lead_in() -> None:
-    """Open a profiled window with short spin kernels, finished before the
-    measured work starts. :func:`_window_kernels` leaves them out."""
-    import torch
-
-    for _ in range(LEAD_INS):
-        torch.cuda._sleep(5000)
-    torch.cuda.synchronize()
-
-
-def _profiled(fn):
-    """One ``fn()`` under ``torch.profiler``, padded with host time and opened
-    by the lead-in; returns the profile and the host ms of ``fn()`` and its
-    synchronisation."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(PAD_S)
-        _lead_in()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(PAD_S)
-    return prof, wall_ms
-
-
-def _window_kernels(prof) -> tuple[list, int, float]:
-    """The CUDA kernels a profile recorded, the lead-in left out; how many
-    kernels the window launched that it holds no record of (each launch on
-    the host has a correlation id that its kernel's record carries); and the
-    most ms by which a kernel's recorded start precedes its launch (at or
-    under 0 where the device's and the host's clocks agree)."""
-    import torch
-
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and LEAD_IN not in e.name]
-    raw = prof.profiler.kineto_results.events()
-    launch_ns = {e.correlation_id(): e.start_ns() for e in raw
-                 if e.device_type() == torch.autograd.DeviceType.CPU and "LaunchKernel" in e.name()}
-    start_ns = {e.correlation_id(): e.start_ns() for e in raw
-                if e.device_type() == torch.autograd.DeviceType.CUDA and LEAD_IN not in e.name()}
-    lost = len(launch_ns.keys() - start_ns.keys()) - LEAD_INS
-    early = [launch_ns[c] - t for c, t in start_ns.items() if c in launch_ns]
-    return kernels, lost, max(early, default=0) / 1e6
-
-
-def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int | None = None) -> float:
-    """Device time of one call: the summed durations of the CUDA kernels that
-    ``iters`` calls launch, under ``torch.profiler``, over ``iters``. The
-    host's time between launches is left out, so a call whose kernels finish
-    quicker than Python issues them reads its kernels' time, not the host's.
-    The window must hold a record of every kernel it launched, and
-    ``launches`` kernels a call where that is given, else a whole number a
-    call; a window that does not is profiled again."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    counts = []
-    for _ in range(TRIES):
-        prof, _ = _profiled(lambda: [fn() for _ in range(iters)])
-        kernels, lost, early_ms = _window_kernels(prof)
-        counts.append((len(kernels), lost, round(early_ms, 3)))
-        whole = (len(kernels) == launches * iters if launches is not None
-                 else len(kernels) % iters == 0)
-        if kernels and whole and not lost:
-            return sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / iters
-    raise RuntimeError(f"torch.profiler recorded (kernels, lost, device clock early ms) {counts}"
-                       f" in {TRIES} windows of {iters} calls"
-                       f"{'' if launches is None else f' of {launches} launches'}")
 
 
 def max_err(got, want) -> float:
@@ -452,6 +407,13 @@ def _divided_cases(gen):
         qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
         cases.append((f"conv {axis} B={B} G={G} L={L} H={H} dh={dh}", (qkv, qkvc, None, None), H,
                       calls, calls))
+    # the flagship's axes as a TP=2 model rank runs them (phase parallel):
+    # half the heads, inputs from a generator of their own
+    tp_gen = torch.Generator().manual_seed(TP_SEED)
+    for axis in ("time", "space"):
+        args = _attention_inputs(axis, tp_gen, H=TP_HEADS)
+        B, G, L, _ = args[0].shape
+        cases.append((f"tp2 {axis} B={B} G={G} L={L} H={TP_HEADS} dh=64", args, TP_HEADS, 8, 9))
     return cases
 
 
@@ -471,6 +433,10 @@ def _dense_row_bias(rbias, B, G):
 #: 8 videos, 9 layers) and the Convolutional TimeSformer (4 layers)
 FFN_SHAPES = ((512, 2048, ((8 * 16 * 49, 9, 8), (8, 9, 9))),
               (256, 1024, ((8 * 8 * 1280, 4, 3), (8, 4, 4))))
+#: the flagship's FFN and attention as a TP=2 model rank runs them (phase
+#: ``parallel``): half the hidden units and heads, inputs from their own seed
+FFN_TP_SHAPES = ((512, 1024, ((8 * 16 * 49, 9, 8), (8, 9, 9))),)
+TP_HEADS, TP_SEED = 4, 18
 
 
 #: the FFN forward's row counts off its plans' tiles, at both widths (no
@@ -512,6 +478,14 @@ def phase_kernels(smi):
             if (dim, m) in FFN_FWD_PROFILED:
                 _ffn_fwd_rerun_and_launches(smi, args, plan["launches"])
             del args
+    tp_gen = torch.Generator().manual_seed(TP_SEED)
+    r_tp = lambda *s, sc=1.0: (torch.randn(*s, generator=tp_gen) * sc).cuda().bfloat16()  # noqa: E731
+    for dim, hidden, shapes in FFN_TP_SHAPES:
+        w0, b0, w1, b1 = _ffn_weights(r_tp, dim, hidden)
+        for m, calls, _ in shapes:
+            plan = ffn.fwd_plan(m, dim, hidden, sms)
+            rows["geglu_ffn"].append({**_ffn_fwd_row((r_tp(m, dim), w0, b0, w1, b1), calls,
+                                                     "tp2 ", plan["launches"]), "plan": plan})
 
     for shape, args, H, calls, _ in _divided_cases(gen):
         rows["divided_attention"].append(_divided_fwd_row(shape, args, H, calls))
@@ -1207,6 +1181,14 @@ def _backward_kernels(smi, gen):
             if m in FFN_BWD_PROFILED:
                 _ffn_bwd_rerun_and_launches(smi, args)
             del x, dout, args
+    tp_gen = torch.Generator().manual_seed(TP_SEED)
+    r_tp = lambda *s, sc=1.0: (torch.randn(*s, generator=tp_gen) * sc).cuda().bfloat16()  # noqa: E731
+    for dim, hidden, shapes in FFN_TP_SHAPES:
+        w0, b0, w1, _ = _ffn_weights(r_tp, dim, hidden)
+        for m, _, calls in shapes:
+            args = (r_tp(m, dim), w0, b0, w1, r_tp(m, dim))
+            rows["geglu_ffn_bwd"].append({**_ffn_bwd_row(args, calls, "tp2 "),
+                                          "splits": ffn.product_splits(m, dim, hidden, sms)})
 
     for shape, args, H, _, calls in _divided_cases(gen):
         rows["divided_attention_bwd"].append(_divided_bwd_row(shape, args, H, calls, gen,
@@ -2332,79 +2314,6 @@ def phase_evaluate(smi):
     return got
 
 
-def _kind(name: str) -> str:
-    """Coarse layer of a CUDA kernel, from its name."""
-    low = name.lower()
-    if ("token_rows_bwd" in low or "token_rows_cls_reduce" in low
-            or ("attn_bwd" in low and "<false>" in low)):  # the latter above 16 frames
-        return "token_rows_attention backward kernel"
-    if "token_rows_fwd" in low:
-        return "token_rows_attention kernel"
-    if "ffn_bwd" in low:
-        return "geglu_ffn backward kernel"
-    if "attn_bwd" in low:
-        return "divided_attention backward kernel"
-    if "geglu" in low:
-        return "geglu_ffn kernel"
-    if "token_rows" in low or "cls_row" in low:
-        return "divided_attention kernel"
-    if any(w in low for w in ("conv2d", "convolution", "cudnn", "implicit", "depthwise", "fprop")):
-        return "convolution (cuDNN)"
-    if any(w in low for w in ("gemm", "xmma", "cutlass", "matmul", "nvjet")):
-        return "matmul (cuBLAS)"
-    if "memcpy" in low:
-        return "memory copies"
-    if "softmax" in low or "reduce" in low or "norm" in low:
-        return "reduction / norm"
-    return "elementwise"
-
-
-def _profile(fn, launches: int | None = None, calls: int = 1) -> dict:
-    """Device busy and idle share of the host window of one ``fn()`` under
-    ``torch.profiler``, device time by layer and the top kernels. A window
-    must hold kernels, a record of every kernel it launched, each name a
-    multiple of ``calls`` times (``fn`` makes that many calls) and
-    ``launches`` in all where that is given; one that does not is profiled
-    again, up to ``TRIES`` times, and then raises where ``launches`` is
-    given, else reports the kernels it lost."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    counts = []
-    for _ in range(TRIES):
-        prof, wall_ms = _profiled(fn)
-        kernels, lost, early_ms = _window_kernels(prof)
-        counts.append((len(kernels), lost, round(early_ms, 3)))
-        names = collections.Counter(e.name for e in kernels)
-        if (kernels and not lost and all(n % calls == 0 for n in names.values())
-                and (launches is None or len(kernels) == launches)):
-            break
-    else:
-        if launches is not None:
-            raise RuntimeError(f"torch.profiler recorded (kernels, lost, device clock early ms)"
-                               f" {counts} in {TRIES} windows, not {launches} kernels")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # union of the kernels' intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_kind, by_name = {}, {}
-    for e in kernels:
-        us = e.time_range.end - e.time_range.start
-        by_kind[_kind(e.name)] = by_kind.get(_kind(e.name), 0.0) + us / 1e3
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + us / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"host_window_ms": wall_ms, "kernels": len(kernels), "kernels_lost": lost,
-            "device_clock_early_ms": early_ms,
-            "device_busy_ms": busy / 1e3 if kernels else "not measured",
-            "device_idle_share": 1 - busy / 1e3 / wall_ms if kernels else "not measured",
-            "ms_by_layer": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-            "top_kernels": [{"name": k[:90], "launches": n, "ms": t} for k, (n, t) in top]}
-
-
 def phase_profile(smi, model, stacked):
     """Where the device time of one forward goes, at batch 8 and batch 1."""
     from mintime_torch import predict
@@ -2456,25 +2365,34 @@ def _step_launches(fn) -> tuple:
     return out, _launch_counts()
 
 
-def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bool = False):
+def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bool = False,
+                    mesh=None, net=None, with_logits: bool = False):
     """Loss and parameter gradients of one train-mode forward and backward
     with drop-connect seeded as step 0; BatchNorm statistics restored after.
     ``kernel_free`` keeps the kernel path's autograd Functions but has them
     run their plain versions on the card: the kernels' rounding points
-    without the kernels."""
+    without the kernels. With a data-parallel ``mesh``, ``batch`` is this
+    rank's rows, ``net`` the model's ``DistributedDataParallel`` wrapper, the
+    loss the rank's share and the gradients the global batch's. The logits
+    (fp32) come third with ``with_logits``."""
     import contextlib
     from unittest import mock
 
     import torch
 
     from mintime_torch import train
+    from mintime_torch.models.efficientnet import BatchRows
     from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import geglu_ffn as ffn
     from mintime_torch.ops import token_rows as tr
+    from mintime_torch.parallel.mesh import axis_size
 
     stats = {k: v.clone() for k, v in model.named_buffers()}
     set_use_kernels(model, use_kernels)
     model.zero_grad(set_to_none=True)
+    generator = train.step_generator(0, 0)
+    if axis_size(mesh) > 1:
+        generator = BatchRows(generator, *train._local_rows(batch, mesh, model.device))
     with contextlib.ExitStack() as stack:
         if kernel_free:
             for mod, names in ((ffn, ("geglu_ffn", "geglu_ffn_bwd")),
@@ -2482,8 +2400,8 @@ def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bo
                                (tr, ("token_rows_attention", "token_rows_attention_bwd"))):
                 for n in names:
                     stack.enter_context(mock.patch.object(mod, f"{n}_cuda", getattr(mod, f"{n}_plain")))
-        loss, _ = train.forward_loss(model, batch, pos_weight, train=True,
-                                     generator=train.step_generator(0, 0))
+        loss, logits = train.forward_loss(model, batch, pos_weight, train=True,
+                                          generator=generator, mesh=mesh, net=net)
         loss.backward()
     grads = {n: None if p.grad is None else p.grad.detach().float().clone()
              for n, p in model.named_parameters()}
@@ -2492,19 +2410,29 @@ def _one_step_grads(model, batch, pos_weight, use_kernels: bool, kernel_free: bo
             v.copy_(stats[k])
     set_use_kernels(model, True)
     model.zero_grad(set_to_none=True)
+    if with_logits:
+        return float(loss.detach()), grads, logits.detach().float()
     return float(loss.detach()), grads
 
 
-def _grad_check(smi, phase, model, ref, batch, pos_weight, trained):
+def _grad_check(smi, phase, model, ref, batch, pos_weight, trained, mesh=None, report=emit,
+                check_logits: bool = False):
     """One step's gradients with kernels against the plain path on the same
     weights, batch and masks. ``trained`` names the parameters that must get
     a finite, non-zero gradient; every other parameter must get none.
-    ``ref`` is a plain fp32 copy of the model, loaded here and freed after."""
+    ``ref`` is a plain fp32 copy of the model, loaded here and freed after.
+    With a data-parallel ``mesh`` every run is the mesh's (``batch`` this
+    rank's rows). ``check_logits`` holds the step's logits to the gradients'
+    rule too. The record goes to ``report``."""
     import numpy as np
     import torch
 
-    loss_k, gk = _one_step_grads(model, batch, pos_weight, True)
-    loss_p, gp = _one_step_grads(model, batch, pos_weight, False)
+    from mintime_torch.parallel.mesh import axis_size, data_parallel
+
+    dp = axis_size(mesh) > 1
+    kw = dict(mesh=mesh, net=data_parallel(model, mesh) if dp else None, with_logits=True)
+    loss_k, gk, lk = _one_step_grads(model, batch, pos_weight, True, **kw)
+    loss_p, gp, lp = _one_step_grads(model, batch, pos_weight, False, **kw)
     bad = [n for n in trained if gk[n] is None or not torch.isfinite(gk[n]).all()
            or not gk[n].abs().max() > 0]
     if bad:
@@ -2522,9 +2450,10 @@ def _grad_check(smi, phase, model, ref, batch, pos_weight, trained):
     # apart at random init: a few percent of a tensor's largest gradient, up
     # to about 1e-1 on some tensors. Each tensor's kernel-vs-plain gap must
     # stay within 5e-2 of its largest plain gradient beyond the twin's gap.
-    _, gt = _one_step_grads(model, batch, pos_weight, True, kernel_free=True)
+    _, gt, lt = _one_step_grads(model, batch, pos_weight, True, kernel_free=True, **kw)
     ref.load_state_dict(model.state_dict())
-    loss_32, g32 = _one_step_grads(ref, batch, pos_weight, False)
+    loss_32, g32 = _one_step_grads(ref, batch, pos_weight, False, mesh=mesh,
+                                   net=data_parallel(ref, mesh) if dp else None)
     del ref
     torch.cuda.empty_cache()
     rows = {}
@@ -2541,30 +2470,36 @@ def _grad_check(smi, phase, model, ref, batch, pos_weight, trained):
     checked = [n for n in rows if n not in zero]
     worst = max(checked, key=lambda n: rows[n]["gap"])
     med = lambda key: float(np.median([rows[n][key] for n in checked]))  # noqa: E731
-    emit({"phase": phase, "card": smi, "loss_kernel": loss_k, "loss_plain": loss_p,
-          "loss_fp32": loss_32, "parameters": len(gk), "with_gradient": len(trained),
-          "zero_in_fp32": zero, "worst_grad_tensor": worst, **rows[worst],
-          "largest_gap_beyond_twin": max(rows[n]["gap"] - rows[n]["twin_gap"] for n in checked),
-          "median_gap": med("gap"), "median_twin_gap": med("twin_gap"),
-          "median_kernel_vs_twin": med("kernel_vs_twin"),
-          "over_5e-2": {n: rows[n] for n in over}})
+    top = float(lp.abs().max())
+    logits = {"gap": float((lk - lp).abs().max()) / top,
+              "twin_gap": float((lt - lp).abs().max()) / top, "max_plain": top}
+    report({"phase": phase, "card": smi, "loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_fp32": loss_32, "parameters": len(gk), "with_gradient": len(trained),
+            "logits": logits, "zero_in_fp32": zero, "worst_grad_tensor": worst, **rows[worst],
+            "largest_gap_beyond_twin": max(rows[n]["gap"] - rows[n]["twin_gap"]
+                                           for n in checked),
+            "median_gap": med("gap"), "median_twin_gap": med("twin_gap"),
+            "median_kernel_vs_twin": med("kernel_vs_twin"),
+            "over_5e-2": {n: rows[n] for n in over}})
     if not abs(loss_k - loss_p) <= TOL:
-        raise AssertionError(f"kernel vs plain loss {loss_k} vs {loss_p}")
+        raise AssertionError(f"{phase}: kernel vs plain loss {loss_k} vs {loss_p}")
     if failed:
-        raise AssertionError(f"kernel vs plain gradients off: {[(n, rows[n]) for n in failed[:4]]}")
+        raise AssertionError(f"{phase}: kernel vs plain gradients off: "
+                             f"{[(n, rows[n]) for n in failed[:4]]}")
+    if check_logits and not logits["gap"] <= 5e-2 + logits["twin_gap"]:
+        raise AssertionError(f"{phase}: kernel vs plain logits off: {logits}")
 
 
-def phase_train(smi):
-    """The flagship classifier trained for 5 steps at full width, batch 8."""
+def _flagship_train_batch():
+    """Phase ``train``'s config (the flagship at full width, SGD lr 0.01,
+    weight decay 1e-4, cosine, batch 8), its batch of 8 synthetic videos
+    assembled as in phase ``slice`` (half labelled fake, frames on the card)
+    and its ``pos_weight``."""
     import numpy as np
-    import torch
 
     from mintime_torch import predict, train
     from mintime_torch.config import MintimeConfig, ModelConfig, TrainingConfig
-    from mintime_torch.models.classifier import MintimeVideoClassifier
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     mcfg = ModelConfig(image_size=224, num_frames=16, num_patches=49, channels=1280, dim=512,
                        depth=9, heads=8, dim_head=64, max_identities=2)
     cfg = MintimeConfig(model=mcfg, training=TrainingConfig(
@@ -2576,7 +2511,21 @@ def phase_train(smi):
         staged.append(predict.assemble_inputs(identities, dims, cfg))
     batch = predict.stack_inputs(staged)
     batch["labels"] = np.array([0.0, 1.0] * 4, np.float32)
-    pos_weight = train.pos_weight_from_labels(batch["labels"])
+    return cfg, batch, train.pos_weight_from_labels(batch["labels"])
+
+
+def phase_train(smi):
+    """The flagship classifier trained for 5 steps at full width, batch 8."""
+    import numpy as np
+    import torch
+
+    from mintime_torch import train
+    from mintime_torch.models.classifier import MintimeVideoClassifier
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, batch, pos_weight = _flagship_train_batch()
+    mcfg = cfg.model
 
     t0 = time.perf_counter()
     model = train.training_model(mcfg, device="cuda", seed=0)
@@ -2930,15 +2879,15 @@ def _watch_main():
             after = time.perf_counter()
             counts = _launch_counts()
             rec[into].append({"launches": {k: counts[k] - before[k] for k in counts},
-                              "s": after - t, "loss": float(out["loss"])})
+                              "t0": t, "s": after - t, "loss": float(out["loss"])})
             if into == "train":
                 cur["last"] = after
                 cur["steps"] = cur.get("steps", 0) + 1
             return out
         return run
 
-    def make_train_step(model, pos_weight=1.0):
-        step = counted(saved[0][2](model, pos_weight), "train")
+    def make_train_step(model, pos_weight=1.0, **kw):
+        step = counted(saved[0][2](model, pos_weight, **kw), "train")
 
         def train_step(state, batch):
             if "first" not in cur:
@@ -2946,12 +2895,13 @@ def _watch_main():
             return step(state, batch)
         return train_step
 
-    def make_eval_step(model, pos_weight=1.0):
-        return counted(saved[1][2](model, pos_weight), "val")
+    def make_eval_step(model, pos_weight=1.0, **kw):
+        return counted(saved[1][2](model, pos_weight, **kw), "val")
 
     def save_train_state(*a, **k):
         path, s = _cuda_s(lambda: saved[2][2](*a, **k))
-        rec["epochs"][-1]["checkpoint_s"] = s
+        if rec["epochs"]:  # pretraining logs no scalars, so it has no epoch records
+            rec["epochs"][-1]["checkpoint_s"] = s
         return path
 
     def add_scalar(self, tag, value, step):
@@ -3219,6 +3169,599 @@ def phase_slowfast(smi):
     if not (result.checkpoints and np.isfinite(main_losses).all() and main_losses):
         raise AssertionError(f"slowfast: train_loop.main {result} {main_losses}")
     return {k: sum(c[k] for c in out.values()) for k in zero}
+
+
+# ---------------------------------------------------------------------------
+# The tooling: the profiler CLI, feature extraction, the weight check,
+# extractor pretraining, data and tensor parallelism
+# ---------------------------------------------------------------------------
+
+#: phase ``profiling``: traced calls a run of ``profiling.main``, tries for a
+#: trace that lost no kernel
+PROF_ITERS, PROF_TRIES = 3, 3
+
+
+def _table_launches(rows, kind: str) -> int:
+    """The most launched kernel of a table layer, its template variants
+    summed (the FFN forward's differ between token and CLS rows)."""
+    by_kernel = collections.Counter()
+    for r in rows:
+        if r["type"] == kind:
+            by_kernel[re.search(r"(\w+_kernel)", r["name"]).group(1)] += r["launches"]
+    return max(by_kernel.values(), default=0)
+
+
+def _profiling_run(argv, cfg, kinds: dict) -> dict:
+    """``profiling.main(argv)`` on the card, its launches read from 0: each of
+    ``kinds`` (a table layer → a wrapper's counter) must name kernels whose
+    launches in the trace match the counter over the traced calls. A trace
+    that misses one is taken again, up to ``PROF_TRIES`` runs. Records of
+    other kernels that the trace lost (``kernels_lost``: in this script's
+    process the same few of PyTorch's copies, convolutions and BatchNorm
+    every time) make the table's totals lower bounds; phase ``profile``'s
+    windows (``_profile``) give the device time."""
+    from mintime_torch.utils import profiling
+
+    tries = []
+    for _ in range(PROF_TRIES):
+        out, counts = _step_launches(lambda: profiling.main(argv, config=cfg))
+        table = {kind: _table_launches(out["rows"], kind) for kind in kinds}
+        tries.append({"table": table, "kernels_lost": out["kernels_lost"]})
+        if all(table[k] == out["launches"][w] for k, w in kinds.items()):
+            break
+    else:
+        raise AssertionError(f"profiling: the table's launches against the counters "
+                             f"{out['launches']} in {PROF_TRIES} runs: {tries}")
+    return {"videos_per_s": out["videos_per_s"], "what": out["what"], "launches": counts,
+            "traced_launches": out["launches"], "table_launches": table,
+            "kernels_lost": out["kernels_lost"], "tries": len(tries),
+            "top": [{k: r[k] for k in ("name", "type", "section", "self_ms", "launches")}
+                    for r in out["rows"][:8]]}
+
+
+def phase_profiling(smi):
+    """The profiler CLI (``profiling.main``) at flagship width, batch 8, a
+    forward and ``--train``, each traced ``PROF_ITERS`` times. Returns the
+    launches of both runs."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=".trace_",
+                                     dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        argv = ["--model", "1", "--batch", "8", "--iters", str(PROF_ITERS), "--device", "cuda",
+                "--fused_attention", "1", "--trace_dir", d]
+        cfg = _predict_config(1280)
+        fwd = {"divided_attention kernel": "divided_attention", "geglu_ffn kernel": "geglu_ffn"}
+        runs = {"forward": _profiling_run(argv, cfg, fwd),
+                "train": _profiling_run(argv + ["--train"], cfg, {
+                    **fwd, "divided_attention backward kernel": "divided_attention_bwd",
+                    "geglu_ffn backward kernel": "geglu_ffn_bwd"})}
+    # the classifier without attention maps: every layer on the kernels
+    want = {"forward": {"divided_attention": 18, "geglu_ffn": 18},
+            "train": {"divided_attention": 18, "geglu_ffn": 18, "divided_attention_bwd": 18,
+                      "geglu_ffn_bwd": 17}}
+    for name, run in runs.items():
+        per_call = {k: v / PROF_ITERS for k, v in run["traced_launches"].items() if v}
+        if per_call != want[name]:
+            raise AssertionError(f"profiling {name}: launches a call {per_call}, want {want[name]}")
+        emit({"phase": "profiling", "card": smi, "run": name, "batch": 8, "iters": PROF_ITERS,
+              **run})
+    return {k: runs["forward"]["launches"][k] + runs["train"]["launches"][k]
+            for k in runs["forward"]["launches"]}
+
+
+#: phase ``extract_features``: batch, the crops held card vs CPU, the batches profiled
+FEAT_BATCH, FEAT_CHECKED, FEAT_PROFILED = 64, 8, 4
+
+
+def phase_extract_features(smi, d, faces):
+    """B0 features of every crop of a split of packs (phase ``evaluate``'s
+    writer) through ``extract_features.extract_features`` on the card at
+    batch 64, from an ``Extractor_checkpoint`` file of seeded weights; the
+    first crops' maps against the CPU in fp32."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from mintime_torch.data.crop_store import CropPack, find_pack
+    from mintime_torch.data.frames import pack_crop_names
+    from mintime_torch.preprocessing import extract_features as ef
+
+    paths, crops = [], []
+    for root, _, files in sorted(os.walk(faces)):
+        if find_pack(root):
+            pack = CropPack(find_pack(root))
+            for i, name in enumerate(pack_crop_names(pack)):
+                paths.append(os.path.join(root, name))
+                crops.append(pack.read(i))
+    _, ext = _write_model_files(d, 0, "efficientnet-b0", 1280)
+    model = ef.build_extractor(ext, device="cuda")
+    out = os.path.join(d, "features")
+    ef.extract_features(paths[:FEAT_BATCH], model, os.path.join(d, "warm"), faces,
+                        crops=crops[:FEAT_BATCH], batch_size=FEAT_BATCH)  # cuDNN's first use
+    torch.cuda.reset_peak_memory_stats()
+    n, s = _cuda_s(lambda: ef.extract_features(paths, model, out, faces, crops=crops,
+                                               batch_size=FEAT_BATCH))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # where the time goes: the card's busy and idle share over the first batches
+    n_prof = FEAT_PROFILED * FEAT_BATCH
+    prof = _profile(lambda: ef.extract_features(paths[:n_prof], model, os.path.join(d, "prof"),
+                                                faces, crops=crops[:n_prof],
+                                                batch_size=FEAT_BATCH))
+    cpu = os.path.join(d, "features_cpu")
+    ef.extract_features(paths[:FEAT_CHECKED], ef.build_extractor(ext, device="cpu"), cpu, faces,
+                        crops=crops[:FEAT_CHECKED], batch_size=FEAT_CHECKED)
+    errs = []
+    for p in paths[:FEAT_CHECKED]:
+        rel = os.path.splitext(os.path.relpath(p, faces))[0] + ".npy"
+        got, want = np.load(os.path.join(out, rel)), np.load(os.path.join(cpu, rel))
+        errs.append(float(np.abs(got - want).max() / np.abs(want).max()))
+    written = sum(len(f) for _, _, f in os.walk(out))
+    emit({"phase": "extract_features", "card": smi, "crops": len(paths), "batch": FEAT_BATCH,
+          "s": s, "crops_per_s": len(paths) / s, "written": written,
+          "max_err_over_max_cpu": max(errs), "peak_mem_gib": peak_gib,
+          "profiled_crops": n_prof, "profile": {k: prof[k] for k in (
+              "host_window_ms", "device_busy_ms", "device_idle_share", "kernels",
+              "kernels_lost", "ms_by_layer")}})
+    if n != len(paths) or written != len(paths) or not max(errs) <= 5e-2:
+        raise AssertionError(f"extract_features: {n} / {written} files of {len(paths)}, "
+                             f"card vs CPU {errs}")
+
+
+def phase_verify_weights(smi, d):
+    """``verify_weights.main`` on seeded weight files in the published formats
+    (phase ``predict``'s MTCNN, FaceNet and MINTIME-EF files, phase
+    ``slowfast``'s ``slowfast_r50`` file, wrapped as the hub file is): rc 0 and
+    every arm's ``[ OK ]`` lines. Returns the launches of the run."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from mintime_torch import verify_weights
+    from mintime_torch.models.slowfast import SlowFastClassifier
+
+    files = _write_weight_files(d)
+    sf = os.path.join(d, "SLOWFAST_8x8_R50.pyth")
+    torch.save({"model_state": slowfast_state_dict(SlowFastClassifier(device="cpu"), seed=5)}, sf)
+    head, ext = files["predict_ef"]
+    argv = ["--mtcnn_weights", files["mtcnn"], "--facenet_weights", files["facenet"],
+            "--model_weights", head, "--extractor_weights", ext, "--extractor_model", "0",
+            "--slowfast_weights", sf, "--device", "cuda"]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc, counts = _step_launches(lambda: verify_weights.main(argv, config=_predict_config(1280)))
+    ok = [ln for ln in printed.getvalue().splitlines() if ln.startswith("[ OK ]")]
+    emit({"phase": "verify_weights", "card": smi, "rc": rc, "s": time.perf_counter() - t0,
+          "ok_lines": ok, "launches": counts})
+    want = {**{k: 0 for k in counts}, "divided_attention": 16, "geglu_ffn": 18}
+    if rc != 0 or len(ok) < 8 or counts != want:
+        raise AssertionError(f"verify_weights: rc {rc}, {len(ok)} OK lines, launches {counts}")
+    return counts
+
+
+def pretrain_config():
+    """``configs/extractor_pretraining.yaml`` built in code (a CPU test holds
+    the two equal)."""
+    from mintime_torch.config import MintimeConfig, ModelConfig, TrainingConfig
+
+    return MintimeConfig(model=ModelConfig(image_size=224, num_classes=1), training=TrainingConfig(
+        lr=0.01, weight_decay=1e-7, bs=16, optimizer="SGD", scheduler="steplr", gamma=0.1,
+        step_size=15, rebalancing_fake=0.3, rebalancing_real=1.0, frames_per_video=30,
+        augmentation="min"))
+
+
+#: phase ``pretrain``: epochs (``--num_epochs 1``), spawned workers
+PRE_EPOCHS, PRE_WORKERS = 2, 4
+
+
+def phase_pretrain(smi, d, faces, split):
+    """``pretrain_extractor.main`` with the yaml's config (224 px, batch 16,
+    the ``min`` preset, SGD, StepLR) for 2 epochs on the split's videos of
+    packs, every third as the validation list. The exported extractor must
+    equal the checkpoint's bitwise and load into MINTIME-EF bitwise. Returns
+    the run's launches (none: B0 has no hand-written kernel)."""
+    import os
+
+    import torch
+
+    from mintime_torch import pretrain_extractor
+    from mintime_torch.models.classifier import MintimeVideoClassifier
+    from mintime_torch.utils.checkpoint import load_model_state
+
+    _, val = _val_list(d, split)
+    out = os.path.join(d, "pretrain")
+    argv = ["--train_list_file", split, "--validation_list_file", val, "--data_path", faces,
+            "--num_epochs", str(PRE_EPOCHS - 1), "--workers", str(PRE_WORKERS),
+            "--models_output_path", out, "--device", "cuda"]
+    rec = _watch_main()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        best, counts = _step_launches(
+            lambda: pretrain_extractor.main(argv, config=pretrain_config()))
+        run_s = time.perf_counter() - t0
+    finally:
+        rec["undo"]()
+    steps = rec["train"]
+    per_epoch = len(steps) // PRE_EPOCHS
+    warm = steps[per_epoch:]
+    step_s = sum(r["s"] for r in warm)
+    epoch_s = warm[-1]["t0"] + warm[-1]["s"] - warm[0]["t0"]  # its steps, the loader between
+    ck = torch.load(os.path.join(out, f"checkpoint_{best.rsplit('checkpoint', 1)[1]}"),
+                    weights_only=True)["params"]
+    exported = torch.load(best, weights_only=True)
+    same = all(torch.equal(exported[k[len("extractor."):]], v)
+               for k, v in ck.items() if k.startswith("extractor."))
+    ef = MintimeVideoClassifier(_predict_config(1280).model, device="cuda",
+                                param_dtype=torch.float32)
+    head = os.path.join(d, "Model_checkpoint_efficientnet-b0")
+    ef.load_state_dict(load_model_state(ef, None, head, extractor_weights=best))
+    loaded = all(torch.equal(ef.state_dict()[f"extractor.{k}"].cpu(), v)
+                 for k, v in exported.items())
+    emit({"phase": "pretrain", "card": smi, "batch": 16, "image_size": 224, "epochs": PRE_EPOCHS,
+          "steps": len(steps), "run_s": run_s, "warm_epoch_s": epoch_s,
+          "steps_per_s_warm": len(warm) / epoch_s, "images_per_s_warm": 16 * len(warm) / epoch_s,
+          "warm_step_ms": 1e3 * step_s / len(warm), "step_share": step_s / epoch_s,
+          "losses": [r["loss"] for r in steps], "val_losses": [r["loss"] for r in rec["val"]],
+          "exported": os.path.basename(best), "export_equals_checkpoint": same,
+          "loads_into_mintime_ef_bitwise": loaded, "launches": counts,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    import numpy as np
+
+    if not (same and loaded and all(np.isfinite([r["loss"] for r in steps + rec["val"]]))
+            and not any(counts.values())):
+        raise AssertionError(f"pretrain: export {same} / {loaded}, launches {counts}")
+    return counts
+
+
+def phase_tooling(smi):
+    """Phases ``extract_features``, ``verify_weights``, ``pretrain`` and the
+    one-rank NCCL run of ``parallel`` on one split of packs written to a
+    temporary directory in the checkout (phase ``evaluate``'s writer).
+    Returns the launches of each path."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=".tooling_",
+                                     dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        faces, split, _ = _write_test_split(d)
+        phase_extract_features(smi, d, faces)
+        paths = {"verify_weights": phase_verify_weights(smi, d),
+                 "pretrain": phase_pretrain(smi, d, faces, split)}
+        paths["train_main_nccl"] = phase_parallel_nccl(smi, d, faces, split)
+    return paths
+
+
+#: phase ``parallel``: seconds a spawned rank may take; steps timed after the checked one
+PAR_LIMIT_S, PAR_WARM_STEPS = 240, 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(target, world: int, args: tuple, d: str) -> list:
+    """``target(rank, world, port, *args, out)`` in ``world`` spawned
+    processes on the one card, each writing its result to ``out``; a rank
+    past ``PAR_LIMIT_S`` is killed and fails the phase."""
+    import multiprocessing as mp
+    import os
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    outs = [os.path.join(d, f"rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=target, args=(r, world, port, *args, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_LIMIT_S
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
+    late = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if late or any(p.exitcode for p in procs):
+        raise AssertionError(f"parallel: ranks {late} late, exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _rank_env(rank: int, world: int, port: int) -> None:
+    import os
+
+    # LOCAL_RANK 0 for every rank: the processes share the one card
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK="0")
+
+
+def _parallel_step(cfg, model, batch, pos_weight, mesh) -> dict:
+    """One checked train step of ``model`` on ``batch`` through the mesh (its
+    launches counted from 0, its gradients and the parameters after it),
+    then ``PAR_WARM_STEPS`` more timed."""
+    import torch
+
+    from mintime_torch import train
+    from mintime_torch.parallel.mesh import TensorParallelGEGLU
+
+    state = train.create_train_state(model, cfg, steps_per_epoch=5, num_epochs=1, seed=0)
+    step = train.make_train_step(model, pos_weight, mesh=mesh)
+    t0 = time.perf_counter()
+    metrics, counts = _step_launches(lambda: step(state, batch))
+    step_s = time.perf_counter() - t0
+    out = {"loss": float(metrics["loss"]), "launches": counts, "step_s": step_s,
+           "rows": len(batch["labels"]),
+           "grads": {n: p.grad.float().cpu() for n, p in model.named_parameters()},
+           "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+           "heads": sorted({m.heads for m in model.modules() if hasattr(m, "heads")}),
+           "hidden": [m.net["3"].weight.shape[1] for m in model.modules()
+                      if isinstance(m, TensorParallelGEGLU)][:1]}
+    out["warm_step_s"] = [_cuda_s(lambda: step(state, batch))[1] for _ in range(PAR_WARM_STEPS)]
+    return out
+
+
+def _plain_fp32(mcfg):
+    """The flagship on the plain path in fp32 from seed 0 (TF32 off by the caller)."""
+    import torch
+
+    from mintime_torch.models.classifier import MintimeVideoClassifier
+
+    return MintimeVideoClassifier(mcfg, use_kernels=False, device="cuda", dtype=torch.float32,
+                                  param_dtype=torch.float32, seed=0)
+
+
+def _tp_shard(name: str, full, rank: int, tp: int, heads: int):
+    """Model rank ``rank``'s part of a whole tensor of the TimeSformer head
+    by the Megatron rule: q, k and v each by heads, both GEGLU halves by
+    hidden units, row-parallel weights by input features."""
+    from mintime_torch.parallel import mesh as pm
+
+    spec = pm._tp_spec(name)
+    if spec == "replicated":
+        return full
+    if spec == "row":
+        n = full.shape[1] // tp
+        return full[:, rank * n:(rank + 1) * n]
+    if "to_qkv" in name:
+        return full[pm._heads_rows(heads, full.shape[0] // (3 * heads), tp, rank)]
+    return full[pm._halves_rows(full.shape[0] // 2, tp, rank)]
+
+
+def _tp_fp32_check(mcfg, batch, pos_weight, mesh) -> dict:
+    """TP=2 on the plain path in fp32 against the same model in one piece on
+    the whole batch: eval-mode logits within 1e-4 of their max, the step's
+    loss within 1e-4 relative, and each head parameter's gradient (this
+    rank's part of the whole one) within 1e-3 of its max. A wrong split or a
+    missing all-reduce, forward or backward, moves these by far more."""
+    import torch
+
+    from mintime_torch import train
+    from mintime_torch.parallel.mesh import MODEL_AXIS, axis_rank, axis_size, tensor_parallel
+
+    model = _plain_fp32(mcfg)
+    inputs = train.model_inputs(batch, model.head_kind, model.device)
+    with torch.no_grad():
+        logits_one = model(*inputs, train=False).float()
+    loss_one, g_one = _one_step_grads(model, batch, pos_weight, False)
+    set_use_kernels(model, False)
+    tensor_parallel(model, mesh)
+    with torch.no_grad():
+        logits_tp = model(*inputs, train=False).float()
+    loss_tp, g_tp = _one_step_grads(model, batch, pos_weight, False)
+    rank, tp = axis_rank(mesh, MODEL_AXIS), axis_size(mesh, MODEL_AXIS)
+    errs = {}
+    for n, g in g_tp.items():
+        if n.startswith("head.") and g is not None:
+            want = _tp_shard(n, g_one[n], rank, tp, mcfg.heads)
+            errs[n] = float((g - want).abs().max()) / float(want.abs().max())
+    worst = max(errs, key=errs.get)
+    out = {"loss_tp": loss_tp, "loss_one": loss_one,
+           "logits_err_over_max": float((logits_tp - logits_one).abs().max())
+           / float(logits_one.abs().max()),
+           "head_tensors": len(errs), "worst_head_grad_tensor": worst,
+           "worst_head_grad_err_over_max": errs[worst]}
+    if not (out["logits_err_over_max"] <= 1e-4 and abs(loss_tp - loss_one) <= 1e-4 * abs(loss_one)
+            and errs[worst] <= 1e-3):
+        raise AssertionError(f"parallel tp2 fp32 against one process: {out}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_rank(rank, world, port, smi, batch_path, out):
+    """One rank of phase ``parallel`` over gloo on the card (NCCL refuses two
+    ranks on one card). Data-parallel, on this rank's half of the batch: the
+    plain path's step in fp32, then the kernels held to phase ``train``'s
+    rule with every run data-parallel, then the flagship's bf16 step with
+    the kernels. Tensor-parallel, on the whole batch with half the heads and
+    hidden units: the plain path in fp32 against one process, the kernels
+    held to phase ``train``'s rule (logits too), then the bf16 step."""
+    _rank_env(rank, world, port)
+    import torch
+    import torch.distributed as dist
+
+    from mintime_torch import train
+    from mintime_torch.parallel.mesh import make_mesh, shard_batch, tensor_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    cfg, batch, pos_weight = torch.load(batch_path, weights_only=False)
+    checks = []
+    dp_mesh = make_mesh(device="cuda")
+    rows = shard_batch(dp_mesh, batch)
+    fp32 = _parallel_step(cfg, _plain_fp32(cfg.model), rows, pos_weight, dp_mesh)
+    torch.cuda.empty_cache()
+    model = train.training_model(cfg.model, device="cuda", seed=0)
+    _grad_check(smi, "parallel_dp2_check", model, _plain_fp32(cfg.model), rows, pos_weight,
+                [n for n, _ in model.named_parameters()], mesh=dp_mesh, report=checks.append,
+                check_logits=True)
+    del model
+    dp = _parallel_step(cfg, train.training_model(cfg.model, device="cuda", seed=0), rows,
+                        pos_weight, dp_mesh)
+    torch.cuda.empty_cache()
+    tp_mesh = make_mesh(model_parallel=2, device="cuda")
+    tp32 = _tp_fp32_check(cfg.model, batch, pos_weight, tp_mesh)
+    model = tensor_parallel(train.training_model(cfg.model, device="cuda", seed=0), tp_mesh)
+    _grad_check(smi, "parallel_tp2_check", model,
+                tensor_parallel(_plain_fp32(cfg.model), tp_mesh), batch, pos_weight,
+                [n for n, _ in model.named_parameters()], report=checks.append,
+                check_logits=True)
+    del model
+    torch.cuda.empty_cache()
+    tp = _parallel_step(cfg, tensor_parallel(train.training_model(cfg.model, device="cuda",
+                                                                  seed=0), tp_mesh),
+                        batch, pos_weight, tp_mesh)
+    torch.save({"fp32": fp32, "dp": dp, "tp": tp, "tp32": tp32, "checks": checks}, out)
+    dist.destroy_process_group()
+
+
+def _nccl_main_rank(rank, world, port, argv, out):
+    """One rank of a ``torchrun``-like launch of ``train_loop.main``: the
+    process group from the environment, NCCL on the card."""
+    _rank_env(rank, world, port)
+    import torch
+    import torch.distributed as dist
+
+    from mintime_torch import train_loop
+
+    result, counts = _step_launches(
+        lambda: train_loop.main(argv, config=_flagship_train_config()))
+    torch.save({"backend": dist.get_backend(), "world": dist.get_world_size(),
+                "epochs_run": result.epochs_run, "checkpoints": result.checkpoints,
+                "best_val_loss": result.best_val_loss, "launches": counts}, out)
+    dist.destroy_process_group()
+
+
+def phase_parallel_nccl(smi, d, faces, split):
+    """A one-rank NCCL group (the environment of ``torchrun --nproc_per_node
+    1``) running ``train_loop.main`` for one step of 8 videos and their
+    validation pass. Returns its launches."""
+    import os
+
+    _, val = _val_list(d, split)
+    argv = ["--train_list_file", split, "--validation_list_file", val, "--data_path", faces,
+            "--num_epochs", "0", "--max_videos", "8", "--workers", "2",
+            "--models_output_path", os.path.join(d, "nccl_models"),
+            "--logger_name", os.path.join(d, "nccl_runs"), "--device", "cuda"]
+    t0 = time.perf_counter()
+    (run,) = _spawn_ranks(_nccl_main_rank, 1, (argv,), d)
+    emit({"phase": "parallel", "card": smi, "run": "nccl_train_main", "s": time.perf_counter() - t0,
+          **{k: v for k, v in run.items() if k != "checkpoints"},
+          "checkpoints": [os.path.basename(c) for c in run["checkpoints"]]})
+    want = {**{k: 0 for k in run["launches"]}, "divided_attention": 36, "geglu_ffn": 36,
+            "divided_attention_bwd": 18, "geglu_ffn_bwd": 17}
+    if run["backend"] != "nccl" or run["world"] != 1 or run["epochs_run"] != 1 or \
+            run["launches"] != want or len(run["checkpoints"]) != 1:
+        raise AssertionError(f"parallel nccl_train_main: {run}")
+    return run["launches"]
+
+
+def phase_parallel(smi):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    card), against one process at batch 8. DP=2, batch 8 as 4 + 4: the plain
+    path's step in fp32 (TF32 off), each gradient within 1e-3 of its
+    tensor's max |value|, the tensors zero in exact arithmetic aside by phase
+    ``train``'s rule (an fp32 max under 2^-8 of the bf16 one); the kernels
+    against the plain path, every run data-parallel, by phase ``train``'s
+    rule on each gradient and the logits (``_grad_check``); then the
+    flagship's train step at full width in bf16 with the kernels, its loss
+    within 2e-2 of one process's, its launches 18 / 18 / 18 / 17 a rank and
+    the ranks' parameters bitwise equal after it. TP=2 (4 heads and 1024
+    hidden units a rank): the plain path in fp32 against one process (logits
+    and loss within 1e-4, head gradients within 1e-3), the kernels at those
+    shapes by phase ``train``'s rule, then the bf16 step, its loss within
+    2e-2 and its launches counted. Returns the launches of each rank's
+    step."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mintime_torch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, batch, pos_weight = _flagship_train_batch()
+    model = train.training_model(cfg.model, device="cuda", seed=0)
+    loss_one, g_one = _one_step_grads(model, batch, pos_weight, True)
+    ref = _plain_fp32(cfg.model)
+    loss_32, g32 = _one_step_grads(ref, batch, pos_weight, False)
+    del model, ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix=".parallel_",
+                                     dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        batch_path = os.path.join(d, "batch.pt")
+        cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+        torch.save((cfg, cpu, pos_weight), batch_path)
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(_parallel_rank, 2, (smi, batch_path), d)
+        run_s = time.perf_counter() - t0
+    fp32, dp, tp, tp32 = ([r[k] for r in ranks] for k in ("fp32", "dp", "tp", "tp32"))
+    for r, run in enumerate(ranks):
+        for check in run["checks"]:
+            emit({**check, "rank": r})
+
+    fp32_err, zero = {}, []
+    for n, g in g32.items():
+        top = 0.0 if g_one[n] is None else float(g_one[n].abs().max())
+        if not top:  # no gradient: the last layer's token FFN
+            continue
+        if float(g.abs().max()) <= 2**-8 * top:
+            # zero in exact arithmetic (phase train's rule): the _bn2 biases
+            # under a train-mode BatchNorm hold rounding noise on both sides
+            zero.append(n)
+            continue
+        fp32_err[n] = float((fp32[0]["grads"][n].to(g.device) - g).abs().max()) / \
+            float(g.abs().max())
+    worst32 = max(fp32_err, key=fp32_err.get)
+    same = [n for n in dp[0]["params"] if not torch.equal(dp[0]["params"][n], dp[1]["params"][n])]
+    hidden = cfg.model.dim * 4 // 2
+    emit({"phase": "parallel", "card": smi, "run": "dp2_gloo", "batch": 8, "ranks_s": run_s,
+          "rows_per_rank": [r["rows"] for r in dp],
+          "rank_first_step_s": [r["step_s"] for r in dp],
+          "rank_warm_step_s": [r["warm_step_s"] for r in dp],
+          "fp32_loss_dp": [r["loss"] for r in fp32], "fp32_loss_one": loss_32,
+          "fp32_rank_warm_step_s": [r["warm_step_s"] for r in fp32],
+          "zero_in_fp32": zero, "fp32_worst_grad_tensor": worst32,
+          "fp32_worst_err_over_max": fp32_err[worst32],
+          "fp32_median_err_over_max": float(np.median(list(fp32_err.values()))),
+          "loss_dp": [r["loss"] for r in dp], "loss_one_process": loss_one,
+          "params_differing_across_ranks": same, "launches": [r["launches"] for r in dp]})
+    emit({"phase": "parallel", "card": smi, "run": "tp2_gloo", "batch": 8,
+          "heads": [r["heads"] for r in tp], "hidden": [r["hidden"] for r in tp],
+          "fp32_against_one_process": tp32,
+          "rank_first_step_s": [r["step_s"] for r in tp],
+          "rank_warm_step_s": [r["warm_step_s"] for r in tp], "loss_tp": [r["loss"] for r in tp],
+          "loss_tp1": loss_one, "launches": [r["launches"] for r in tp]})
+    step = {**{k: 0 for k in dp[0]["launches"]}, "divided_attention": 18, "geglu_ffn": 18,
+            "divided_attention_bwd": 18, "geglu_ffn_bwd": 17}
+    if any(not abs(r["loss"] - loss_one) <= TOL for r in dp + tp) or \
+            any(not abs(r["loss"] - loss_32) <= 1e-4 * abs(loss_32) for r in fp32):
+        raise AssertionError(f"parallel: losses {[r['loss'] for r in dp + tp]} vs {loss_one}, "
+                             f"fp32 {[r['loss'] for r in fp32]} vs {loss_32}")
+    if not fp32_err[worst32] <= 1e-3 or same:
+        raise AssertionError(f"parallel dp2: fp32 gradient {worst32} off by {fp32_err[worst32]}"
+                             f" of its max; parameters differing across ranks {same[:4]}")
+    if any(r["launches"] != step for r in dp + tp) or \
+            any(r["heads"] != [cfg.model.heads // 2] or r["hidden"] != [hidden] for r in tp):
+        raise AssertionError(f"parallel: launches {[r['launches'] for r in dp + tp]}, "
+                             f"TP shards {[(r['heads'], r['hidden']) for r in tp]}")
+    return {f"parallel_{name}_rank{r}": run["launches"]
+            for name, runs in (("dp2", dp), ("tp2", tp)) for r, run in enumerate(runs)}
 
 
 def conv_model_config(tap: int = 20):
@@ -3496,11 +4039,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    try:
-        import mintime_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: run from the root of a checkout of the repo ({e})", file=sys.stderr)
-        return 1
 
     smi = phase_device()
     rows = phase_kernels(smi)
@@ -3530,6 +4068,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     # SlowFast R-50 through evaluation, the train step and the CLI: no kernel
     paths["slowfast"] = phase_slowfast(smi)
+    torch.cuda.empty_cache()
+    # the tooling: the profiler CLI (a forward and a train step), feature
+    # extraction, the weight check, extractor pretraining (no kernel), then
+    # train_loop.main on a one-rank NCCL group and two ranks over gloo
+    paths["profiling"] = phase_profiling(smi)
+    torch.cuda.empty_cache()
+    paths.update(phase_tooling(smi))
+    torch.cuda.empty_cache()
+    paths.update(phase_parallel(smi))
     torch.cuda.empty_cache()
     paths["conv_forward"] = phase_conv(smi)
     torch.cuda.empty_cache()

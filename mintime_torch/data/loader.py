@@ -21,8 +21,16 @@ Two worker modes:
 * ``"thread"``: a thread pool in the main process.
 
 A dataset error reaches the consumer as a ``RuntimeError``; a worker that
-dies raises one too instead of leaving the consumer waiting. One device, so
-no sharding and no padding of a last partial batch.
+dies raises one too instead of leaving the consumer waiting. A last partial
+batch is yielded as it is (no padding), or dropped with ``drop_last``, the
+JAX loader's option. With ``shard=(rank, world)`` the loader loads only data
+rank ``rank``'s rows of each global batch
+(:func:`mintime_torch.parallel.mesh.shard_rows`); every rank walks the same
+global batches, and a batch of which a rank has no row comes to it as ``{}``.
+With ``pad_short`` as well, a global batch of fewer rows than ranks is
+padded with cyclic repeats of its rows
+(:func:`mintime_torch.parallel.mesh.pad_rows`) and every rank's part
+carries ``valid`` (0 on the repeats), so that every rank trains on a row.
 """
 
 from __future__ import annotations
@@ -68,6 +76,9 @@ class DataLoader:
         num_workers: int = 4,
         seed: int = 0,
         worker_mode: str | None = None,  # "process" | "thread" | None = by core count
+        drop_last: bool = False,
+        shard: tuple[int, int] | None = None,
+        pad_short: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -79,18 +90,46 @@ class DataLoader:
         if worker_mode not in ("process", "thread"):
             raise ValueError(f"unknown worker_mode {worker_mode!r}; 'process' or 'thread'")
         self.worker_mode = worker_mode
+        self.drop_last = drop_last
+        self.shard = shard
+        self.pad_short = pad_short
         self._epoch = 0
         self._workers: list = []
         self._task_q = self._out_q = None
 
     def __len__(self):
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def _batches(self) -> list[list[int]]:
+        """This pass's batches of dataset indices: the global batches, or
+        this rank's rows of each with ``shard``."""
+        return [b for b, _ in self._plan()]
+
+    def _plan(self) -> list[tuple[list[int], np.ndarray | None]]:
+        """:meth:`_batches`, each with its ``valid`` where ``pad_short``
+        padded it, else None."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self._epoch)).shuffle(idx)
-        return [idx[i : i + self.batch_size].tolist() for i in range(0, len(idx), self.batch_size)]
+        batches = [idx[i:i + self.batch_size].tolist()
+                   for i in range(0, len(idx), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        if self.shard is None:
+            return [(b, None) for b in batches]
+        from mintime_torch.parallel.mesh import pad_rows, shard_rows
+
+        out = []
+        for b in batches:
+            valid = None
+            if self.pad_short and len(b) < self.shard[1]:
+                rows = pad_rows(len(b), self.shard[1])
+                b, valid = [b[i] for i in rows], (np.arange(len(rows)) < len(b)).astype(np.float32)
+            part = shard_rows(len(b), *self.shard)
+            out.append((b[part], None if valid is None else valid[part]))
+        return out
 
     def _finish(self, batch: dict) -> dict:
         """The transform of the batch's crops (with their drawn steps in mode
@@ -99,13 +138,21 @@ class DataLoader:
         return batch
 
     def __iter__(self) -> Iterator[dict]:
-        batches = self._batches()
+        batches = self._plan()
         self._epoch += 1
-        raw = self._iter_process(batches) if self.worker_mode == "process" else \
-            self._iter_thread(batches)
+        work = [b for b, _ in batches if b]
+        raw = self._iter_process(work) if self.worker_mode == "process" else \
+            self._iter_thread(work)
         try:
-            for batch in raw:
-                yield self._finish(batch)
+            for b, valid in batches:
+                if not b:
+                    yield {}
+                    continue
+                batch = self._finish(next(raw))
+                if valid is not None:
+                    batch["valid"] = valid
+                yield batch
+            next(raw, None)  # the pass is whole: the workers stay up for the next
         finally:
             raw.close()
 

@@ -13,7 +13,8 @@ accuracy, AUC and per-method errors (test.py:271-290), with the
 ``python -m mintime_torch.evaluate`` runs :func:`main`, which parses the
 JAX CLI's flags plus ``--device``, reads the yaml config and calls
 :func:`evaluate_split`; that function takes the config object, so a caller
-without yaml builds one in code.
+without yaml builds one in code. Under ``torchrun`` each rank scores its rows
+of every batch and rank 0 prints the whole split's report.
 
 The module imports torch inside its functions only: a spawned loader
 worker runs the parent's main module again (multiprocessing's spawn does),
@@ -94,26 +95,41 @@ def evaluate(
     heads: int = 8,
     num_frames: int = 16,
     num_patches: int = 49,
+    mesh=None,
 ) -> dict:
     """The test.py report of the model over a loader's batches: the metrics
     of :func:`~mintime_torch.utils.metrics.evaluation_report`, ``loss`` (the
-    mean of the batches' mean losses) and ``n_videos``."""
-    all_logits, all_labels, all_mc, losses = [], [], [], []
+    mean of the batches' mean losses) and ``n_videos``. With a ``mesh`` the
+    loader gives this data rank's rows of each batch (``{}`` for none), and
+    every rank's logits, labels and methods are gathered batch by batch in
+    the original order before the report, which every rank then holds."""
+    from mintime_torch.parallel.mesh import gather_rows
+
+    empty = np.zeros(0, np.float32)
+    all_logits, all_labels, all_mc = [], [], []
     for batch in loader:
+        if not batch:
+            all_logits.append(empty)
+            all_labels.append(empty)
+            all_mc.append(empty)
+            continue
         logits, attns = _forward(model, state, batch)
         if save_attention_plots and attns is not None:
             _plot_batch_attention(batch, [a.float().cpu().numpy() for a in attns], heads,
                                   num_frames, num_patches)
-        labels = np.asarray(batch["labels"]).reshape(-1)
-        losses.append(_bce_np(logits, labels))
         all_logits.append(logits)
-        all_labels.append(labels)
-        if "multiclass_label" in batch:
-            all_mc.append(np.asarray(batch["multiclass_label"]).reshape(-1))
+        all_labels.append(np.asarray(batch["labels"]).reshape(-1))
+        all_mc.append(np.asarray(batch["multiclass_label"]).reshape(-1)
+                      if "multiclass_label" in batch else empty)
+    all_logits, all_labels, all_mc = (gather_rows(mesh, rows)
+                                      for rows in (all_logits, all_labels, all_mc))
+    losses = [_bce_np(x, y) for x, y in zip(all_logits, all_labels)]
 
     logits = np.concatenate(all_logits) if all_logits else np.zeros(0)
     labels = np.concatenate(all_labels) if all_labels else np.zeros(0)
     mc = np.concatenate(all_mc) if all_mc else None
+    if mc is not None and len(mc) != len(labels):
+        mc = None
     report = evaluation_report(logits, labels, mc)
     report["loss"] = float(np.mean(losses)) if losses else float("nan")
     report["n_videos"] = int(len(labels))
@@ -179,9 +195,11 @@ def build_model(cfg: MintimeConfig, model_weights: str, extractor_weights: str |
 def split_loader(cfg: MintimeConfig, videos: Sequence[str], labels: Sequence[float],
                  multiclass: Sequence[float] | None, data_path: str, batch_size: int,
                  workers: int = 4, video_path: str | None = None, identities_ordering: int = 0,
-                 random_state: int = 42, device: str | torch.device = "cuda"):
+                 random_state: int = 42, device: str | torch.device = "cuda",
+                 shard: tuple[int, int] | None = None):
     """The test-mode dataset of the videos in a :class:`DataLoader`, in
-    order; use it in a ``with`` block, which stops its workers."""
+    order (``shard``: a data rank's rows of each batch); use it in a
+    ``with`` block, which stops its workers."""
     from mintime_torch.data.dataset import DeepfakesDataset
     from mintime_torch.data.loader import DataLoader
 
@@ -191,7 +209,7 @@ def split_loader(cfg: MintimeConfig, videos: Sequence[str], labels: Sequence[flo
         num_patches=m.num_patches, max_identities=m.max_identities, mode="test",
         identities_ordering=identities_ordering, multiclass_labels=multiclass,
         video_path=video_path, seed=random_state, device=device)
-    return DataLoader(ds, batch_size=batch_size, shuffle=False, num_workers=workers)
+    return DataLoader(ds, batch_size=batch_size, shuffle=False, num_workers=workers, shard=shard)
 
 
 def evaluate_split(cfg: MintimeConfig, model_weights: str, test_list_file: str, data_path: str,
@@ -201,12 +219,15 @@ def evaluate_split(cfg: MintimeConfig, model_weights: str, test_list_file: str, 
                    batch_size: int | None = None, workers: int = 4,
                    deepfake_methods: Sequence[int] | None = None, max_videos: int = -1,
                    random_state: int = 42, fused_attention: int | None = None,
-                   device: str | torch.device = "cuda") -> dict:
+                   device: str | torch.device = "cuda", mesh=None) -> dict:
     """The CLI's work for a config object: the split list's videos (pruned,
     filtered, cut and, with ``only_multiidentity``, those of more than one
-    identity), the model from its weight files, the report over the split."""
+    identity), the model from its weight files, the report over the split.
+    With a ``mesh`` each data rank scores its rows of every batch and every
+    rank returns the whole split's report."""
     from mintime_torch.data.manifest import load_manifest
     from mintime_torch.device import resolve_device
+    from mintime_torch.parallel.mesh import axis_rank, axis_size
 
     man = load_manifest(test_list_file, data_path=data_path, deepfake_methods=deepfake_methods,
                         max_videos=max_videos, shuffle_seed=random_state)
@@ -221,11 +242,12 @@ def evaluate_split(cfg: MintimeConfig, model_weights: str, test_list_file: str, 
                       extractor_model=extractor_model, require_attention=save_attentions,
                       use_kernels=None if fused_attention is None else bool(fused_attention),
                       device=dev)
+    shard = None if mesh is None else (axis_rank(mesh), axis_size(mesh))
     with split_loader(cfg, videos, labels, mc, data_path, batch_size or cfg.test.bs, workers,
-                     video_path, identities_ordering, random_state, dev) as loader:
+                      video_path, identities_ordering, random_state, dev, shard) as loader:
         return evaluate(net, None, loader, save_attention_plots=save_attentions,
                         heads=cfg.model.heads, num_frames=cfg.model.num_frames,
-                        num_patches=cfg.model.num_patches)
+                        num_patches=cfg.model.num_patches, mesh=mesh)
 
 
 def main(argv=None):
@@ -261,8 +283,12 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     opt = vars(p.parse_args(argv))
     cfg = load_config(opt.pop("config"))
-    report = evaluate_split(cfg, **opt)
-    print(json.dumps(report, indent=2))
+    from mintime_torch.parallel.mesh import is_main, launch_mesh
+
+    mesh = launch_mesh(opt["device"])  # a torchrun launch: data-parallel
+    report = evaluate_split(cfg, **opt, mesh=mesh)
+    if is_main(mesh):
+        print(json.dumps(report, indent=2))
     return report
 
 

@@ -122,11 +122,19 @@ class BatchNorm(nn.Module):
     fold in the unbiased one (PARITY.md #23). The batch statistics are taken
     in fp32 whatever the input dtype. There is no ``num_batches_tracked``,
     so the reference's key names hold.
+
+    With ``sync_group`` (set by :func:`mintime_torch.parallel.mesh.
+    data_parallel`) train mode takes the statistics of the global batch, all
+    data ranks' rows, as the JAX mesh does: the sum and count, then the sum
+    of squared deviations from the global mean, each all-reduced through
+    the differentiable ``torch.distributed.nn.functional.all_reduce``.
     """
 
     momentum = 0.99
     #: scale and shift stay in the parameters' dtype, as flax's BatchNorm
     keep_param_dtype = True
+    #: the process group of the data ranks whose batch statistics are pooled
+    sync_group = None
 
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__()
@@ -140,25 +148,72 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if self.sync_group is not None:
+            return self._synced(x)
         y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
                                                   0.0, self.eps)
         with torch.no_grad():
             var = invstd.pow(-2).sub(self.eps).clamp_(min=0.0)
+        self._update(mean, var)
+        return y
+
+    def _synced(self, x):
+        from torch.distributed.nn.functional import all_reduce
+
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [-1 if d == 1 else 1 for d in range(x.dim())]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.new_tensor([x.numel() / x.shape[1]])
+        sums = all_reduce(torch.cat([xf.sum(dims), count]), group=self.sync_group)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        d = xf - mean.view(shape)
+        var = all_reduce((d * d).sum(dims), group=self.sync_group) / n
+        y = (d * torch.rsqrt(var + self.eps).view(shape) * self.weight.to(xf.dtype).view(shape)
+             + self.bias.to(xf.dtype).view(shape))
+        self._update(mean.detach(), var.detach())
+        return y.to(x.dtype)
+
+    def _update(self, mean, var):
+        with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_(mean.to(self.running_mean.dtype),
                                                        alpha=1.0 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var.to(self.running_var.dtype),
                                                       alpha=1.0 - self.momentum)
-        return y
 
 
-def drop_connect(x, rate: float, generator: torch.Generator | None):
+@dataclass(frozen=True)
+class BatchRows:
+    """Drop-connect's draws for one data rank's rows ``first:end`` of a
+    global batch of ``total`` videos: the masks are drawn from ``generator``
+    for the whole batch (each video's frames together) and the rank's rows
+    kept, so that the ranks together draw what one process draws. A batch
+    padded with cyclic repeats of its first ``distinct`` rows
+    (:func:`mintime_torch.parallel.mesh.pad_rows`) draws for those rows and
+    repeats their masks with them. Passed where a ``generator`` goes."""
+
+    generator: torch.Generator
+    first: int
+    end: int
+    total: int
+    distinct: int | None = None
+
+
+def drop_connect(x, rate: float, generator: torch.Generator | BatchRows | None):
     """Per-sample stochastic depth (``efficientnet.py:160-165``): keep each
     sample's branch with probability ``1 - rate`` and scale the kept ones by
     ``1 / (1 - rate)``. The draws come from ``generator`` on the CPU (the
     default generator when None), so one seed gives the same masks on every
-    device."""
+    device; a :class:`BatchRows` draws for its global batch."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape[0], generator=generator) < keep
+    if isinstance(generator, BatchRows):
+        r = generator
+        per = x.shape[0] // (r.end - r.first)  # frames a video
+        n = (r.distinct or r.total) * per
+        rows = torch.arange(r.first * per, r.end * per) % n
+        mask = torch.rand(n, generator=r.generator)[rows] < keep
+    else:
+        mask = torch.rand(x.shape[0], generator=generator) < keep
     return x / keep * mask.to(device=x.device, dtype=x.dtype)[:, None, None, None]
 
 

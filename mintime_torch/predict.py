@@ -308,22 +308,40 @@ def predict_video(video_path: str, model, state, cfg: MintimeConfig, detector, e
 def predict_videos(video_paths: Sequence[str], model, state, cfg: MintimeConfig, detector,
                    embedder, similarity_threshold: float = 0.45, every_n: int = 1,
                    batch_size: int = 8,
-                   boxes_per_video: Sequence[dict | None] | None = None) -> list[PredictionResult]:
+                   boxes_per_video: Sequence[dict | None] | None = None,
+                   mesh=None) -> list[PredictionResult]:
     """Batched serving: the host stages run per video and ``batch_size``
     assembled videos share one forward, staged one batch at a time. When the
     run has more videos than ``batch_size``, the last batch is padded to
     ``batch_size`` by repeating its first row, so every forward has one
     shape.
+
+    With a ``mesh`` (:func:`mintime_torch.parallel.mesh.make_mesh`) each data
+    rank stages and scores its contiguous rows of every batch with rank 0's
+    weights (``batch_size`` must divide by the data ranks, as in the JAX
+    package), and the results are gathered batch by batch, so every rank
+    ends with the whole list in order.
     """
-    pad_to = batch_size if len(video_paths) > batch_size else 0
+    from mintime_torch.parallel.mesh import axis_rank, axis_size, gather_rows, replicated, \
+        shard_rows
+
+    world = axis_size(mesh)
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} must divide by the mesh data axis ({world})")
+    if mesh is not None:
+        replicated(mesh, model)  # every rank serves rank 0's weights
+    pad_to = batch_size // world if len(video_paths) > batch_size else 0
     results: list[PredictionResult] = []
     for start in range(0, len(video_paths), batch_size):
+        end = min(start + batch_size, len(video_paths))
+        rows = shard_rows(end - start, axis_rank(mesh), world)
         staged = [
             _stage_video(video_paths[i], detector, embedder, cfg, similarity_threshold,
                          every_n, boxes_per_video[i] if boxes_per_video else None, model.device)
-            for i in range(start, min(start + batch_size, len(video_paths)))
+            for i in range(start + rows.start, start + rows.stop)
         ]
-        results.extend(predict_assembled(staged, model, state, cfg, pad_to))
+        out = predict_assembled(staged, model, state, cfg, pad_to) if staged else []
+        results.extend(gather_rows(mesh, [out])[0])
     return results
 
 

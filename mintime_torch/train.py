@@ -17,6 +17,14 @@ package's (``train.py:11-16``):
   decay and Adam still move it.
 * Drop-connect in the backbone draws from a CPU ``torch.Generator`` seeded
   from ``(seed, step)``, as the JAX step folds the step into its key.
+
+With a ``mesh`` (:mod:`mintime_torch.parallel.mesh`) the steps take this data
+rank's rows of each global batch: the forward runs in
+``DistributedDataParallel`` with BatchNorm statistics and drop-connect masks
+of the global batch, each rank's loss is its rows' sum over the global row
+count times the number of data ranks (so DDP's mean of the ranks' gradients
+is the global batch's gradient, unequal last batches included), and the
+metrics are sums over the ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import torch.nn.functional as F
 from mintime_torch.config import MintimeConfig
 from mintime_torch.models.classifier import MintimeVideoClassifier
 from mintime_torch.models.conv_timesformer import ConvolutionalTimeSformer
+from mintime_torch.models.efficientnet import BatchRows
+from mintime_torch.parallel.mesh import all_sum, axis_rank, axis_size, data_parallel
 
 
 def bce_with_logits(logits, labels, pos_weight: float = 1.0, weights=None):
@@ -39,13 +49,18 @@ def bce_with_logits(logits, labels, pos_weight: float = 1.0, weights=None):
     (``train.py:50-63``): mean over elements of ``(1-y)x + (1 + (w-1)y) *
     softplus(-x)``; with ``weights`` (the per-sample ``valid`` mask of padded
     partial batches) a weighted mean over the real samples only."""
-    x = logits.float().reshape(-1)
-    y = torch.as_tensor(labels, device=x.device).float().reshape(-1)
-    per = (1.0 - y) * x + (1.0 + (pos_weight - 1.0) * y) * F.softplus(-x)
+    per = _bce_terms(logits, labels, pos_weight)
     if weights is None:
         return per.mean()
-    w = torch.as_tensor(weights, device=x.device).float().reshape(-1)
+    w = torch.as_tensor(weights, device=per.device).float().reshape(-1)
     return (per * w).sum() / w.sum().clamp(min=1.0)
+
+
+def _bce_terms(logits, labels, pos_weight: float = 1.0):
+    """The per-sample terms that :func:`bce_with_logits` averages."""
+    x = logits.float().reshape(-1)
+    y = torch.as_tensor(labels, device=x.device).float().reshape(-1)
+    return (1.0 - y) * x + (1.0 + (pos_weight - 1.0) * y) * F.softplus(-x)
 
 
 def make_schedule(cfg: MintimeConfig, steps_per_epoch: int,
@@ -124,7 +139,7 @@ def extractor_unfreeze_mask(unfreeze_blocks: int):
 def model_inputs(batch: Mapping[str, Any], head: str, device) -> tuple:
     """The model's positional inputs from a batch dict (numpy arrays or
     tensors), on ``device`` (``train.py:157-168``)."""
-    if head in ("baseline", "slowfast"):
+    if head in ("baseline", "slowfast", "frame"):
         keys = ("frames",)
     elif head == "conv_timesformer":
         keys = ("frames", "mask", "size_embedding")
@@ -187,26 +202,62 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 
 
 def forward_loss(model, batch: Mapping[str, Any], pos_weight: float = 1.0, *, train: bool,
-                 generator: torch.Generator | None = None):
-    """(loss, logits (B,)) of the model on one batch."""
-    logits = model(*model_inputs(batch, model.head_kind, model.device), train=train,
-                   generator=generator)
+                 generator: torch.Generator | None = None, mesh=None, net=None):
+    """(loss, logits (B,)) of the model on one batch. With a ``mesh``,
+    ``batch`` holds this data rank's rows, ``net`` (the model's
+    ``DistributedDataParallel`` wrapper, or the model) runs them, and the
+    loss is the rank's share described in the module's docstring (summed
+    over the ranks and divided by their count, the global batch's loss)."""
+    dev = model.device
+    logits = (net or model)(*model_inputs(batch, model.head_kind, dev), train=train,
+                            generator=generator)
     valid = batch.get("valid")
-    loss = bce_with_logits(logits, torch.as_tensor(batch["labels"]).to(model.device), pos_weight,
-                           weights=None if valid is None else torch.as_tensor(valid).to(model.device))
+    weights = None if valid is None else torch.as_tensor(valid).to(dev)
+    labels = torch.as_tensor(batch["labels"]).to(dev)
+    if mesh is None:
+        return bce_with_logits(logits, labels, pos_weight, weights=weights), logits.reshape(-1)
+    per = _bce_terms(logits, labels, pos_weight)
+    w = torch.ones_like(per) if weights is None else weights.float().reshape(-1)
+    total = all_sum(mesh, w.sum()).clamp(min=1.0)
+    loss = axis_size(mesh) * (per * w).sum() / total
     return loss, logits.reshape(-1)
 
 
-def make_train_step(model, pos_weight: float = 1.0) -> Callable:
+def _local_rows(batch, mesh, device) -> tuple[int, int, int, int]:
+    """(first, end, total, distinct) of this data rank's rows of the global
+    batch: ``distinct`` counts its valid rows, the rows that a padded batch
+    repeats (:func:`mintime_torch.parallel.mesh.pad_rows`)."""
+    n = len(batch.get("labels", ()))
+    world = axis_size(mesh)
+    counts = torch.zeros(world + 1, dtype=torch.float64, device=device)
+    counts[axis_rank(mesh)] = n
+    valid = batch.get("valid")
+    counts[world] = n if valid is None else float(torch.as_tensor(valid).float().sum())
+    counts = all_sum(mesh, counts).cpu().round().long()
+    rows, distinct = counts[:world], int(counts[world])
+    if not rows.all():  # every rank sees it, so none is left waiting
+        raise ValueError(f"data ranks got {rows.tolist()} rows of a batch: a training batch "
+                         "needs at least one row a data rank")
+    first = int(rows[:axis_rank(mesh)].sum())
+    return first, first + n, int(rows.sum()), distinct
+
+
+def make_train_step(model, pos_weight: float = 1.0, mesh=None) -> Callable:
     """``train_step(state, batch) → metrics`` (``train.py:194-240``): one
     forward and backward in train mode and one optimizer update. The metrics
     stay on the device: ``loss``, and over the valid samples ``correct``,
-    ``positive`` (predicted fake) and ``count``."""
+    ``positive`` (predicted fake) and ``count``. With a ``mesh`` the batch is
+    this data rank's rows and the metrics are the global batch's."""
+    net = model if mesh is None else data_parallel(model, mesh)
 
     def train_step(state: TrainState, batch) -> dict[str, torch.Tensor]:
         m = model
-        loss, logits = forward_loss(m, batch, pos_weight, train=True,
-                                    generator=step_generator(state.seed, state.step))
+        generator = step_generator(state.seed, state.step)
+        if axis_size(mesh) > 1:
+            generator = BatchRows(generator, *_local_rows(batch, mesh, m.device))
+        with torch.profiler.record_function("forward"):
+            loss, logits = forward_loss(m, batch, pos_weight, train=True, generator=generator,
+                                        mesh=mesh, net=net)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -224,19 +275,40 @@ def make_train_step(model, pos_weight: float = 1.0) -> Callable:
             valid = batch.get("valid")
             valid = (torch.ones(preds.shape, device=m.device) if valid is None
                      else torch.as_tensor(valid).to(m.device).reshape(-1).float())
-            return {"loss": loss.detach(), "correct": ((preds == labels) * valid).sum(),
-                    "positive": (preds * valid).sum(), "count": valid.sum()}
+            metrics = {"loss": loss.detach(), "correct": ((preds == labels) * valid).sum(),
+                       "positive": (preds * valid).sum(), "count": valid.sum()}
+            if mesh is not None:
+                metrics = _all_sum_metrics(metrics, mesh)
+            return metrics
 
     return train_step
 
 
-def make_eval_step(model, pos_weight: float = 1.0) -> Callable:
+def _all_sum_metrics(metrics: dict, mesh) -> dict:
+    """Metrics summed over the data ranks; the loss, each rank's share
+    times the rank count, back to the global mean."""
+    keys = list(metrics)
+    out = all_sum(mesh, torch.stack([metrics[k].float() for k in keys]))
+    out = dict(zip(keys, out))
+    out["loss"] = out["loss"] / axis_size(mesh)
+    return out
+
+
+def make_eval_step(model, pos_weight: float = 1.0, mesh=None) -> Callable:
     """``eval_step(state, batch) → {"logits", "loss"}`` in eval mode
-    (``train.py:243-254``)."""
+    (``train.py:243-254``). With a ``mesh`` the batch is this data rank's
+    rows, ``logits`` theirs and ``loss`` the global batch's."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch) -> dict[str, torch.Tensor]:
-        loss, logits = forward_loss(model, batch, pos_weight, train=False)
+        if mesh is not None and len(batch.get("labels", ())) == 0:
+            # a rank without rows of this batch still joins the batch's sums
+            zero = torch.zeros((), device=model.device)
+            loss, logits = all_sum(mesh, zero) * 0, zero.new_zeros(0)
+        else:
+            loss, logits = forward_loss(model, batch, pos_weight, train=False, mesh=mesh)
+        if mesh is not None:
+            loss = _all_sum_metrics({"loss": loss}, mesh)["loss"]
         return {"logits": logits, "loss": loss}
 
     return eval_step

@@ -15,9 +15,14 @@ flags plus ``--device``; manifests and a faces tree on disk through the
 train- and val-mode :class:`~mintime_torch.data.dataset.DeepfakesDataset`
 and the port's :class:`~mintime_torch.data.loader.DataLoader`, any
 ``--model`` (0 baseline, 1 TimeSformer, 2 SlowFast, 3 Convolutional
-TimeSformer), and resumption from the last checkpoint. The module imports
-torch inside its functions only: a spawned loader worker runs the parent's
-main module again, and under ``python -m`` that is this one.
+TimeSformer), and resumption from the last checkpoint. Under ``torchrun
+--nproc_per_node N -m mintime_torch.train_loop ...`` (``WORLD_SIZE`` in the
+environment) it trains data-parallel over a mesh
+(:mod:`mintime_torch.parallel.mesh`): each rank loads and steps its rows of
+every global batch, rank 0 alone prints, logs and writes checkpoints, and
+every rank resumes from the same file. The module imports torch inside its
+functions only: a spawned loader worker runs the parent's main module again,
+and under ``python -m`` that is this one.
 """
 
 from __future__ import annotations
@@ -77,17 +82,24 @@ class FitResult:
 def fit(state: TrainState, train_loader, val_loader, cfg: MintimeConfig, num_epochs: int = 30,
         patience: int = 5, pos_weight: float = 1.0, models_output_path: str = "models_out",
         log_dir: str = "runs/exp", log_every: int = 100,
-        starting_epoch: int = 0) -> tuple[TrainState, FitResult]:
+        starting_epoch: int = 0, mesh=None) -> tuple[TrainState, FitResult]:
     """Run the training loop from epoch ``starting_epoch``; returns (state,
     FitResult). Step metrics stay on the device and are read once per
     ``log_every`` steps, with the pass's progress and ETA (the loader's
-    length, where it has one)."""
+    length, where it has one). With a ``mesh`` the loaders give this data
+    rank's rows, the steps' metrics are the global batches', the validation
+    counts are summed over the ranks, and rank 0 alone prints, logs and
+    writes the checkpoints (the others wait for each write)."""
+    from mintime_torch.parallel.mesh import all_sum, barrier, is_main
     from mintime_torch.train import make_eval_step, make_train_step
     from mintime_torch.utils.checkpoint import save_train_state
 
-    train_step = make_train_step(state.model, pos_weight)
-    eval_step = make_eval_step(state.model, pos_weight)
-    logger = ScalarLogger(log_dir)
+    import torch
+
+    train_step = make_train_step(state.model, pos_weight, mesh=mesh)
+    eval_step = make_eval_step(state.model, pos_weight, mesh=mesh)
+    main_rank = is_main(mesh)
+    logger = ScalarLogger(log_dir) if main_rank else None
     not_improved = 0
     previous_loss = math.inf
     result = FitResult(best_val_loss=math.inf, epochs_run=0)
@@ -113,7 +125,7 @@ def fit(state: TrainState, train_loader, val_loader, cfg: MintimeConfig, num_epo
         for batch in train_loader:
             pending.append(train_step(state, batch))
             n_batches += 1
-            if n_batches % log_every == 0:
+            if n_batches % log_every == 0 and main_rank:
                 drain()
                 elapsed = time.time() - t0
                 eta = f"ETA {elapsed / n_batches * (total - n_batches):.0f}s" if total \
@@ -132,7 +144,7 @@ def fit(state: TrainState, train_loader, val_loader, cfg: MintimeConfig, num_epo
         for batch in val_loader:
             out = eval_step(state, batch)
             logits = out["logits"].float().cpu().numpy()
-            labels = np.asarray(batch["labels"]).reshape(-1)
+            labels = np.asarray(batch.get("labels", np.zeros(0))).reshape(-1)
             if "valid" in batch:  # drop the pads of a partial batch
                 keep = np.asarray(batch["valid"]).reshape(-1) > 0
                 logits, labels = logits[keep], labels[keep]
@@ -140,27 +152,37 @@ def fit(state: TrainState, train_loader, val_loader, cfg: MintimeConfig, num_epo
             val_correct += int(((1 / (1 + np.exp(-logits)) >= 0.5) == (labels >= 0.5)).sum())
             val_count += len(labels)
             n_val += 1
+        if mesh is not None:
+            val_correct, val_count = (int(v) for v in all_sum(
+                mesh, torch.tensor([val_correct, val_count], dtype=torch.int64,
+                                   device=state.model.device)).cpu())
         val_loss = val_loss_sum / max(n_val, 1)
         val_acc = val_correct / max(val_count, 1)
 
-        print(f"epoch {epoch}: train_loss {train_loss:.4f} acc {train_acc:.4f} "
-              f"| val_loss {val_loss:.4f} acc {val_acc:.4f}")
-        logger.add_scalar("Training/Loss", train_loss, epoch)
-        logger.add_scalar("Training/Accuracy", train_acc, epoch)
-        logger.add_scalar("Training/Learning_Rate", state.schedule(state.step), epoch)
-        logger.add_scalar("Validation/Loss", val_loss, epoch)
-        logger.add_scalar("Validation/Accuracy", val_acc, epoch)
+        if main_rank:
+            print(f"epoch {epoch}: train_loss {train_loss:.4f} acc {train_acc:.4f} "
+                  f"| val_loss {val_loss:.4f} acc {val_acc:.4f}")
+            logger.add_scalar("Training/Loss", train_loss, epoch)
+            logger.add_scalar("Training/Accuracy", train_acc, epoch)
+            logger.add_scalar("Training/Learning_Rate", state.schedule(state.step), epoch)
+            logger.add_scalar("Validation/Loss", val_loss, epoch)
+            logger.add_scalar("Validation/Accuracy", val_acc, epoch)
 
         if previous_loss <= val_loss:  # train.py:124-128
             not_improved += 1
         else:
             not_improved = 0
             result.best_val_loss = val_loss
-            result.checkpoints.append(save_train_state(models_output_path, state, step=epoch))
+            path = os.path.join(os.path.abspath(models_output_path), f"checkpoint_{epoch}")
+            if main_rank:
+                path = save_train_state(models_output_path, state, step=epoch)
+            barrier(mesh)
+            result.checkpoints.append(path)
         previous_loss = val_loss
         result.epochs_run = epoch + 1
 
-    logger.close()
+    if logger is not None:
+        logger.close()
     return state, result
 
 
@@ -239,12 +261,16 @@ def main(argv=None, config: MintimeConfig | None = None) -> FitResult:
     opt = p.parse_args(argv)
     if opt.errors_logs_file:  # stderr redirect (train.py:96-98)
         sys.stderr = open(opt.errors_logs_file, "w")
+    from mintime_torch.parallel.mesh import launch_mesh
+
+    mesh = launch_mesh(opt.device)
 
     from mintime_torch.config import load_config
     from mintime_torch.data.dataset import DeepfakesDataset
     from mintime_torch.data.loader import DataLoader
     from mintime_torch.data.manifest import load_manifest
     from mintime_torch.device import resolve_device
+    from mintime_torch.parallel.mesh import axis_rank, axis_size, is_main
     from mintime_torch.train import create_train_state, extractor_unfreeze_mask, \
         pos_weight_from_labels
     from mintime_torch.utils.checkpoint import epoch_from_name, latest_checkpoint, \
@@ -252,13 +278,15 @@ def main(argv=None, config: MintimeConfig | None = None) -> FitResult:
 
     cfg = config if config is not None else load_config(opt.config)
     dev = resolve_device(opt.device)
+    say = print if is_main(mesh) else (lambda *a, **k: None)
+    shard = None if mesh is None else (axis_rank(mesh), axis_size(mesh))
     train_man = load_manifest(opt.train_list_file, data_path=opt.data_path,
                               deepfake_methods=opt.deepfake_methods, max_videos=opt.max_videos)
     val_man = load_manifest(opt.validation_list_file, data_path=opt.data_path,
                             max_videos=opt.max_videos)
     pos_weight = pos_weight_from_labels(train_man.labels)
-    print(f"Train videos: {len(train_man)} Validation videos: {len(val_man)} "
-          f"pos_weight {pos_weight:.4f}")
+    say(f"Train videos: {len(train_man)} Validation videos: {len(val_man)} "
+        f"pos_weight {pos_weight:.4f}")
 
     m = cfg.model
 
@@ -279,10 +307,10 @@ def main(argv=None, config: MintimeConfig | None = None) -> FitResult:
     with contextlib.ExitStack() as stack:
         train_loader = stack.enter_context(DataLoader(
             dataset(train_man, "train"), cfg.training.bs, num_workers=opt.workers,
-            seed=opt.random_state))
+            seed=opt.random_state, shard=shard, pad_short=True))
         val_loader = stack.enter_context(DataLoader(
             dataset(val_man, "val"), cfg.training.val_bs, shuffle=False,
-            num_workers=opt.workers))
+            num_workers=opt.workers, shard=shard))
         state = create_train_state(model, cfg, steps_per_epoch=len(train_loader),
                                    num_epochs=opt.num_epochs, trainable_mask=trainable_mask,
                                    seed=opt.random_state)
@@ -292,12 +320,12 @@ def main(argv=None, config: MintimeConfig | None = None) -> FitResult:
             state = restore_train_state(resume, state)
             if opt.restore_epoch or not opt.resume:  # auto-resume keeps its epoch
                 starting_epoch = epoch_from_name(resume) + 1
-            print(f"resumed {resume} at epoch {starting_epoch}")
+            say(f"resumed {resume} at epoch {starting_epoch}")
         state, result = fit(state, train_loader, val_loader, cfg, num_epochs=opt.num_epochs,
                             patience=opt.patience, pos_weight=pos_weight,
                             models_output_path=opt.models_output_path,
-                            log_dir=opt.logger_name, starting_epoch=starting_epoch)
-    print(f"best val loss {result.best_val_loss:.4f} after {result.epochs_run} epochs")
+                            log_dir=opt.logger_name, starting_epoch=starting_epoch, mesh=mesh)
+    say(f"best val loss {result.best_val_loss:.4f} after {result.epochs_run} epochs")
     return result
 
 

@@ -56,7 +56,11 @@ def test_import_pulls_in_no_jax_cv2_or_yaml():
             "mintime_torch.data.dataset, mintime_torch.data.loader, mintime_torch.data.manifest, "
             "mintime_torch.data.crop_store, mintime_torch.utils.metrics, "
             "mintime_torch.preprocessing.extract_crops, mintime_torch.preprocessing.pack_crops, "
-            "mintime_torch.preprocessing.split_dataset, mintime_torch.preprocessing.stats\n"
+            "mintime_torch.preprocessing.split_dataset, mintime_torch.preprocessing.stats, "
+            "mintime_torch.utils.profiling, mintime_torch.preprocessing.extract_features, "
+            "mintime_torch.verify_weights, mintime_torch.pretrain_extractor, "
+            "mintime_torch.models.frame_classifier, mintime_torch.data.frames, "
+            "mintime_torch.parallel.mesh\n"
             "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'PIL', 'mintime_tpu', 'matplotlib', "
             "'pandas') "
             "if m in sys.modules]\n"
