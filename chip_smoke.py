@@ -14,7 +14,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    and 192 groups of 8; 6 x 64 heads, batch 8), the token rows at the Convolutional TimeSformer's time axis and, with masked
    frames, at 96 groups; the v1 grouped attention at flagship width, masked
    and not; the chunked attention at the attention probe's B = 32 and
-   packing; the depthwise forward and weight gradient at the dw probes' 512
+   packing (one call each profiled by launch: the packed tiles' token rows
+   and the CLS row's three launches) and at its edges (``CHUNKED_EDGES``;
+   rows with no calls; within 2e-2 * max(1, max |plain|)), two reruns
+   bitwise equal; the depthwise forward and weight gradient at the dw probes' 512
    images and geometries; forward attentions: max abs error <= 2e-2; the
    depthwise forward <= 2e-2 * max(1, max |plain|), its weight gradient
    <= 2e-2 * max |plain|; backward, with unit-scale cotangents: per gradient
@@ -838,20 +841,97 @@ def _grouped_edge_inputs(gen, G, L, D, masked, B=2, H=8):
     return (q, k, v, kc, vc, None if mask is None else mask_to_bias(mask)), mask
 
 
-def _probe_kernel_rows(gen):
-    """The probes' kernels against their plain versions, with their times,
-    bounds and library calls: the grouped attention at flagship width, the
-    chunked attention at the attention probe's size and packing, the
-    depthwise forward and weight gradient at the dw probes' 512 images and
-    geometries (limits 2e-2 * max(1, max |plain|) and 2e-2 * max |plain|)."""
+#: (G, L, P, B, masked row, calls) of the chunked attention's rows: the
+#: attention probe's two axes at its packing (B = 32, each launched once by
+#: the probe's row), then its edges with no calls: G no multiple of P, an odd
+#: L padded to Lp > L, a tile of 128 rows, more CLS-row keys (G*L) than one
+#: block's shared memory holds, and a video whose token keys are all masked
+#: but the CLS key (its CLS row sees only itself)
+CHUNKED_CASES = (("time", 49, 16, 4, 32, False, 1), ("space", 16, 49, 2, 32, False, 1))
+CHUNKED_EDGES = (("edge", 13, 16, 4, 2, False, 0), ("edge", 10, 13, 3, 2, False, 0),
+                 ("edge", 49, 16, 8, 2, False, 0), ("edge", 112, 128, 1, 2, False, 0),
+                 ("edge", 16, 49, 2, 2, True, 0))
+CHUNKED_CASES += CHUNKED_EDGES
+
+
+def _chunked_inputs(case):
+    """The attention probe's inputs (``make_inputs``, numpy seed 0: about a
+    tenth of the keys masked) at a case's shape, and the call's keywords;
+    a masked row masks every token key of video 0, token rows and CLS row,
+    and keeps the CLS key of its token rows."""
+    from mintime_torch.experiments import attn_kernel_variants as attn_probe
+    from mintime_torch.ops.divided_attention import NEG
+
+    _, G, L, P, B, masked_row, _ = case
+    qkv, qkvc, sb, rb = attn_probe.make_inputs(G, L, batch=B)
+    if masked_row:
+        sb[0, :, 0], sb[0, :, 1:] = 0.0, NEG
+        rb[0] = NEG
+    return (qkv, qkvc, sb, rb), dict(heads=attn_probe.H, dim_head=attn_probe.DH, P=P)
+
+
+def _chunked_row(case):
+    """The chunked attention against its plain version (limit 2e-2 at the
+    probe's axes, 2e-2 * max(1, max |plain|) at the edges), two reruns
+    bitwise equal or not, its device time
+    (``ms``; ``host_ms`` by CUDA events beside it), the plain version's, the
+    bound and one dense masked ``scaled_dot_product_attention`` call (the
+    probe's variant D) by device time."""
     import torch
     import torch.nn.functional as F
 
     from mintime_torch.experiments import attn_kernel_variants as attn_probe
+    from mintime_torch.ops import chunked_attention as ca
+    from mintime_torch.ops import divided_attention as da
+
+    tag, G, L, P, B, masked_row, calls = case
+    args, kw = _chunked_inputs(case)
+    qkv, qkvc, sb, rb = args
+    H, dh = kw["heads"], kw["dim_head"]
+    kernel = lambda: ca.chunked_attention_cuda(*args, **kw)  # noqa: E731
+    plain = ca.chunked_attention_plain(*args, **kw)
+    got = kernel()
+    top = max(float(p.float().abs().max()) for p in plain)
+    bitwise = all(all(torch.equal(a, b) for a, b in zip(kernel(), got)) for _ in range(2))
+    # read qkv, the CLS row's qkv and both biases once, write both outputs;
+    # the work of the divided attention (the dense tiles' masked products
+    # are no part of the function)
+    nbytes = (2 * (qkv.numel() + qkvc.numel() + plain[0].numel() + plain[1].numel())
+              + 4 * (sb.numel() + rb.numel()))
+    b_ms, b_by = bound(nbytes, 4 * B * H * dh * (G * L * (1 + L) + G * L + 1))
+    lq, lk, lv, lmask = attn_probe.dense_inputs(qkv, qkvc, sb, rb)
+    sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
+    row = {
+        "shape": f"{tag} B={B} G={G} L={L} H={H} dh={dh} P={P} Lp={ca.padded_sizes(G, L, P)[1]}"
+                 + (" masked row" if masked_row else ""),
+        "calls": calls, "max_abs_err": max_err(got, plain), "max_plain": top,
+        "limit": TOL if calls else TOL * max(1.0, top), "bitwise_reruns": bitwise,
+        "ms": device_ms(kernel), "host_ms": time_ms(kernel),
+        "plain_ms": device_ms(lambda: ca.chunked_attention_plain(*args, **kw), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(sdpa, iters=5),
+        "library": "scaled_dot_product_attention, one dense masked call",
+        "library_max_abs_err": max_err(attn_probe.split_dense(sdpa(), G, L), plain),
+        "kernel_vs_divided_plain": max_err(
+            got, da.divided_attention_plain(qkv, qkvc, sb, rb, heads=H, dim_head=dh)),
+    }
+    del args, qkv, qkvc, sb, rb, plain, got, lq, lk, lv, lmask
+    torch.cuda.empty_cache()
+    return row
+
+
+def _probe_kernel_rows(gen):
+    """The probes' kernels against their plain versions, with their times,
+    bounds and library calls: the grouped attention at flagship width, the
+    chunked attention at the attention probe's size and packing and at its
+    edges (``CHUNKED_CASES``; reruns bitwise equal, one call at each probe
+    axis profiled by launch), the depthwise forward and weight gradient at
+    the dw probes' 512 images and geometries (limits 2e-2 * max(1, max
+    |plain|) and 2e-2 * max |plain|)."""
+    import torch
+
     from mintime_torch.experiments import dw_conv_bwd_cuda_vs_cudnn as dwb_probe
     from mintime_torch.experiments import dw_conv_cuda_vs_cudnn as dwf_probe
     from mintime_torch.ops import chunked_attention as ca
-    from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import dw_conv
 
     rows = {"grouped_attention": [], "chunked_attention": [], "dw_conv": [], "dw_conv_wgrad": []}
@@ -870,32 +950,16 @@ def _probe_kernel_rows(gen):
         del args, mask
     _grouped_reruns()
 
-    for axis, (G, L) in attn_probe.GEOMS.items():
-        P = attn_probe.P_BY_AXIS[axis]
-        qkv, qkvc, sb, rb = attn_probe.make_inputs(G, L)
-        kw = dict(heads=attn_probe.H, dim_head=attn_probe.DH, P=P)
-        plain = ca.chunked_attention_plain(qkv, qkvc, sb, rb, **kw)
-        err = max_err(ca.chunked_attention_cuda(qkv, qkvc, sb, rb, **kw), plain)
-        B = qkv.shape[0]
-        Hh, dh = attn_probe.H, attn_probe.DH
-        nbytes = (2 * (qkv.numel() + qkvc.numel() + plain[0].numel() + plain[1].numel())
-                  + 4 * (sb.numel() + rb.numel()))
-        b_ms, b_by = bound(nbytes, 4 * B * Hh * dh * (G * L * (1 + L) + G * L + 1))
-        lq, lk, lv, lmask = attn_probe.dense_inputs(qkv, qkvc, sb, rb)
-        sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)  # noqa: E731
-        rows["chunked_attention"].append({
-            "shape": f"{axis} B={B} G={G} L={L} H={Hh} dh={dh} P={P} Lp={ca.padded_sizes(G, L, P)[1]}",
-            "calls": 1, "max_abs_err": err,
-            "ms": time_ms(lambda: ca.chunked_attention_cuda(qkv, qkvc, sb, rb, **kw)),
-            "plain_ms": time_ms(lambda: ca.chunked_attention_plain(qkv, qkvc, sb, rb, **kw)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
-            "library": "scaled_dot_product_attention, one dense masked call",
-            "library_max_abs_err": max_err(attn_probe.split_dense(sdpa(), G, L), plain),
-            "kernel_vs_divided_plain": max_err(
-                ca.chunked_attention_cuda(qkv, qkvc, sb, rb, **kw),
-                da.divided_attention_plain(qkv, qkvc, sb, rb, heads=Hh, dim_head=dh)),
-        })
-        del qkv, qkvc, sb, rb, plain, lq, lk, lv, lmask
+    for case in CHUNKED_CASES:
+        row = _chunked_row(case)
+        rows["chunked_attention"].append(row)
+        if not row["bitwise_reruns"]:
+            raise AssertionError(f"chunked_attention gave other bits on a rerun at {row['shape']}")
+        if row["calls"]:
+            args, kw = _chunked_inputs(case)
+            emit({"phase": "kernel_launches", "name": "chunked_attention", "shape": row["shape"],
+                  **_profile(lambda: ca.chunked_attention_cuda(*args, **kw))})
+            del args
     torch.cuda.empty_cache()
 
     for H_, W_, C, K, _ in dwf_probe.GEOMS:

@@ -1,10 +1,12 @@
 // The forward attention of one warp's 16 query rows over one group's keys
 // on Hopper's tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulators),
-// shared by csrc/grouped_attention.cu, csrc/divided_attention.cu and
-// csrc/token_rows_attention.cu, and the swizzled tiles and products the
-// backward kernels build on. token_rows_mma_kernel, the token rows of whole
-// groups (a block a group and head), is launched by the divided forward and
-// by the token-row forward above 16 frames.
+// shared by csrc/grouped_attention.cu, csrc/divided_attention.cu,
+// csrc/token_rows_attention.cu and csrc/chunked_attention.cu (whose packed
+// tile of P groups is one "group" of 1 + P*Lp keys under a block-diagonal
+// bias), and the swizzled tiles and products the backward kernels build on.
+// token_rows_mma_kernel, the token rows of whole groups (a block a group and
+// head), is launched by the divided forward and by the token-row forward
+// above 16 frames.
 //
 // The group's T = 1 + L keys and values sit in shared memory in bf16, the
 // CLS pair as row 0, rows padded with zeros to a multiple of 16, each row
@@ -124,15 +126,36 @@ __device__ __forceinline__ void mma_pv(float o[DH / 8][4], const uint32_t p[4], 
   }
 }
 
+// The bias of a warp's rows read from memory: row x's (x = 0, 1: this
+// thread's rows grp and grp + 8) over the T keys at brow[x] (fp32, column 0
+// the CLS key), or none where brow[x] is null.
+struct RowBias {
+  const float* brow[2];
+  // the bias of row x at key t, 0 past the T keys
+  __device__ __forceinline__ float operator()(int x, int t, int T) const {
+    return brow[x] != nullptr && t < T ? brow[x][t] : 0.0f;
+  }
+};
+
 // The warp's 16 rows (this thread's rows grp = lane / 4 and grp + 8, as in
 // the C fragments) against keys 0 .. T-1 of the swizzled tiles ks and vs
 // (row 0 the CLS pair, zeros from T to pad16(T)). q is the rows' A fragments;
-// brow[x] the row's bias over the T keys (fp32, column 0 the CLS key) or
-// null. Returns o (16 x DH) in C fragments, fp32. Padded query rows (zero
-// fragments) come out finite and are the caller's to drop.
+// bias(x, t, T) the fp32 bias of this thread's row x (0, 1) at key t (key 0
+// the CLS key; 0 from T on): a RowBias, or a function of (row, key) such as
+// the chunked attention's block-diagonal one. Returns o (16 x DH) in C
+// fragments, fp32. Padded query rows (zero fragments) come out finite and
+// are the caller's to drop.
+//
+// NT = 0 (any T): two passes over S, a 16-key tile at a time. NT > 0 (T <=
+// 16 * NT; a T known when compiling folds the key-range tests): one pass, S
+// of all NT key tiles held in registers (8 NT floats a thread), each row's
+// max and sum taken over them at once, then all of P rounded to bf16 before
+// PV. The same P = bf16(exp(S - max) / sum), its sum taken without the
+// online rescaling, so P may differ from the two-pass P in its last bit.
+template <int NT = 0, class Bias>
 __device__ __forceinline__ void attend_rows(float o[DH / 8][4], const uint32_t q[DH / 16][4],
                                             const bf16* ks, const bf16* vs, int T, float scale,
-                                            const float* const brow[2], int lane) {
+                                            const Bias& bias_of, int lane) {
   const int tig = lane & 3;
   const int Tp = pad16(T);
   // S of keys kb .. kb+15, scaled and biased, padded keys at NEG
@@ -143,7 +166,7 @@ __device__ __forceinline__ void attend_rows(float o[DH / 8][4], const uint32_t q
 #pragma unroll
       for (int i = 0; i < 4; ++i) {  // issued before the products, to hide its latency
         const int t = kb + n * 8 + 2 * tig + (i & 1);
-        bias[n][i] = brow[i >> 1] != nullptr && t < T ? brow[i >> 1][t] : 0.0f;
+        bias[n][i] = bias_of(i >> 1, t, T);
       }
     mma_rows_t(s, q, ks, kb, lane);
 #pragma unroll
@@ -153,71 +176,140 @@ __device__ __forceinline__ void attend_rows(float o[DH / 8][4], const uint32_t q
         s[n][i] = kb + n * 8 + 2 * tig + (i & 1) < T ? fmaf(s[n][i], scale, bias[n][i]) : NEG;
   };
 
-  // pass 1: each row's max and sum, online
-  float m[2] = {NEG, NEG}, sum[2] = {0.0f, 0.0f};
-  for (int kb = 0; kb < Tp; kb += 16) {
-    float s[2][4];
-    logits(s, kb);
-    float mt[2] = {m[0], m[1]};
+  if constexpr (NT > 0) {
+    // one pass: S of all NT key tiles, then each row's max and sum over them
+    float s[NT][2][4];
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int k = 0; k < NT; ++k) logits(s[k], 16 * k);
+    float m[2] = {NEG, NEG}, sum[2] = {0.0f, 0.0f}, inv[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) mt[i >> 1] = fmaxf(mt[i >> 1], s[n][i]);
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m[i >> 1] = fmaxf(m[i >> 1], s[k][n][i]);
 #pragma unroll
     for (int x = 0; x < 2; ++x) {  // the row's four lanes agree on its max
-      mt[x] = fmaxf(mt[x], __shfl_xor_sync(0xffffffffu, mt[x], 1));
-      mt[x] = fmaxf(mt[x], __shfl_xor_sync(0xffffffffu, mt[x], 2));
-      sum[x] *= __expf(m[x] - mt[x]);
-      m[x] = mt[x];
+      m[x] = fmaxf(m[x], __shfl_xor_sync(0xffffffffu, m[x], 1));
+      m[x] = fmaxf(m[x], __shfl_xor_sync(0xffffffffu, m[x], 2));
     }
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int k = 0; k < NT; ++k)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (kb + n * 8 + 2 * tig + (i & 1) < T) sum[i >> 1] += __expf(s[n][i] - m[i >> 1]);
-  }
-  float inv[2];
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 1);
-    sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 2);
-    inv[x] = 1.0f / sum[x];
-  }
-
-  // pass 2: P = bf16(exp(S - m) / sum), o = P[:, 1:] V
+        for (int i = 0; i < 4; ++i) {
+          s[k][n][i] = 16 * k + n * 8 + 2 * tig + (i & 1) < T ? __expf(s[k][n][i] - m[i >> 1])
+                                                              : 0.0f;
+          sum[i >> 1] += s[k][n][i];
+        }
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+    for (int x = 0; x < 2; ++x) {
+      sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 1);
+      sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 2);
+      inv[x] = 1.0f / sum[x];
+    }
+    // P = bf16(exp(S - m) / sum), all of it before PV, so S's registers free
+    float pc[2] = {0.0f, 0.0f};  // P[r][0]
+    uint32_t p[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.0f;
-  float pc[2] = {0.0f, 0.0f};  // P[r][0], held by the lanes with tig == 0
-  for (int kb = 0; kb < Tp; kb += 16) {
-    float s[2][4];
-    logits(s, kb);
-    uint32_t p[4];
+    for (int k = 0; k < NT; ++k)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {  // A fragment j: C tile j / 2, row half j % 2
-      const float* c = s[j >> 1] + (j & 1) * 2;
-      const int t = kb + (j >> 1) * 8 + 2 * tig;
-      const float p0 = t < T ? __expf(c[0] - m[j & 1]) * inv[j & 1] : 0.0f;
-      const float p1 = t + 1 < T ? __expf(c[1] - m[j & 1]) * inv[j & 1] : 0.0f;
-      __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
-      if (t == 0) {  // the CLS column: kept aside, zero in the product
-        pc[j & 1] = __low2float(pb);
-        pb = __floats2bfloat162_rn(0.0f, p1);
+      for (int j = 0; j < 4; ++j) {  // A fragment j: C tile j / 2, row half j % 2
+        const float* c = s[k][j >> 1] + (j & 1) * 2;
+        const float p1 = c[1] * inv[j & 1];
+        __nv_bfloat162 pb = __floats2bfloat162_rn(c[0] * inv[j & 1], p1);
+        if (k == 0 && j < 2 && tig == 0) {  // the CLS column: kept aside, zero in the product
+          pc[j & 1] = __low2float(pb);
+          pb = __floats2bfloat162_rn(0.0f, p1);
+        }
+        p[k][j] = warp_mma::as_u32(pb);
       }
-      p[j] = warp_mma::as_u32(pb);
-    }
-    mma_pv(o, p, vs, kb, lane);
-  }
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NT; ++k) mma_pv(o, p[k], vs, 16 * k, lane);
 
-  // o += P[:, 0] v_cls, in fp32 after the token sum
+    // o += P[:, 0] v_cls, in fp32 after the token sum
 #pragma unroll
-  for (int x = 0; x < 2; ++x) pc[x] = __shfl_sync(0xffffffffu, pc[x], lane & ~3);
+    for (int x = 0; x < 2; ++x) pc[x] = __shfl_sync(0xffffffffu, pc[x], lane & ~3);
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-    const float2 vc = __bfloat1622float2(*reinterpret_cast<const bf162*>(vs + sw(0, n * 8 + 2 * tig)));
+    for (int n = 0; n < DH / 8; ++n) {
+      const float2 vc =
+          __bfloat1622float2(*reinterpret_cast<const bf162*>(vs + sw(0, n * 8 + 2 * tig)));
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = fmaf(pc[i >> 1], (i & 1) ? vc.y : vc.x, o[n][i]);
+      for (int i = 0; i < 4; ++i) o[n][i] = fmaf(pc[i >> 1], (i & 1) ? vc.y : vc.x, o[n][i]);
+    }
+  } else {
+    // pass 1: each row's max and sum, online
+    float m[2] = {NEG, NEG}, sum[2] = {0.0f, 0.0f};
+    for (int kb = 0; kb < Tp; kb += 16) {
+      float s[2][4];
+      logits(s, kb);
+      float mt[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mt[i >> 1] = fmaxf(mt[i >> 1], s[n][i]);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {  // the row's four lanes agree on its max
+        mt[x] = fmaxf(mt[x], __shfl_xor_sync(0xffffffffu, mt[x], 1));
+        mt[x] = fmaxf(mt[x], __shfl_xor_sync(0xffffffffu, mt[x], 2));
+        sum[x] *= __expf(m[x] - mt[x]);
+        m[x] = mt[x];
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (kb + n * 8 + 2 * tig + (i & 1) < T) sum[i >> 1] += __expf(s[n][i] - m[i >> 1]);
+    }
+    float inv[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 1);
+      sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 2);
+      inv[x] = 1.0f / sum[x];
+    }
+
+    // pass 2: P = bf16(exp(S - m) / sum), o = P[:, 1:] V
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] = 0.0f;
+    float pc[2] = {0.0f, 0.0f};  // P[r][0], held by the lanes with tig == 0
+    for (int kb = 0; kb < Tp; kb += 16) {
+      float s[2][4];
+      logits(s, kb);
+      uint32_t p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // A fragment j: C tile j / 2, row half j % 2
+        const float* c = s[j >> 1] + (j & 1) * 2;
+        const int t = kb + (j >> 1) * 8 + 2 * tig;
+        const float p0 = t < T ? __expf(c[0] - m[j & 1]) * inv[j & 1] : 0.0f;
+        const float p1 = t + 1 < T ? __expf(c[1] - m[j & 1]) * inv[j & 1] : 0.0f;
+        __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
+        if (t == 0) {  // the CLS column: kept aside, zero in the product
+          pc[j & 1] = __low2float(pb);
+          pb = __floats2bfloat162_rn(0.0f, p1);
+        }
+        p[j] = warp_mma::as_u32(pb);
+      }
+      mma_pv(o, p, vs, kb, lane);
+    }
+
+    // o += P[:, 0] v_cls, in fp32 after the token sum
+#pragma unroll
+    for (int x = 0; x < 2; ++x) pc[x] = __shfl_sync(0xffffffffu, pc[x], lane & ~3);
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      const float2 vc =
+          __bfloat1622float2(*reinterpret_cast<const bf162*>(vs + sw(0, n * 8 + 2 * tig)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] = fmaf(pc[i >> 1], (i & 1) ? vc.y : vc.x, o[n][i]);
+    }
   }
 }
 
@@ -292,12 +384,12 @@ token_rows_mma_kernel(const bf16* __restrict__ qkv, i64 sb, i64 sg, i64 sl,
   for (int tile = warp; tile < tiles; tile += warps) {  // warp-uniform
     if (tile != warp) load_a(qa, base + qoff, sl, tile * 16, L, lane);
     const int row[2] = {tile * 16 + grp, tile * 16 + grp + 8};
-    const float* brow[2] = {nullptr, nullptr};
+    RowBias bias = {{nullptr, nullptr}};
     if (seq_bias != nullptr)
 #pragma unroll
-      for (int x = 0; x < 2; ++x) brow[x] = seq_bias + (i64(b) * L + min(row[x], L - 1)) * T;
+      for (int x = 0; x < 2; ++x) bias.brow[x] = seq_bias + (i64(b) * L + min(row[x], L - 1)) * T;
     float o[DH / 8][4];
-    attend_rows(o, qa, ks, vs, T, scale, brow, lane);
+    attend_rows(o, qa, ks, vs, T, scale, bias, lane);
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       if (row[x] >= L) continue;

@@ -73,12 +73,12 @@ grouped_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int grp = lane >> 2;
   const int tig = lane & 3;
   const int row[2] = {r0 + grp, r0 + grp + 8};
-  const float* brow[2] = {nullptr, nullptr};
+  attn_rows::RowBias row_bias = {{nullptr, nullptr}};
   if (bias != nullptr)
 #pragma unroll
-    for (int x = 0; x < 2; ++x) brow[x] = bias + (p / H * L + min(row[x], L - 1)) * T;
+    for (int x = 0; x < 2; ++x) row_bias.brow[x] = bias + (p / H * L + min(row[x], L - 1)) * T;
   float o[DH / 8][4];
-  attn_rows::attend_rows(o, qa, ks, vs, T, 1.0f, brow, lane);
+  attn_rows::attend_rows(o, qa, ks, vs, T, 1.0f, row_bias, lane);
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     if (row[x] >= L) continue;

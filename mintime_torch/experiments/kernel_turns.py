@@ -1,14 +1,15 @@
 """The GEGLU FFN forward and backward, the depthwise forward, the
-divided-attention forward and backward and the token-row forward and
-backward of this tree against another checkout's, in turns, on one card.
+divided-attention forward and backward, the token-row forward and backward
+and the chunked attention of this tree against another checkout's, in
+turns, on one card.
 
 Each tree is measured by a process of its own (its ``mintime_torch`` on
 ``PYTHONPATH``, its kernels built into its own ``mintime_torch/.build/``), in
 the order other, this, this, other, so that a drift of the card's clocks
 falls on both alike. Without ``--other`` this tree alone is measured, once.
-Both trees are measured by this tree's harness: ``chip_smoke.py``'s FFN
-and attention backward rows, profiler and timers, and the depthwise probe's
-``run``.
+Both trees are measured by this tree's harness: ``chip_smoke.py``'s FFN,
+attention and chunked-attention rows, profiler and timers, and the depthwise
+probe's ``run``.
 
 For each tree:
 
@@ -47,17 +48,37 @@ For each tree:
                  ``_token_rows_bwd_row`` (the output or each gradient against
                  the plain version, the kernel's and SDPA's device and host
                  ms), two reruns bitwise equal or not, and three calls' CUDA
-                 launches by name.
+                 launches by name;
+  grouped_attention  at the probe rows of ``chip_smoke.py`` (flagship
+                 width B = 8, both axes, masked and not) and
+                 ``chip_smoke.GROUPED_EDGES``: ``chip_smoke._grouped_row``,
+                 two reruns bitwise equal or not, three calls' launches;
+  chunked_attention  at ``chip_smoke.CHUNKED_CASES`` (the attention probe's
+                 time and space axes at B = 32 and its packing, and the
+                 kernel's edges): ``chip_smoke._chunked_row`` (the outputs
+                 against the plain version, two reruns bitwise equal or not,
+                 the kernel's device and host ms, SDPA's device ms) and three
+                 calls' CUDA launches by name. A case that a tree's kernel
+                 refuses (the CLS row of an older kernel holds at most 12288
+                 keys) gives a row with the error and no times; only this
+                 tree's refusals count as failures.
+
+Every row also carries ``digest``, a hash of the bits of one call's
+outputs. Both trees draw the same inputs, so with ``--same-bits NAME ...``
+the named kernels must give the same digest in every turn of both trees
+(a change that must leave their results as they were).
 
 Run on a machine with a card, from the root of a checkout, with another
 checkout unpacked in a directory (for example by ``git archive``):
 ``python -m mintime_torch.experiments.kernel_turns [--other DIR] [--out FILE]
-[--kernels NAME ...]``.
+[--kernels NAME ...] [--same-bits NAME ...]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import hashlib
 import importlib.util
 import json
 import os
@@ -78,7 +99,8 @@ def _chip_smoke():
 
 
 KERNELS = ("geglu_ffn", "geglu_ffn_bwd", "dw_conv", "divided_attention", "divided_attention_bwd",
-           "token_rows_attention", "token_rows_attention_bwd")
+           "token_rows_attention", "token_rows_attention_bwd", "grouped_attention",
+           "chunked_attention")
 
 
 def _launches(cs, call) -> list:
@@ -87,13 +109,28 @@ def _launches(cs, call) -> list:
     return [[k["name"][:60], k["launches"], k["ms"]] for k in prof["top_kernels"]]
 
 
+def _outputs(call) -> list:
+    import torch
+
+    got = call()
+    return [got] if isinstance(got, torch.Tensor) else list(got)
+
+
 def _bitwise(call) -> bool:
     import torch
 
-    first = call()
-    if isinstance(first, torch.Tensor):
-        return all(torch.equal(call(), first) for _ in range(2))
-    return all(all(torch.equal(a, b) for a, b in zip(call(), first)) for _ in range(2))
+    first = _outputs(call)
+    return all(all(torch.equal(a, b) for a, b in zip(_outputs(call), first)) for _ in range(2))
+
+
+def _digest(call) -> str:
+    """A hash of the bits of one call's outputs."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in _outputs(call):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def measure(label: str, kernels) -> None:
@@ -102,8 +139,10 @@ def measure(label: str, kernels) -> None:
 
     from mintime_torch.experiments import card
     from mintime_torch.experiments import dw_conv_cuda_vs_cudnn as dwf
+    from mintime_torch.ops import chunked_attention as ca
     from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import geglu_ffn as ffn
+    from mintime_torch.ops import grouped_attention as ga
     from mintime_torch.ops import token_rows as tr
 
     cs = _chip_smoke()
@@ -121,6 +160,7 @@ def measure(label: str, kernels) -> None:
             row = cs._ffn_fwd_row(args, calls)
             call = lambda: ffn.geglu_ffn_cuda(*args)  # noqa: E731
             out({"kernel": "geglu_ffn", **row, "bitwise_reruns": _bitwise(call),
+                 "digest": _digest(call),
                  "within": row["max_abs_err"] <= cs.TOL, "launches_3_calls": _launches(cs, call)})
             del args
         torch.cuda.empty_cache()
@@ -132,6 +172,7 @@ def measure(label: str, kernels) -> None:
             row = cs._ffn_bwd_row(args, calls, launches=None)
             call = lambda: ffn.geglu_ffn_bwd_cuda(*args)  # noqa: E731
             out({"kernel": "geglu_ffn_bwd", **row, "bitwise_reruns": _bitwise(call),
+                 "digest": _digest(call),
                  "within": all(g["max_abs_err"] <= g["limit"] for g in row["grads"]),
                  "launches_3_calls": _launches(cs, call)})
             del args
@@ -144,6 +185,7 @@ def measure(label: str, kernels) -> None:
         row = cs._divided_fwd_row(shape, args, H, calls)
         call = lambda: da.divided_attention_cuda(*args, heads=H, dim_head=64)  # noqa: E731
         out({"kernel": "divided_attention", **row, "bitwise_reruns": _bitwise(call),
+             "digest": _digest(call),
              "within": row["max_abs_err"] <= cs.TOL, "launches_3_calls": _launches(cs, call)})
         del args
     if "divided_attention_bwd" in kernels:
@@ -155,6 +197,7 @@ def measure(label: str, kernels) -> None:
             call = lambda: da.divided_attention_bwd_cuda(*args, d_tok, d_cls, heads=H,  # noqa: E731
                                                          dim_head=64)
             out({"kernel": "divided_attention_bwd", **row, "bitwise_reruns": _bitwise(call),
+                 "digest": _digest(call),
                  "within": all(g["max_abs_err"] <= g["limit"] for g in row["grads"])
                  and row["d_qkv_differing"] <= row["differing_limit"],
                  "launches_3_calls": _launches(cs, call)})
@@ -166,6 +209,7 @@ def measure(label: str, kernels) -> None:
         qkv, qkvc, sb = cs._token_rows_inputs(gen, case[0], case[2], F=case[1])
         call = lambda: tr.token_rows_attention_cuda(qkv, qkvc, sb, heads=6, dim_head=64)  # noqa: E731
         out({"kernel": "token_rows_attention", **row, "bitwise_reruns": _bitwise(call),
+             "digest": _digest(call),
              "within": row["max_abs_err"] <= cs.TOL, "launches_3_calls": _launches(cs, call)})
         del qkv, qkvc, sb
     for case in cs.TOKEN_ROWS_CASES if "token_rows_attention_bwd" in kernels else ():
@@ -173,9 +217,42 @@ def measure(label: str, kernels) -> None:
         args = cs._token_rows_bwd_inputs(gen, case)
         call = lambda: tr.token_rows_attention_bwd_cuda(*args, heads=6, dim_head=64)  # noqa: E731
         out({"kernel": "token_rows_attention_bwd", **row, "bitwise_reruns": _bitwise(call),
+             "digest": _digest(call),
              "within": all(g["max_abs_err"] <= g["limit"] for g in row["grads"]),
              "launches_3_calls": _launches(cs, call)})
         del args
+
+    grouped = [((G, L, masked), "", 1) for G, L in ((49, 16), (16, 49))
+               for masked in (True, False)]
+    grouped += [(edge, "edge ", 0) for edge in cs.GROUPED_EDGES]
+    edge_gen = torch.Generator().manual_seed(12)
+    for shape, tag, calls in grouped if "grouped_attention" in kernels else ():
+        if tag:
+            args, mask = cs._grouped_edge_inputs(edge_gen, *shape)
+        else:
+            args, mask = cs._grouped_inputs(gen, *shape)
+        row = cs._grouped_row(args, mask, 8, calls, tag)
+        call = lambda: ga.fused_grouped_attention_cuda(*args, heads=8)  # noqa: E731
+        out({"kernel": "grouped_attention", **row, "bitwise_reruns": _bitwise(call),
+             "digest": _digest(call), "within": row["max_abs_err"] <= cs.TOL,
+             "launches_3_calls": _launches(cs, call)})
+        del args, mask
+
+    for case in cs.CHUNKED_CASES if "chunked_attention" in kernels else ():
+        try:
+            row = cs._chunked_row(case)
+        except (ValueError, RuntimeError) as e:  # a kernel that does not take the shape
+            _, G, L, P, B = case[:5]
+            out({"kernel": "chunked_attention", "shape": f"{case[0]} B={B} G={G} L={L} P={P}",
+                 "refused": str(e)[:200], "within": label != "this"})
+            continue
+        args, kw = cs._chunked_inputs(case)
+        call = lambda: ca.chunked_attention_cuda(*args, **kw)  # noqa: E731
+        out({"kernel": "chunked_attention", **row, "digest": _digest(call),
+             "within": row["max_abs_err"] <= row["limit"],
+             "launches_3_calls": _launches(cs, call)})
+        del args
+        torch.cuda.empty_cache()
 
 
 def _run_tree(root: Path, label: str, kernels) -> list[dict]:
@@ -197,6 +274,8 @@ def main() -> None:
     ap.add_argument("--out", type=Path, help="write every row here as JSON lines")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
                     help="the kernels to measure (default: all)")
+    ap.add_argument("--same-bits", nargs="+", choices=KERNELS, default=[],
+                    help="kernels whose outputs must keep their bits in every turn of both trees")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure:
@@ -215,7 +294,18 @@ def main() -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
     bad = [r for r in rows if not r["within"] or r.get("bitwise_reruns") is False]
+    digests = collections.defaultdict(set)
     for r in rows:
+        if r["kernel"] in args.same_bits:
+            digests[r["kernel"], r["shape"]].add(r.get("digest"))
+    changed = sorted(k for k, d in digests.items() if len(d) > 1)
+    for kernel, shape in changed:
+        print(f"{kernel} {shape}: other bits in another turn or tree", flush=True)
+    for r in rows:
+        if "refused" in r:
+            print(f"turn {r['turn']} {r['tree']:5s} {r['kernel']:24s} {r['shape']:40s}"
+                  f" refused: {r['refused']}")
+            continue
         print(f"turn {r['turn']} {r['tree']:5s} {r['kernel']:24s} {r['shape']:40s} ms {r['ms']:.4f}"
               + (f" host_ms {r['host_ms']:.4f}" if "host_ms" in r else "")
               + (f" library_ms {r['library_ms']:.4f}" if r.get("library_ms") else "")
@@ -225,9 +315,12 @@ def main() -> None:
               + (" NOT-BITWISE" if r.get("bitwise_reruns") is False else ""))
         if "launches_3_calls" in r:
             print("    " + "; ".join(f"{n} x{k} {ms:.4f}" for n, k, ms in r["launches_3_calls"]))
-    if bad or failed:
+    if args.same_bits:
+        print(f"same bits in every turn: {len(digests) - len(changed)} of {len(digests)} shapes of"
+              f" {', '.join(args.same_bits)}", flush=True)
+    if bad or failed or changed:
         raise SystemExit(f"{len(bad)} rows off their limits or not bitwise on reruns;"
-                         f" turns that failed: {failed}")
+                         f" {len(changed)} shapes whose bits changed; turns that failed: {failed}")
 
 
 if __name__ == "__main__":

@@ -24,7 +24,9 @@ The packed columns are ``[q | k | v]``-major with heads inside each third
 probe gives variants A, B and G one set of tensors.
 
 :func:`chunked_attention` runs :func:`chunked_attention_plain` for CPU
-tensors and the kernel ``csrc/chunked_attention.cu`` for CUDA tensors. The
+tensors and the kernel ``csrc/chunked_attention.cu`` for CUDA tensors: a
+launch for the packed tiles' token rows, then the divided forward's three
+launches for the CLS row (:func:`plan` gives their shapes and scratch). The
 probe has no VJP, so neither has the kernel path: it raises on inputs that
 require grad.
 """
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from mintime_torch.ops import _build
-from mintime_torch.ops.divided_attention import NEG, _cls_row_out
+from mintime_torch.ops.divided_attention import NEG, _cls_row_out, cls_row_chunks
 from mintime_torch.ops.token_rows import _upcast
 
 #: kernel launches since the last reset (one per :func:`chunked_attention_cuda` call)
@@ -60,6 +62,18 @@ def padded_sizes(G: int, L: int, P: int) -> tuple[int, int]:
     while (P * Lp) % _TILE:
         Lp += 1
     return -(-G // P) * P, Lp
+
+
+def plan(G: int, L: int, P: int, dim_head: int = _KERNEL_DH) -> dict:
+    """What ``csrc/chunked_attention.cu`` takes for G groups of L positions
+    packed P a tile: ``Lp`` (a group's padded rows; the token-row launch
+    runs a block of P * Lp / 16 warps a tile), ``cls_chunks`` (chunks of
+    the CLS row's G*L keys, one block of each of its launches per (b, h), as
+    the divided forward chunks them) and ``cls_scratch`` (fp32 per (b, h):
+    each key's logit, then a chunk's sum of bf16(p) v, sum of p and max)."""
+    chunks = cls_row_chunks(G, L)
+    return {"Lp": padded_sizes(G, L, P)[1], "cls_chunks": chunks,
+            "cls_scratch": G * L + chunks * (dim_head + 2)}
 
 
 def chunked_attention_plain(qkv, qkvc, sbias, rbias, *, heads: int, dim_head: int, P: int):
@@ -135,25 +149,28 @@ def _check_kernel_args(qkv, qkvc, sbias, rbias, heads, dim_head, P):
 
 
 def chunked_attention_cuda(qkv, qkvc, sbias, rbias, *, heads: int, dim_head: int, P: int):
-    """Launch the CUDA kernel (a packed-tile launch for the token rows, a
-    second for the CLS row); same results as :func:`chunked_attention_plain`."""
+    """Launch the CUDA kernel (the packed tiles' token rows, then the CLS
+    row's three launches over :func:`plan`'s chunks); same results as
+    :func:`chunked_attention_plain`."""
     global launches
     _check_kernel_args(qkv, qkvc, sbias, rbias, heads, dim_head, P)
     B, G, L, _ = qkv.shape
-    _, Lp = padded_sizes(G, L, P)
+    shape = plan(G, L, P, dim_head)
     inner = heads * dim_head
     dev = qkv.device
     out = torch.empty((B, G, L, inner), dtype=qkv.dtype, device=dev)
     out_cls = torch.empty((B, 1, inner), dtype=qkv.dtype, device=dev)
+    cls_scratch = torch.empty((B, heads, shape["cls_scratch"]), dtype=torch.float32, device=dev)
     rbias = rbias.expand(B, G, L)
     fn = _build.load("chunked_attention").chunked_attention_fwd
     i64, ptr = ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr] + [ctypes.c_int] * 7 + [ptr]
+    fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr] + [ctypes.c_int] * 8 + [ptr]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(qkv.data_ptr(), qkvc.data_ptr(), sbias.data_ptr(), rbias.data_ptr(),
-                    *rbias.stride(), out.data_ptr(), out_cls.data_ptr(),
-                    B, G, L, heads, dim_head, P, Lp, torch.cuda.current_stream(dev).cuda_stream)
+                    *rbias.stride(), out.data_ptr(), out_cls.data_ptr(), cls_scratch.data_ptr(),
+                    shape["cls_chunks"], B, G, L, heads, dim_head, P, shape["Lp"],
+                    torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "chunked_attention")
     launches += 1
     return out, out_cls

@@ -51,12 +51,21 @@ def test_token_rows_keys_cover_the_tile_headers(name, headers):
     assert names == [f"{name}.cu", *headers]
 
 
-@pytest.mark.parametrize("name", ["divided_attention", "grouped_attention"])
+#: the headers each tensor-core forward includes, in the order first met
+FORWARD_HEADERS = {
+    "divided_attention": ["attn_rows_mma.cuh", "cls_row_fwd.cuh", "warp_mma.cuh"],
+    "grouped_attention": ["attn_rows_mma.cuh", "warp_mma.cuh"],
+    "chunked_attention": ["attn_rows_mma.cuh", "cls_row_fwd.cuh", "warp_mma.cuh"],
+}
+
+
+@pytest.mark.parametrize("name", ["divided_attention", "grouped_attention", "chunked_attention"])
 def test_forward_keys_cover_the_row_tile_header(name):
-    """Both tensor-core forwards rebuild when the row-tile routine or the
-    mma helpers under it change."""
+    """The tensor-core forwards rebuild when the row-tile routine, the mma
+    helpers under it or (divided and chunked) the CLS row's launches
+    change."""
     names = [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
-    assert names == [f"{name}.cu", "attn_rows_mma.cuh", "warp_mma.cuh"]
+    assert names == [f"{name}.cu", *FORWARD_HEADERS[name]]
 
 
 def test_ffn_backward_key_covers_the_product_header():

@@ -231,11 +231,18 @@ def test_grouped_attention_kernel_is_bitwise_stable(G, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,L,P", [(49, 16, 4), (16, 49, 2), (49, 16, 8), (7, 5, 3)])
-def test_chunked_attention_kernel_on_card(G, L, P):
+@pytest.mark.parametrize("G,L,P,masked_row", [(49, 16, 4, False), (16, 49, 2, False),
+                                              (49, 16, 8, False), (7, 5, 3, False),
+                                              (13, 16, 4, False), (10, 13, 3, False),
+                                              (112, 128, 1, False), (16, 49, 2, True)])
+def test_chunked_attention_kernel_on_card(G, L, P, masked_row):
     """The chunked-dense kernel against its plain version in bf16 on both
-    flagship geometries, at the packings the probe uses and a ragged one
-    (needs the card)."""
+    flagship geometries, at the packings the probe uses and at its edges: G
+    no multiple of P, odd L padded to Lp > L, a tile of 128 rows, more
+    CLS-row keys than the parent kernel's one-block CLS row held (G*L =
+    14336 > 12288), and a video whose token keys are all masked but the CLS
+    key; max |kernel - plain| <= 2e-2 * max(1, max |plain|) besides, and two
+    reruns give the same bits (needs the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     gen = torch.Generator().manual_seed(6)
@@ -244,11 +251,18 @@ def test_chunked_attention_kernel_on_card(G, L, P):
     qkvc = torch.randn(B, 1, 3 * H * dh, generator=gen).cuda().bfloat16()
     sb = port_divided.mask_to_bias((torch.rand(B, L, 1 + L, generator=gen) > 0.1).cuda())
     rb = port_divided.mask_to_bias((torch.rand(B, 1, L, generator=gen) > 0.1).cuda())
+    if masked_row:
+        sb[0, :, 0], sb[0, :, 1:] = 0.0, port_divided.NEG
+        rb[0] = port_divided.NEG
     kw = dict(heads=H, dim_head=dh, P=P)
     got = port_chunked.chunked_attention_cuda(qkv, qkvc, sb, rb, **kw)
     want = port_chunked.chunked_attention_plain(qkv, qkvc, sb, rb, **kw)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+    _close_per_gradient(got, want, f"chunked_attention G={G} L={L} P={P}")
+    for _ in range(2):
+        again = port_chunked.chunked_attention_cuda(qkv, qkvc, sb, rb, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 @pytest.mark.cuda
