@@ -83,10 +83,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    against the same detector on the CPU and against ``device_crops=False``
    on the card within 2e-2, with the same counts; video 0's embeddings on
    the card against the CPU's within 1e-4 and the same cluster memberships;
-   no kernel launched. Printed: detection frames/s by host clock (frame
+   no kernel launched; videos 0-2 through ``detect_videos`` of a detector
+   with a head of 0 cells (``pnet_head_k=0``: every video copies its
+   stage-1 tail from the card after the next video's stage 1 is enqueued,
+   3 such copies counted) against the main path's boxes within 2e-2, with
+   the same counts. Printed: detection frames/s by host clock (frame
    making excluded), device ms of stage 1 and of stages 2-3 by CUDA events,
-   host ms of NMS and of the box bookkeeping, candidates and faces a frame,
-   the embedder's crops/s and device ms, clustering ms, peak memory;
+   host ms of NMS and of the box bookkeeping, the videos that copied their
+   stage-1 tail, candidates and faces a frame, the embedder's crops/s and
+   device ms, clustering ms, peak memory;
 3c. predict (after 3b): the predict CLI's loading code and the whole
    pipeline from decoded frames, for MINTIME-EF (EfficientNet-B0, 1280
    channels) and MINTIME-XC (Xception, 2048 channels) at full width (the
@@ -110,7 +115,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    Printed: videos/s of the whole pipeline (a second, warm run by host
    clock ending in a synchronise, frame making excluded), its split into
    detection, crops, clustering, transform and forward, the forward's
-   device ms at batch 8, peak memory;
+   device ms at batch 8, peak memory. Then the served path's pipelining
+   (paths ``predict_ef_pipelined``, ``predict_xc_pipelined``): the same
+   videos through ``predict.stage_decoded_pipelined`` (video i+1's stage 1
+   enqueued before video i's host stages) and ``predict.predict_staged``
+   (``predict_videos``' batch logic) at batch 8, counted (16 / 18 launches),
+   its probabilities within 1e-6 of the sequential run's and its
+   identities equal; then sequential, pipelined, pipelined, sequential by
+   host clock, with each turn's host ms in ``_dispatch_stage1`` and, within
+   it, in the frames' upload and the pyramid's launches, stage 1's device
+   ms, the tail copies and peak memory, and the device's idle share over a
+   profiled pipelined run;
 3d. evaluate (after 3c): the evaluation CLI's function,
    ``evaluate.evaluate_split`` (what ``python -m mintime_torch.evaluate``
    calls after reading its yaml), on a test split written to a temporary
@@ -1524,6 +1539,8 @@ DETECT_SEED = 1
 #: candidates and 0-10 faces (3.5 on average) a frame of the synthetic
 #: videos, and no P-Net level near the 512-cell cap
 DETECT_THRESHOLDS = (0.03, 0.75, 0.94)
+#: videos of the check that copies every stage-1 tail under the lookahead
+TAIL_VIDEOS = 3
 
 
 def _detect_weights(seed: int) -> dict:
@@ -1591,7 +1608,28 @@ def _instrument(det, mtcnn_mod, stats):
     saved = {name: getattr(mtcnn_mod, name) for name in ("nms_tv", "nms")}
     for name, fn in saved.items():
         setattr(mtcnn_mod, name, host_timed(fn, "nms"))
-    return lambda: [setattr(mtcnn_mod, n, f) for n, f in saved.items()]
+    restore_tail = _count_tail_copies(mtcnn_mod, stats)
+
+    def restore():
+        restore_tail()
+        for n, f in saved.items():
+            setattr(mtcnn_mod, n, f)
+    return restore
+
+
+def _count_tail_copies(mtcnn_mod, stats):
+    """Count in ``stats["tail_copies"]`` the videos whose stage-1 tail is
+    copied from the card (``mtcnn._copy_after`` with an event: the side
+    stream that waits on the video's own stage 1). Returns a function that
+    takes the count off again."""
+    copy_after = mtcnn_mod._copy_after
+
+    def counted(t, after):
+        stats["tail_copies"] += after is not None
+        return copy_after(t, after)
+
+    mtcnn_mod._copy_after = counted
+    return lambda: setattr(mtcnn_mod, "_copy_after", copy_after)
 
 
 def _device_ms(stats, key) -> float:
@@ -1711,6 +1749,7 @@ def phase_detect(smi):
           "embed_crops_per_s": stats["embed_crops"] / stats["embed_host_s"],
           "embed_device_ms": _device_ms(stats, "embed"),
           "cluster_ms": 1e3 * (stats["cluster_host_s"] - stats["embed_host_s"]),
+          "tail_copies": stats["tail_copies"],
           "peak_mem_gib": peak_gib, "truncation_warnings": truncation})
     if truncation:
         raise AssertionError(f"P-Net truncation warnings: {truncation}")
@@ -1730,6 +1769,17 @@ def phase_detect(smi):
         return max([float(np.abs(x - y).max()) for x, y in zip(a, b) if len(x)], default=0.0)
 
     cpu_err, host_crops_err = box_err(card, cpu), box_err(card, host_crops)
+    # the stage-1 tail's copy under the lookahead: with a head of 0 cells
+    # every video copies its tail, after the next video's stage 1 is
+    # enqueued; its boxes against those the main path's head gave
+    tail_stats = collections.defaultdict(int)
+    restore_tail = _count_tail_copies(mtcnn, tail_stats)
+    try:
+        no_head = mtcnn.MTCNNDetector(sds, device_crops=True, device="cuda", pnet_head_k=0, **kw)
+        tail_runs = no_head.detect_videos(_detect_video(v, DETECT_SEED) for v in range(TAIL_VIDEOS))
+    finally:
+        restore_tail()
+    tail_errs = [box_err(t, r[0]) for t, r in zip(tail_runs, results)]
     crops = results[0][1]
     e_card = emb([c[2] for c in crops])
     e_cpu = FaceEmbedder(emb_sd, device="cpu")([c[2] for c in crops])
@@ -1747,7 +1797,9 @@ def phase_detect(smi):
           "embed_crops": len(crops), "embed_warm_ms_per_call": warm_ms,
           "card_vs_cpu_embedding_err": emb_err,
           "memberships_equal": same_members,
-          "similarity_min_max": [float(sims.min()), float(sims.max())]})
+          "similarity_min_max": [float(sims.min()), float(sims.max())],
+          "tail_check_videos": TAIL_VIDEOS, "tail_check_copies": tail_stats["tail_copies"],
+          "tail_vs_head_box_err": tail_errs})
     if not native_ok:
         raise AssertionError("the native NMS library is not the one loaded")
     if cpu_err is None or cpu_err > TOL:
@@ -1758,6 +1810,11 @@ def phase_detect(smi):
         raise AssertionError(f"card vs CPU embeddings differ by {emb_err} > 1e-4")
     if not same_members:
         raise AssertionError("card and CPU cluster memberships differ")
+    if tail_stats["tail_copies"] != TAIL_VIDEOS:
+        raise AssertionError(f"{tail_stats['tail_copies']} tail copies, want {TAIL_VIDEOS}")
+    if not all(e is not None and e <= TOL for e in tail_errs):
+        raise AssertionError(f"boxes through the tail copy vs the head: {tail_errs} (None: other"
+                             f" box counts) > {TOL}")
     return {"seconds": seconds, **launches}, [_members(r[2]) for r in results]
 
 
@@ -2001,9 +2058,124 @@ def phase_predict(smi, detect_members):
             if not check["identities_as_detect"]:
                 raise AssertionError(f"{path}: identities {members} differ from phase detect's "
                                      f"{detect_members}")
-            del model, det, emb, staged, results, stacked
+            del staged, stacked
+            torch.cuda.empty_cache()
+            paths[path + "_pipelined"] = _predict_pipelined(smi, path, model, det, emb, cfg,
+                                                            videos, results)
+            del model, det, emb, results
             torch.cuda.empty_cache()
     return paths
+
+
+def _predict_pipelined(smi, path, model, det, emb, cfg, videos, sequential_results) -> dict:
+    """Phase ``predict``'s served path with its pipelining: the videos through
+    ``predict.stage_decoded_pipelined`` and ``predict.predict_staged`` (the
+    batch logic of ``predict_videos``) at batch 8, counted, and held to the
+    sequential run's results (probabilities within 1e-6, identities equal).
+    Then the sequential and the pipelined staging in turns (sequential,
+    pipelined, pipelined, sequential), each by host clock ending in a
+    synchronise, with its host ms in ``_dispatch_stage1`` split into the
+    frames' upload (``stage_frames``) and the pyramid's launches
+    (``_pnet_pyramid`` on the host), stage 1's device ms (CUDA events), the
+    videos that copied their stage-1 tail (``mtcnn._copy_after`` on the
+    card) and peak memory; and the device's idle share over a profiled
+    pipelined run (``_profile``). Returns the pipelined run's launch
+    counts."""
+    import torch
+
+    from mintime_torch import predict
+    from mintime_torch.preprocessing import mtcnn
+
+    n = len(videos)
+
+    def decoded():
+        return ((frames, full, DETECT_FPS) for frames, full in videos)
+
+    def pipelined():
+        return predict.predict_staged(
+            predict.stage_decoded_pipelined(decoded(), det, emb, cfg, device="cuda"), n, model,
+            None, cfg, batch_size=8)
+
+    def sequential():
+        return predict.predict_staged(
+            (predict.stage_decoded(half, full, fps, det, emb, cfg, device="cuda")
+             for half, full, fps in decoded()), n, model, None, cfg, batch_size=8)
+
+    # the main path: counters at 0 just before, read just after
+    results, launches = _step_launches(pipelined)
+    want = {"divided_attention": 16, "geglu_ffn": 18, "token_rows_attention": 0,
+            **NO_PROBE_LAUNCHES}
+    got = {k: launches[k] for k in want}
+    prob_err = max(abs(r.probability - s.probability)
+                   for r, s in zip(results, sequential_results))
+    same_identities = ([_members(r.identities) for r in results]
+                       == [_members(s.identities) for s in sequential_results])
+
+    stats = collections.defaultdict(float)
+    stats["events"] = []
+    dispatch, upload, pyramid = det._dispatch_stage1, det.stage_frames, det._pnet_pyramid
+
+    def host_timed(fn, key):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                stats[key] += time.perf_counter() - t
+        return run
+
+    def device_timed(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = host_timed(pyramid, "pyramid_host_s")(*a, **k)
+        end.record()
+        stats["events"].append(("stage1", start, end))
+        return out
+
+    turns = []
+    det._dispatch_stage1 = host_timed(dispatch, "dispatch_host_s")
+    det.stage_frames = host_timed(upload, "upload_host_s")
+    det._pnet_pyramid = device_timed
+    restore_tail = _count_tail_copies(mtcnn, stats)
+    try:
+        for name, fn in (("sequential", sequential), ("pipelined", pipelined),
+                         ("pipelined", pipelined), ("sequential", sequential)):
+            for key in ("dispatch_host_s", "upload_host_s", "pyramid_host_s", "tail_copies"):
+                stats[key] = 0
+            stats["events"] = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_gib = torch.cuda.memory_allocated() / 2**30
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            turns.append({"staging": name, "s": s, "videos_per_s": n / s,
+                          "dispatch_host_ms_per_video": 1e3 * stats["dispatch_host_s"] / n,
+                          "upload_host_ms_per_video": 1e3 * stats["upload_host_s"] / n,
+                          "pyramid_launch_host_ms_per_video": 1e3 * stats["pyramid_host_s"] / n,
+                          "stage1_device_ms_per_video": _device_ms(stats, "stage1") / n,
+                          "tail_copies": stats["tail_copies"],
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "resident_before_gib": base_gib})
+    finally:
+        restore_tail()
+        del det._dispatch_stage1, det.stage_frames, det._pnet_pyramid  # the class's again
+    prof = _profile(pipelined)
+    emit({"phase": "predict_pipelined", "path": path, "card": smi, "videos": n, "batch": 8,
+          "launches": got, "max_prob_err_vs_sequential": prob_err,
+          "identities_as_sequential": same_identities, "turns": turns,
+          "videos_per_s": {k: [t["videos_per_s"] for t in turns if t["staging"] == k]
+                           for k in ("sequential", "pipelined")},
+          "profile": prof,
+          "probabilities": [r.probability for r in results]})
+    if got != want:
+        raise AssertionError(f"{path}: pipelined launches per forward {got}, want {want}")
+    if not prob_err <= 1e-6:
+        raise AssertionError(f"{path}: pipelined vs sequential probabilities differ by {prob_err}")
+    if not same_identities:
+        raise AssertionError(f"{path}: the pipelined run's identities differ from the sequential's")
+    return launches
 
 
 # 3d. evaluate: a test split from disk through the evaluation CLI's function

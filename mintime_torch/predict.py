@@ -15,21 +15,28 @@ parameter and buffer names to tensors on the model's device, used through
 ``torch.func.functional_call`` in place of the model's own (the counterpart
 of the JAX package's ``variables``), or None for the model's own weights.
 
-:func:`predict_videos` stages and runs one batch at a time, so at most
-``batch_size`` videos' inputs are held at once; the JAX package stages the
-whole run before the first forward.
+:func:`predict_videos` pipelines detection across videos as the JAX
+package does (:func:`_stage_videos_pipelined`): video i+1 is decoded and its
+stage 1 enqueued on the device before video i's host stages run. Each
+batch's forward runs as soon as the batch is staged, so at most one batch of
+assembled videos and one video of lookahead are held at once; the JAX package
+stages the whole run before the first forward.
 
 :func:`stage_decoded` takes a video's frames already decoded, so everything
 after the decode (detection, crops, clustering, the evaluation transform on
-the device) runs without cv2. ``python -m mintime_torch.predict`` is the
-reference's predict CLI (:func:`main`).
+the device) runs without cv2; :func:`stage_decoded_pipelined` is its
+pipelined form over a stream of videos, and :func:`predict_staged` the batch
+logic of :func:`predict_videos` over either. ``python -m
+mintime_torch.predict`` is the reference's predict CLI (:func:`main`).
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 import os
 from dataclasses import dataclass
-from typing import Any, Mapping, Sequence
+from typing import Any, Callable, Iterable, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +48,7 @@ from mintime_torch.device import resolve_device
 from mintime_torch.preprocessing.cluster_faces import connected_components
 from mintime_torch.preprocessing.detect_faces import _validate_channel_order
 from mintime_torch.preprocessing.extract_crops import pick_detection_frame, square_crop
+from mintime_torch.preprocessing.mtcnn import one_ahead
 from mintime_torch.utils.attention_viz import aggregate_attentions, draw_border
 
 _INPUT_KEYS = ("frames", "mask", "identities_mask", "size_embedding", "positions")
@@ -93,6 +101,12 @@ def decode_for_predict(video_path: str, crop_step: int | None = None,
     return half, full, fps
 
 
+def _boxes(indices: Sequence[int], per_frame: Sequence[np.ndarray]) -> dict:
+    """The boxes dict of the detections ``per_frame`` of frames ``indices``."""
+    return {str(i): det[:, :4].tolist() if len(det) else None
+            for i, det in zip(indices, per_frame)}
+
+
 def detect_on_frames(frames: Sequence[np.ndarray], detector, every_n: int = 1) -> dict:
     """Run the detector over every ``every_n``-th frame → boxes dict."""
     indices = list(range(0, len(frames), every_n))
@@ -100,8 +114,24 @@ def detect_on_frames(frames: Sequence[np.ndarray], detector, every_n: int = 1) -
         per_frame = detector.detect_batch([frames[i] for i in indices])
     else:
         per_frame = [detector.detect(frames[i]) for i in indices]
-    return {str(i): det[:, :4].tolist() if len(det) else None
-            for i, det in zip(indices, per_frame)}
+    return _boxes(indices, per_frame)
+
+
+def detect_video_faces(video_path: str, detector, every_n: int = 1) -> tuple[dict, int, tuple]:
+    """Half-resolution detection over a video file's frames. Returns
+    ``(boxes dict, fps, (width, height))``: the boxes in half-resolution
+    coordinates, the width and height twice the half-resolution frame's."""
+    from mintime_torch.preprocessing.detect_faces import decode_half_res
+
+    frames, fps = decode_half_res(video_path,
+                                  channel_order=getattr(detector, "channel_order", "rgb"))
+    if not frames:
+        raise ValueError(f"could not decode {video_path}")
+    boxes = detect_on_frames(frames, detector, every_n)
+    if not any(v for v in boxes.values()):
+        raise ValueError("No faces found.")
+    h, w = frames[0].shape[:2]
+    return boxes, fps, (w * 2, h * 2)
 
 
 def crops_from_frames(full_frames: dict, boxes: dict, fps: int):
@@ -205,15 +235,85 @@ def stage_decoded(half: Sequence[np.ndarray], full: dict, fps: int, detector, em
     ``device``. Returns what :func:`assemble_inputs` returns."""
     if not half:
         raise ValueError("the video has no frames")
-    boxes = detect_on_frames(half, detector, every_n)
+    return _stage_detected(detect_on_frames(half, detector, every_n), half[0].shape, full, fps,
+                           detector, embedder, cfg, similarity_threshold, device)
+
+
+def _stage_detected(boxes: dict, frame_shape, full: dict, fps: int, detector, embedder,
+                    cfg: MintimeConfig, similarity_threshold: float,
+                    device: str | torch.device):
+    """The stages after detection for one video whose detector frames have
+    ``frame_shape``: crops from ``full`` → identities → inputs assembled on
+    ``device``."""
     if not any(v for v in boxes.values()):
         raise ValueError("No faces found.")
     scale = getattr(detector, "input_scale", 1)
-    h = half[0].shape[0] // scale  # detection (half-res) dims
-    w = half[0].shape[1] // scale
+    h = frame_shape[0] // scale  # detection (half-res) dims
+    w = frame_shape[1] // scale
     crops = crops_from_frames(full, boxes, fps)
     identities, _ = cluster_crops(crops, embedder, similarity_threshold)
     return assemble_inputs(identities, (w * 2, h * 2), cfg, device)
+
+
+def stage_decoded_pipelined(decoded: Iterable, detector, embedder, cfg: MintimeConfig,
+                            similarity_threshold: float = 0.45, every_n: int = 1,
+                            device: str | torch.device = "cuda") -> Iterator:
+    """:func:`stage_decoded` over a stream of decoded videos ``(half, full,
+    fps)`` with one video of lookahead (:func:`~mintime_torch.preprocessing.
+    mtcnn.one_ahead`): video i+1 is pulled from ``decoded`` and its stage 1
+    enqueued on the device before video i's host stages (NMS, stages 2-3,
+    crops, clustering, assembly) run, so the device computes the one while
+    the host does the other. Yields what :func:`assemble_inputs` returns, a
+    video at a time, the same as :func:`stage_decoded`. An item may instead
+    be a function that stages its video without detection (a video with
+    precomputed boxes), called in its turn. A detector without the stage-1
+    split takes :func:`stage_decoded` in each video's turn."""
+    # MTCNNDetector enqueues stage 1 apart from the rest of its cascade; a
+    # detector with only ``detect`` or ``detect_batch`` cannot
+    split = hasattr(detector, "_dispatch_stage1") and hasattr(detector, "_finish_detect")
+
+    def start(item) -> Callable:
+        if callable(item):
+            return item
+        half, full, fps = item
+        if not split:
+            return functools.partial(stage_decoded, half, full, fps, detector, embedder, cfg,
+                                     similarity_threshold, every_n, device)
+        if not half:
+            raise ValueError("the video has no frames")
+        indices = range(0, len(half), every_n)
+        sel = [half[i] for i in indices]
+        pre = detector._dispatch_stage1(sel)
+        return lambda: _stage_detected(_boxes(indices, detector._finish_detect(sel, pre)),
+                                       sel[0].shape, full, fps, detector, embedder, cfg,
+                                       similarity_threshold, device)
+    return one_ahead(map(start, decoded))
+
+
+def _stage_videos_pipelined(video_paths: Sequence[str], detector, embedder, cfg: MintimeConfig,
+                            similarity_threshold: float, every_n: int,
+                            boxes_per_video: Sequence[dict | None] | None,
+                            device: str | torch.device = "cuda") -> Iterator:
+    """:func:`stage_decoded_pipelined` over video files, each decoded by
+    :func:`decode_for_predict` when it is pulled: video i+1 is decoded and
+    its stage 1 enqueued before video i is finished. A video with
+    precomputed boxes takes :func:`_stage_video` in its turn. Yields what
+    :func:`assemble_inputs` returns, a video at a time."""
+    def decoded():
+        for i, path in enumerate(video_paths):
+            boxes = boxes_per_video[i] if boxes_per_video else None
+            if boxes is not None:
+                yield functools.partial(_stage_video, path, detector, embedder, cfg,
+                                        similarity_threshold, every_n, boxes, device)
+                continue
+            half, full, fps = decode_for_predict(
+                path, channel_order=getattr(detector, "channel_order", "rgb"),
+                resize_on_device=getattr(detector, "input_scale", 1) > 1)
+            if not half:
+                raise ValueError(f"could not decode {path}")
+            yield half, full, fps
+    return stage_decoded_pipelined(decoded(), detector, embedder, cfg, similarity_threshold,
+                                   every_n, device)
 
 
 def _stage_video(video_path: str, detector, embedder, cfg: MintimeConfig,
@@ -305,44 +405,73 @@ def predict_video(video_path: str, model, state, cfg: MintimeConfig, detector, e
     return predict_assembled([staged], model, state, cfg)[0]
 
 
+def _batch_rows(n_videos: int, batch_size: int, mesh) -> list[range]:
+    """This data rank's videos of each batch of ``batch_size`` (the whole
+    batch without a mesh)."""
+    from mintime_torch.parallel.mesh import axis_rank, axis_size, shard_rows
+
+    world = axis_size(mesh)
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} must divide by the mesh data axis ({world})")
+    out = []
+    for start in range(0, n_videos, batch_size):
+        rows = shard_rows(min(start + batch_size, n_videos) - start, axis_rank(mesh), world)
+        out.append(range(start + rows.start, start + rows.stop))
+    return out
+
+
+def predict_staged(staged: Iterable, n_videos: int, model, state, cfg: MintimeConfig,
+                   batch_size: int = 8, mesh=None) -> list[PredictionResult]:
+    """The batch logic of :func:`predict_videos` over ``staged``, which yields
+    what :func:`assemble_inputs` returns for this rank's videos of every batch
+    (:func:`_batch_rows`), in order. A batch's forward runs as soon as its
+    videos are pulled, so a lazy ``staged`` holds no more than one batch of
+    assembled videos and what it stages ahead. When the run has more videos
+    than ``batch_size``, every batch is padded to ``batch_size`` (over the
+    data ranks) by repeating its first row, so every forward has one shape.
+    With a ``mesh`` the results are gathered batch by batch, so every rank
+    ends with the whole list in order."""
+    from mintime_torch.parallel.mesh import axis_size, gather_rows, replicated
+
+    batches = _batch_rows(n_videos, batch_size, mesh)
+    if mesh is not None:
+        replicated(mesh, model)  # every rank serves rank 0's weights
+    pad_to = batch_size // axis_size(mesh) if n_videos > batch_size else 0
+    staged = iter(staged)
+    results: list[PredictionResult] = []
+    for rows in batches:
+        chunk = list(itertools.islice(staged, len(rows)))
+        out = predict_assembled(chunk, model, state, cfg, pad_to) if chunk else []
+        del chunk  # its assembled inputs, before the next batch is staged
+        results.extend(gather_rows(mesh, [out])[0])
+    return results
+
+
 def predict_videos(video_paths: Sequence[str], model, state, cfg: MintimeConfig, detector,
                    embedder, similarity_threshold: float = 0.45, every_n: int = 1,
                    batch_size: int = 8,
                    boxes_per_video: Sequence[dict | None] | None = None,
                    mesh=None) -> list[PredictionResult]:
-    """Batched serving: the host stages run per video and ``batch_size``
-    assembled videos share one forward, staged one batch at a time. When the
-    run has more videos than ``batch_size``, the last batch is padded to
-    ``batch_size`` by repeating its first row, so every forward has one
-    shape.
+    """Batched serving: the host stages run per video, pipelined across videos
+    (:func:`_stage_videos_pipelined`), and ``batch_size`` assembled videos
+    share one forward, which runs as soon as they are staged
+    (:func:`predict_staged`). So at most ``batch_size`` videos' assembled
+    inputs, and one video's decoded frames and stage 1 beyond them, are held
+    at once. When the run has more videos than ``batch_size``, the last batch
+    is padded to ``batch_size`` by repeating its first row, so every forward
+    has one shape.
 
     With a ``mesh`` (:func:`mintime_torch.parallel.mesh.make_mesh`) each data
-    rank stages and scores its contiguous rows of every batch with rank 0's
-    weights (``batch_size`` must divide by the data ranks, as in the JAX
-    package), and the results are gathered batch by batch, so every rank
-    ends with the whole list in order.
+    rank stages its contiguous rows of every batch, pipelined over its own
+    rows, and scores them with rank 0's weights (``batch_size`` must divide
+    by the data ranks, as in the JAX package); the results are gathered batch
+    by batch, so every rank ends with the whole list in order.
     """
-    from mintime_torch.parallel.mesh import axis_rank, axis_size, gather_rows, replicated, \
-        shard_rows
-
-    world = axis_size(mesh)
-    if batch_size % world:
-        raise ValueError(f"batch_size {batch_size} must divide by the mesh data axis ({world})")
-    if mesh is not None:
-        replicated(mesh, model)  # every rank serves rank 0's weights
-    pad_to = batch_size // world if len(video_paths) > batch_size else 0
-    results: list[PredictionResult] = []
-    for start in range(0, len(video_paths), batch_size):
-        end = min(start + batch_size, len(video_paths))
-        rows = shard_rows(end - start, axis_rank(mesh), world)
-        staged = [
-            _stage_video(video_paths[i], detector, embedder, cfg, similarity_threshold,
-                         every_n, boxes_per_video[i] if boxes_per_video else None, model.device)
-            for i in range(start + rows.start, start + rows.stop)
-        ]
-        out = predict_assembled(staged, model, state, cfg, pad_to) if staged else []
-        results.extend(gather_rows(mesh, [out])[0])
-    return results
+    mine = [i for rows in _batch_rows(len(video_paths), batch_size, mesh) for i in rows]
+    staged = _stage_videos_pipelined(
+        [video_paths[i] for i in mine], detector, embedder, cfg, similarity_threshold, every_n,
+        [boxes_per_video[i] for i in mine] if boxes_per_video else None, model.device)
+    return predict_staged(staged, len(video_paths), model, state, cfg, batch_size, mesh)
 
 
 def generate_output_video(video_path: str, result: PredictionResult,

@@ -30,7 +30,7 @@ from __future__ import annotations
 import warnings
 from dataclasses import dataclass, field
 from functools import lru_cache
-from typing import Mapping, Sequence
+from typing import Callable, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -318,6 +318,37 @@ def _copy_to_host(t: torch.Tensor):
     return host, ready
 
 
+def one_ahead(started: Iterator[Callable]) -> Iterator:
+    """Call each function of ``started`` in order, pulling the next one before
+    calling the current one: where pulling a function starts a video's work
+    on the device, video i+1 runs there while video i is finished. The current
+    one is let go before its result is yielded, so one video at most is held
+    beyond those yielded."""
+    pending = next(started, None)
+    while pending is not None:
+        nxt = next(started, None)
+        out = pending()
+        pending = nxt
+        yield out
+
+
+def _copy_after(t: torch.Tensor, after) -> np.ndarray:
+    """``t`` on the host, copied once the work before event ``after`` is done
+    and not waiting for what the current stream took since: the copy runs on
+    a side stream that waits on ``after`` alone. ``after`` None: ``t`` is on
+    the host already."""
+    if after is None:
+        return t.numpy()
+    side = torch.cuda.Stream(device=t.device)
+    side.wait_event(after)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with torch.cuda.stream(side):
+        host.copy_(t, non_blocking=True)
+    t.record_stream(side)
+    side.synchronize()
+    return host.numpy()
+
+
 def _valid_box_coords(b: np.ndarray, W: int, H: int) -> tuple[np.ndarray, np.ndarray]:
     """The host half of the device crop: ``pad``'s trunc-and-clip coords and
     the valid flags; an invalid box becomes the zero-length [1, 1, 0, 0]."""
@@ -419,17 +450,13 @@ class MTCNNDetector:
 
     def detect_videos_iter(self, videos):
         """Streaming :meth:`detect_videos`: pulls video i+1 from the iterator
-        and enqueues its stage 1 before finishing video i, so at most two
-        videos' frames are held."""
-        pending = None
-        for fs in videos:
+        and enqueues its stage 1 before finishing video i (:func:`one_ahead`),
+        so at most two videos' frames are held."""
+        def start(fs):
             fs = [np.asarray(f) for f in fs]
-            nxt = (fs, self._dispatch_stage1(fs))
-            if pending is not None:
-                yield self._finish_detect(*pending)
-            pending = nxt
-        if pending is not None:
-            yield self._finish_detect(*pending)
+            pre = self._dispatch_stage1(fs)
+            return lambda: self._finish_detect(fs, pre)
+        return one_ahead(map(start, videos))
 
     # ---------------------------------------------------------------- stage 1
     def _dispatch_stage1(self, frames: Sequence[np.ndarray], staged=None):
@@ -533,8 +560,10 @@ class MTCNNDetector:
         if tail_k and (hk == 0 or (head[0][:, -1] >= self.thresholds[0]).any()):
             # above-threshold cells may reach the tail: copy it too. Otherwise
             # every tail score is at most the head's last one, below the
-            # threshold, and the first host mask would discard it
-            tail = unpack(tail_h.cpu().numpy(), tail_k)
+            # threshold, and the first host mask would discard it. The copy
+            # waits for this video's stage 1 only (the head's event), not for
+            # the next video's, enqueued on the stream since
+            tail = unpack(_copy_after(tail_h, head_copy[1]), tail_k)
             all_scores, all_idx, all_lvl, all_reg = (
                 np.concatenate([a, b], axis=1) for a, b in zip(head, tail))
         else:

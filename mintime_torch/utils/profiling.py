@@ -81,24 +81,26 @@ def _profiled(fn):
 
 
 def _window_kernels(prof) -> tuple[list, int, float]:
-    """The CUDA kernels a profile recorded, the lead-in left out; how many
+    """The device records of a profile (kernels, copies, sets), the lead-in
+    left out, as ``(name, start ns, end ns)`` in start order; how many
     kernels the window launched that it holds no record of (each launch on
     the host has a correlation id that its kernel's record carries); and the
     most ms by which a kernel's recorded start precedes its launch (at or
-    under 0 where the device's and the host's clocks agree)."""
+    under 0 where the device's and the host's clocks agree). Read from the
+    profiler's raw records: no event tree is built, so a window of ~10^5
+    kernels takes seconds."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
-    # a record_function range (``forward`` in the train step) has a device
-    # span too, from its first kernel to its last: no kernel, left out
-    kernels = [e for e in prof.events() if e.device_type == cuda and LEAD_IN not in e.name
-               and not getattr(e, "is_user_annotation", False)]
     raw = prof.profiler.kineto_results.events()
     launch_ns = {e.correlation_id(): e.start_ns() for e in raw
                  if e.device_type() == torch.autograd.DeviceType.CPU and "LaunchKernel" in e.name()}
-    start_ns = {e.correlation_id(): e.start_ns() for e in raw
-                if e.device_type() == cuda and LEAD_IN not in e.name()
-                and not getattr(e, "is_user_annotation", lambda: False)()}
+    # a record_function range (``forward`` in the train step) has a device
+    # span too, from its first kernel to its last: no kernel, left out
+    device = [e for e in raw if e.device_type() == cuda and LEAD_IN not in e.name()
+              and not e.is_user_annotation()]
+    kernels = sorted(((e.name(), e.start_ns(), e.end_ns()) for e in device), key=lambda k: k[1:])
+    start_ns = {e.correlation_id(): e.start_ns() for e in device}
     lost = len(launch_ns.keys() - start_ns.keys()) - LEAD_INS
     early = [launch_ns[c] - t for c, t in start_ns.items() if c in launch_ns]
     return kernels, lost, max(early, default=0) / 1e6
@@ -125,7 +127,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int | None = None)
         whole = (len(kernels) == launches * iters if launches is not None
                  else len(kernels) % iters == 0)
         if kernels and whole and not lost:
-            return sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / iters
+            return sum(b - a for _, a, b in kernels) / 1e6 / iters
     raise RuntimeError(f"torch.profiler recorded (kernels, lost, device clock early ms) {counts}"
                        f" in {TRIES} windows of {iters} calls"
                        f"{'' if launches is None else f' of {launches} launches'}")
@@ -175,7 +177,7 @@ def _profile(fn, launches: int | None = None, calls: int = 1) -> dict:
         prof, wall_ms = _profiled(fn)
         kernels, lost, early_ms = _window_kernels(prof)
         counts.append((len(kernels), lost, round(early_ms, 3)))
-        names = collections.Counter(e.name for e in kernels)
+        names = collections.Counter(name for name, _, _ in kernels)
         if (kernels and not lost and all(n % calls == 0 for n in names.values())
                 and (launches is None or len(kernels) == launches)):
             break
@@ -183,23 +185,22 @@ def _profile(fn, launches: int | None = None, calls: int = 1) -> dict:
         if launches is not None:
             raise RuntimeError(f"torch.profiler recorded (kernels, lost, device clock early ms)"
                                f" {counts} in {TRIES} windows, not {launches} kernels")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # union of the kernels' intervals
+    busy, end = 0, float("-inf")
+    for _, a, b in kernels:  # union of the kernels' intervals, in start order
         if b > end:
             busy += b - max(a, end)
             end = b
     by_kind, by_name = {}, {}
-    for e in kernels:
-        us = e.time_range.end - e.time_range.start
-        by_kind[_kind(e.name)] = by_kind.get(_kind(e.name), 0.0) + us / 1e3
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + us / 1e3)
+    for name, a, b in kernels:
+        ms = (b - a) / 1e6
+        by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + ms)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     return {"host_window_ms": wall_ms, "kernels": len(kernels), "kernels_lost": lost,
             "device_clock_early_ms": early_ms,
-            "device_busy_ms": busy / 1e3 if kernels else "not measured",
-            "device_idle_share": 1 - busy / 1e3 / wall_ms if kernels else "not measured",
+            "device_busy_ms": busy / 1e6 if kernels else "not measured",
+            "device_idle_share": 1 - busy / 1e6 / wall_ms if kernels else "not measured",
             "ms_by_layer": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": k[:90], "launches": n, "ms": t} for k, (n, t) in top]}
 

@@ -1,7 +1,8 @@
 """The face detector and embedder on the card against ``device="cpu"`` on the
 same weights and frames: boxes within 2e-2 with the same box count (the
 MTCNN parity tolerance), embeddings within 1e-4 and the same cluster
-memberships. Needs an NVIDIA GPU and skips without one; on a machine with a
+memberships; also with every video's stage-1 tail copied from the card
+while the next video's stage 1 is enqueued. Needs an NVIDIA GPU and skips without one; on a machine with a
 card run ``python -m pytest tests/test_torch_detect_cuda.py -m cuda``. The file
 imports no JAX, so it runs where JAX is not installed.
 """
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from mintime_torch.preprocessing import mtcnn
 from mintime_torch.preprocessing.cluster_faces import FaceEmbedder, connected_components
 from mintime_torch.preprocessing.mtcnn import MTCNNDetector
 
@@ -22,8 +24,8 @@ def _weights():
     return sds
 
 
-def _frames(n=3, h=360, w=640):
-    rng = np.random.default_rng(0)
+def _frames(n=3, h=360, w=640, seed=0):
+    rng = np.random.default_rng(seed)
     base = np.kron(rng.integers(0, 256, (h // 8, w // 8, 3), dtype=np.uint8),
                    np.ones((8, 8, 1), np.uint8))
     return [np.roll(base, 4 * t, axis=1) for t in range(n)]
@@ -46,6 +48,41 @@ def test_detector_on_card_matches_cpu(options, device_crops):
         assert c.shape == h.shape
         if len(h):
             np.testing.assert_allclose(c, h, atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_k", [0, 1])
+def test_stage1_tail_copied_under_the_lookahead_matches_cpu(monkeypatch, head_k):
+    """A head of 0 or 1 cells sends videos through the stage-1 tail's copy
+    from the card (``mtcnn._copy_after``: a side stream that waits on the
+    video's own stage 1), which ``detect_videos`` makes after it has
+    enqueued the next video's stage 1. Each video's boxes against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    copies = []
+    copy_after = mtcnn._copy_after
+
+    def counted(t, after):
+        copies.append(after is not None)
+        return copy_after(t, after)
+
+    monkeypatch.setattr(mtcnn, "_copy_after", counted)
+    sds = _weights()
+    kw = dict(thresholds=(0.03, 0.75, 0.94), device_crops=True, input_scale=2,
+              channel_order="bgr")
+    videos = [_frames(n=6, h=720, w=1280, seed=v) for v in range(4)]
+    card = MTCNNDetector(sds, device="cuda", pnet_head_k=head_k, **kw).detect_videos(videos)
+    assert copies and all(copies)
+    if head_k == 0:
+        assert len(copies) == len(videos)
+    cpu_det = MTCNNDetector(sds, device="cpu", **kw)
+    for got, frames in zip(card, videos):
+        want = cpu_det.detect_batch(frames)
+        assert sum(len(b) for b in want) > 0
+        for c, h in zip(got, want):
+            assert c.shape == h.shape
+            if len(h):
+                np.testing.assert_allclose(c, h, atol=2e-2, rtol=0)
 
 
 @pytest.mark.cuda

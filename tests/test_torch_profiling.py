@@ -4,7 +4,8 @@ bitwise, ``StepTimer``, ``op_stats`` on a directory without a trace, and the
 CLI at a small size (32 px, depth 1, dim 32) for ``--model 0``, ``1``, ``3``,
 ``--grad`` and ``--train``: videos/s printed and a non-empty op table whose
 sections sort the forward's ops into ``fwd`` and the autograd engine's into
-``bwd``.
+``bwd``; and ``_window_kernels`` and ``_profile`` on a card's window given as
+raw profiler records built by hand.
 """
 
 import os
@@ -164,3 +165,87 @@ def test_card_trace_sections_and_lost_kernels(tmp_path):
                                                                       "geglu_ffn backward kernel")}
     assert all(r["self_ms"] == 2.0 and r["launches"] == 1 for r in rows.values())
     assert profiling.kernels_lost(str(tmp_path)) == {"aten::mm": 1}
+
+
+class _Record:
+    """A raw profiler record, as ``prof.profiler.kineto_results.events()``
+    gives one."""
+
+    def __init__(self, name, device, corr, start, end, annotation=False):
+        self._v = (name, device, corr, start, end, annotation)
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        return self._v[1]
+
+    def correlation_id(self):
+        return self._v[2]
+
+    def start_ns(self):
+        return self._v[3]
+
+    def end_ns(self):
+        return self._v[4]
+
+    def is_user_annotation(self):
+        return self._v[5]
+
+
+def _raw_profile():
+    """A card's window in raw records: the lead-in's four spin kernels; two
+    launched kernels that overlap, the second recorded 100 ns before its
+    launch; a launch without a record; a copy; and a ``forward`` range's
+    device span, which is no kernel."""
+    from types import SimpleNamespace
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    recs = []
+    for i in range(profiling.LEAD_INS):
+        recs += [_Record("cudaLaunchKernel", cpu, i, 10 * i, 10 * i + 1),
+                 _Record("void at::native::spin_kernel(long)", cuda, i, 10 * i + 2, 10 * i + 5)]
+    recs += [_Record("cudaLaunchKernel", cpu, 100, 1000, 1010),
+             _Record("cudaLaunchKernel", cpu, 101, 2100, 2110),
+             _Record("cuLaunchKernelEx", cpu, 102, 2200, 2210),
+             _Record("cudaMemcpyAsync", cpu, 103, 2300, 2310),
+             _Record("forward", cuda, 0, 1500, 4500, annotation=True),
+             _Record("void geglu_ffn_up_kernel<64>(Params)", cuda, 100, 1500, 2500),
+             _Record("nvjet_tst_gemm", cuda, 101, 2000, 3000),
+             _Record("Memcpy HtoD (Pageable -> Device)", cuda, 103, 4000, 4500)]
+    return SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(
+        events=lambda: list(reversed(recs)))))
+
+
+def test_window_kernels_read_the_raw_records():
+    kernels, lost, early_ms = profiling._window_kernels(_raw_profile())
+    assert kernels == [("void geglu_ffn_up_kernel<64>(Params)", 1500, 2500),
+                       ("nvjet_tst_gemm", 2000, 3000),
+                       ("Memcpy HtoD (Pageable -> Device)", 4000, 4500)]
+    assert lost == 1
+    assert early_ms == pytest.approx(1e-4)
+
+
+def test_profile_reports_the_union_of_the_raw_records(monkeypatch):
+    """Busy time is the union of the device records (2000 ns of a 4000 ns
+    window); the window that lost a record is profiled again, ``TRIES``
+    times, and then reported with the loss, since no launch count is
+    given; with one, it raises."""
+    windows = []
+
+    def profiled(fn):
+        windows.append(1)
+        return _raw_profile(), 4e-3
+
+    monkeypatch.setattr(profiling, "_profiled", profiled)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    out = profiling._profile(lambda: None)
+    assert len(windows) == profiling.TRIES
+    assert (out["kernels"], out["kernels_lost"]) == (3, 1)
+    assert out["device_busy_ms"] == pytest.approx(2e-3)
+    assert out["device_idle_share"] == pytest.approx(0.5)
+    assert out["ms_by_layer"] == pytest.approx({"geglu_ffn kernel": 1e-3, "matmul (cuBLAS)": 1e-3,
+                                                "memory copies": 5e-4})
+    assert out["top_kernels"][0]["launches"] == 1
+    with pytest.raises(RuntimeError, match="not 3 kernels"):
+        profiling._profile(lambda: None, launches=3)
