@@ -1,0 +1,7 @@
+"""Model FLOPs of the forward a video (flops/<family>.py) times the untraced window's videos/s, over the bf16 dense peak."""
+
+from harness import readers
+
+
+def read(rec):
+    return readers.mfu_pct(rec)
