@@ -35,6 +35,8 @@ from mintime_torch.models.baseline import Baseline, video_logits
 from mintime_torch.models.efficientnet import EfficientNet
 from mintime_torch.models.timesformer import SizeInvariantTimeSformer
 from mintime_torch.models.xception import Xception
+from mintime_torch.utils import profiling
+from mintime_torch.utils.profiling import span
 
 BACKBONES = ("efficientnet-b0", "xception", "none")
 HEADS = ("timesformer", "baseline")
@@ -92,6 +94,11 @@ class CastModel(nn.Module):
         self._cast_names = {child: _cast_names(getattr(self, child))
                             for child in children if hasattr(self, child)}
 
+    def __call__(self, *args, **kwargs):
+        """The model's call under the span ``model.forward``."""
+        with span(profiling.MODEL_FORWARD):
+            return super().__call__(*args, **kwargs)
+
     @property
     def dtype(self) -> torch.dtype:
         """The parameters' dtype (``compute_dtype`` is what the forward runs in)."""
@@ -104,12 +111,19 @@ class CastModel(nn.Module):
     def _in_compute_dtype(self, child: str, *args, **kwargs):
         """Run the child module ``child`` with the parameters listed in
         ``_cast_names`` cast to the compute dtype; a plain call when
-        parameters and compute share a dtype."""
+        parameters and compute share a dtype. The cast is the span
+        ``model.cast``, the call ``model.<child>``; the extractor's rows
+        count as ``faces_run``."""
         module, names = getattr(self, child), self._cast_names[child]
+        if child == "extractor":
+            profiling.count(profiling.FACES_RUN, args[0].shape[0])
         if self.dtype == self.compute_dtype or not names:
-            return module(*args, **kwargs)
-        cast = {n: module.get_parameter(n).to(self.compute_dtype) for n in names}
-        return torch.func.functional_call(module, cast, args, kwargs)
+            with span(profiling.MODEL + child):
+                return module(*args, **kwargs)
+        with span(profiling.MODEL_CAST):
+            cast = {n: module.get_parameter(n).to(self.compute_dtype) for n in names}
+        with span(profiling.MODEL + child):
+            return torch.func.functional_call(module, cast, args, kwargs)
 
 
 class MintimeVideoClassifier(CastModel):

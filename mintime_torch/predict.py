@@ -49,9 +49,13 @@ from mintime_torch.preprocessing.cluster_faces import connected_components
 from mintime_torch.preprocessing.detect_faces import _validate_channel_order
 from mintime_torch.preprocessing.extract_crops import pick_detection_frame, square_crop
 from mintime_torch.preprocessing.mtcnn import one_ahead
+from mintime_torch.utils import profiling
 from mintime_torch.utils.attention_viz import aggregate_attentions, draw_border
+from mintime_torch.utils.profiling import span
 
 _INPUT_KEYS = ("frames", "mask", "identities_mask", "size_embedding", "positions")
+#: numbers :func:`predict_assembled`'s calls, for their root spans
+_calls = itertools.count()
 
 
 @dataclass
@@ -347,24 +351,30 @@ def stack_inputs(staged: Sequence, pad: int = 0) -> dict:
     ``pad`` copies of the first appended: the frames stay a tensor on their
     device, the rest numpy."""
     rows = [s[0] for s in staged] + [staged[0][0]] * pad
-    return {k: torch.cat([r[k] for r in rows]) if isinstance(rows[0][k], torch.Tensor)
-            else np.concatenate([r[k] for r in rows]) for k in _INPUT_KEYS}
+    with span(profiling.SERVE_STACK):
+        return {k: torch.cat([r[k] for r in rows]) if isinstance(rows[0][k], torch.Tensor)
+                else np.concatenate([r[k] for r in rows]) for k in _INPUT_KEYS}
 
 
 @torch.inference_mode()
 def forward_batch(model, state: Mapping[str, torch.Tensor] | None, batch: Mapping[str, Any]):
     """Run the classifier on one stacked batch (numpy arrays, or tensors
     already on the model's device, which are not copied again); returns
-    ``(logits (B,) numpy, [space, time] maps numpy)``."""
+    ``(logits (B,) numpy, [space, time] maps numpy)``. A host mask counts
+    its faces (``faces_valid``)."""
     dev = model.device
-    args = [torch.as_tensor(np.ascontiguousarray(batch[k]) if isinstance(batch[k], np.ndarray)
-                            else batch[k]).to(dev, non_blocking=True)
-            for k in _INPUT_KEYS]
+    if isinstance(batch["mask"], np.ndarray):
+        profiling.count(profiling.FACES_VALID, np.count_nonzero(batch["mask"]))
+    with span(profiling.SERVE_UPLOAD):
+        args = [torch.as_tensor(np.ascontiguousarray(batch[k]) if isinstance(batch[k], np.ndarray)
+                                else batch[k]).to(dev, non_blocking=True)
+                for k in _INPUT_KEYS]
     if state is None:
         logits, attns = model(*args)
     else:
         logits, attns = torch.func.functional_call(model, dict(state), tuple(args))
-    return logits.float().cpu().numpy().reshape(-1), [a.float().cpu().numpy() for a in attns]
+    with span(profiling.SERVE_FETCH):
+        return logits.float().cpu().numpy().reshape(-1), [a.float().cpu().numpy() for a in attns]
 
 
 def _result(logit, attns, heads, cfg, plan, crop_store) -> PredictionResult:
@@ -386,13 +396,15 @@ def predict_assembled(staged: Sequence, model, state, cfg: MintimeConfig,
     (as :func:`assemble_inputs` returns them), padded to ``pad_to`` rows by
     repeating the first; pad outputs are discarded. Attention maps are
     sliced per video, ``heads`` rows each."""
-    heads = cfg.model.heads
-    logits, attns = forward_batch(model, state, stack_inputs(staged, max(pad_to - len(staged), 0)))
-    return [
-        _result(logits[b], [a[b * heads:(b + 1) * heads] for a in attns], heads, cfg, plan,
-                crop_store)
-        for b, (_, plan, crop_store) in enumerate(staged)
-    ]
+    heads, pad = cfg.model.heads, max(pad_to - len(staged), 0)
+    with span(profiling.SERVE_CALL, call=next(_calls), videos=len(staged), padded=pad):
+        logits, attns = forward_batch(model, state, stack_inputs(staged, pad))
+        with span(profiling.SERVE_AGGREGATE):
+            return [
+                _result(logits[b], [a[b * heads:(b + 1) * heads] for a in attns], heads, cfg,
+                        plan, crop_store)
+                for b, (_, plan, crop_store) in enumerate(staged)
+            ]
 
 
 def predict_video(video_path: str, model, state, cfg: MintimeConfig, detector, embedder,

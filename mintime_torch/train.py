@@ -42,6 +42,8 @@ from mintime_torch.models.classifier import MintimeVideoClassifier
 from mintime_torch.models.conv_timesformer import ConvolutionalTimeSformer
 from mintime_torch.models.efficientnet import BatchRows
 from mintime_torch.parallel.mesh import all_sum, axis_rank, axis_size, data_parallel
+from mintime_torch.utils import profiling
+from mintime_torch.utils.profiling import span
 
 
 def bce_with_logits(logits, labels, pos_weight: float = 1.0, weights=None):
@@ -247,39 +249,51 @@ def make_train_step(model, pos_weight: float = 1.0, mesh=None) -> Callable:
     forward and backward in train mode and one optimizer update. The metrics
     stay on the device: ``loss``, and over the valid samples ``correct``,
     ``positive`` (predicted fake) and ``count``. With a ``mesh`` the batch is
-    this data rank's rows and the metrics are the global batch's."""
+    this data rank's rows and the metrics are the global batch's. The step
+    is the span ``step`` (its number the argument) over ``step.forward``,
+    ``step.backward`` and ``step.optimizer`` (twice: the gradients cleared
+    before the backward, the update after it); a host mask counts its faces
+    (``faces_valid``)."""
     net = model if mesh is None else data_parallel(model, mesh)
 
     def train_step(state: TrainState, batch) -> dict[str, torch.Tensor]:
-        m = model
-        generator = step_generator(state.seed, state.step)
-        if axis_size(mesh) > 1:
-            generator = BatchRows(generator, *_local_rows(batch, mesh, m.device))
-        with torch.profiler.record_function("forward"):
-            loss, logits = forward_loss(m, batch, pos_weight, train=True, generator=generator,
-                                        mesh=mesh, net=net)
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        lr = state.schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-            for p in group["params"]:
-                if p.grad is None:  # JAX's zero gradient, e.g. a frozen backbone
-                    p.grad = torch.zeros_like(p)
-        opt.step()
-        state.step += 1
-        with torch.no_grad():
-            preds = (torch.sigmoid(logits) >= 0.5).int()
-            labels = torch.as_tensor(batch["labels"]).to(m.device).reshape(-1).int()
-            valid = batch.get("valid")
-            valid = (torch.ones(preds.shape, device=m.device) if valid is None
-                     else torch.as_tensor(valid).to(m.device).reshape(-1).float())
-            metrics = {"loss": loss.detach(), "correct": ((preds == labels) * valid).sum(),
-                       "positive": (preds * valid).sum(), "count": valid.sum()}
-            if mesh is not None:
-                metrics = _all_sum_metrics(metrics, mesh)
-            return metrics
+        with span(profiling.STEP, step=state.step):
+            m = model
+            if isinstance(batch.get("mask"), np.ndarray):
+                profiling.count(profiling.FACES_VALID, np.count_nonzero(batch["mask"]))
+            generator = step_generator(state.seed, state.step)
+            if axis_size(mesh) > 1:
+                generator = BatchRows(generator, *_local_rows(batch, mesh, m.device))
+            with span(profiling.STEP_FORWARD):
+                loss, logits = forward_loss(m, batch, pos_weight, train=True, generator=generator,
+                                            mesh=mesh, net=net)
+            opt = state.optimizer
+            with span(profiling.STEP_OPTIMIZER):
+                opt.zero_grad(set_to_none=True)
+            with span(profiling.STEP_BACKWARD):
+                loss.backward()
+            with span(profiling.STEP_OPTIMIZER):
+                lr = state.schedule(state.step)
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                    for p in group["params"]:
+                        if p.grad is None:  # JAX's zero gradient, e.g. a frozen backbone
+                            p.grad = torch.zeros_like(p)
+                opt.step()
+            state.step += 1
+            with torch.no_grad():
+                preds = (torch.sigmoid(logits) >= 0.5).int()
+                labels = torch.as_tensor(batch["labels"]).to(m.device).reshape(-1).int()
+                valid = batch.get("valid")
+                valid = (torch.ones(preds.shape, device=m.device) if valid is None
+                         else torch.as_tensor(valid).to(m.device).reshape(-1).float())
+                metrics = {"loss": loss.detach(), "correct": ((preds == labels) * valid).sum(),
+                           "positive": (preds * valid).sum(), "count": valid.sum()}
+                if mesh is not None:
+                    metrics = _all_sum_metrics(metrics, mesh)
+                # free the autograd graph (~1 host ms) inside the step's span, not after it
+                del loss, logits
+                return metrics
 
     return train_step
 

@@ -5,7 +5,10 @@
   Chrome trace (``*.pt.trace.json``, which TensorBoard's profiler plugin
   and Perfetto load) into a directory through
   ``torch.profiler.tensorboard_trace_handler``.
-* :class:`StepTimer`: steps/s and videos/s counters.
+* :func:`span` and :func:`count`: the program's spans (a
+  ``torch.profiler.record_function`` range while a profile is active,
+  nothing else) and counters (one table, always on), named by the
+  constants below.
 * :func:`sync`: waits for the card when a tensor of its argument is on it.
 * :func:`op_stats`: per-op time from a trace directory or a profile: the
   device kernels by name where the trace holds kernels, else the CPU ops by
@@ -34,8 +37,8 @@ import contextlib
 import glob
 import json
 import os
+import sys
 import time
-from dataclasses import dataclass, field
 
 LEAD_IN = "spin_kernel"  # the kernel ``torch.cuda._sleep`` launches
 #: spin kernels that open each profiled window
@@ -44,12 +47,48 @@ LEAD_INS = 4
 PAD_S = 0.05
 #: windows profiled before a short one is given up on
 TRIES = 5
-#: the user range :func:`main` puts around a forward, which sorts its kernels into ``fwd``
-FORWARD_RANGE = "forward"
 #: the autograd engine's ranges: every op under one is the backward's
 BACKWARD_RANGE = "autograd::engine::evaluate_function"
 #: the trace's categories of host-side kernel launches
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+# Spans (:func:`span`): a root span a call or step, carrying its number, the
+# others nested under it.
+#: ``predict.predict_assembled``: the whole call (args: call, videos, padded)
+SERVE_CALL = "serve.call"
+#: ``predict.stack_inputs``: concatenating the staged rows
+SERVE_STACK = "serve.stack"
+#: ``predict.forward_batch``: host arrays to the device
+SERVE_UPLOAD = "serve.upload"
+#: ``predict.forward_batch``: logits and maps to host arrays (waits on the card)
+SERVE_FETCH = "serve.fetch"
+#: ``predict.predict_assembled``: ``aggregate_attentions`` for every video
+SERVE_AGGREGATE = "serve.aggregate"
+#: ``CastModel._in_compute_dtype``: ``MODEL + child`` is a child's call
+#: (``model.extractor``, ``model.head``, ``model.blocks``); every op under a
+#: ``model.*`` span is the forward's (:func:`op_stats`' ``fwd``)
+MODEL = "model."
+#: ``CastModel.__call__``: the model's whole call, its glue between children included
+MODEL_FORWARD = "model.forward"
+#: ``CastModel._in_compute_dtype``: the parameters cast to the compute dtype
+MODEL_CAST = "model.cast"
+#: ``train.make_train_step``: the whole step (arg: step)
+STEP = "step"
+#: the step's ``forward_loss``
+STEP_FORWARD = "step.forward"
+#: the step's ``loss.backward()``
+STEP_BACKWARD = "step.backward"
+#: the step's zero_grad, zero gradients, learning rate and ``opt.step()``
+STEP_OPTIMIZER = "step.optimizer"
+
+# Counters (:func:`count`).
+#: rows (faces) the extractor ran, padded slots included
+FACES_RUN = "faces_run"
+#: slots of the batches' masks that hold a face (counted from host masks only)
+FACES_VALID = "faces_valid"
+
+_counts: collections.Counter = collections.Counter()
+_OFF = contextlib.nullcontext()
 
 
 def _lead_in() -> None:
@@ -95,8 +134,8 @@ def _window_kernels(prof) -> tuple[list, int, float]:
     raw = prof.profiler.kineto_results.events()
     launch_ns = {e.correlation_id(): e.start_ns() for e in raw
                  if e.device_type() == torch.autograd.DeviceType.CPU and "LaunchKernel" in e.name()}
-    # a record_function range (``forward`` in the train step) has a device
-    # span too, from its first kernel to its last: no kernel, left out
+    # a record_function range (a span, :func:`span`) has a device span too,
+    # from its first kernel to its last: no kernel, left out
     device = [e for e in raw if e.device_type() == cuda and LEAD_IN not in e.name()
               and not e.is_user_annotation()]
     kernels = sorted(((e.name(), e.start_ns(), e.end_ns()) for e in device), key=lambda k: k[1:])
@@ -229,29 +268,30 @@ def trace(log_dir: str = "outputs/trace", cuda: bool | None = None):
             time.sleep(PAD_S)
 
 
-@dataclass
-class StepTimer:
-    """Rolling step-time / throughput counter."""
+def span(name: str, **args):
+    """A context manager over one of the program's spans: while a
+    ``torch.profiler`` profile is active, ``record_function(name)`` with
+    ``args`` as its argument string, so that the span lies among the
+    profile's host records on their clock and its exporter writes it;
+    otherwise a shared no-op, after one check of the profiler's flag (torch
+    is not even imported where no profile can be active)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return _OFF
+    import torch
 
-    batch_size: int = 1
-    _t0: float = field(default_factory=time.perf_counter)
-    _steps: int = 0
+    return torch.profiler.record_function(
+        name, " ".join(f"{k}={v}" for k, v in args.items()) or None)
 
-    def step(self, n: int = 1):
-        self._steps += n
 
-    @property
-    def steps_per_sec(self) -> float:
-        dt = time.perf_counter() - self._t0
-        return self._steps / dt if dt > 0 else 0.0
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _counts[name] += n
 
-    @property
-    def videos_per_sec(self) -> float:
-        return self.steps_per_sec * self.batch_size
 
-    def reset(self):
-        self._t0 = time.perf_counter()
-        self._steps = 0
+def counters() -> dict[str, int]:
+    """A copy of the counters as they stand (since the process started)."""
+    return dict(_counts)
 
 
 def _leaves(x):
@@ -300,7 +340,8 @@ def _trace_events(source) -> list[dict]:
 def _host_ops(events: list[dict]) -> list[dict]:
     """The host's complete events (ops, user ranges, runtime calls), each
     with its self time and the sections its enclosing ranges put it in:
-    ``bwd`` under the autograd engine, ``fwd`` under :data:`FORWARD_RANGE`."""
+    ``bwd`` under the autograd engine, ``fwd`` under a ``model.*`` span
+    (:data:`MODEL`)."""
     by_tid = collections.defaultdict(list)
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "user_annotation", *LAUNCH_CATS):
@@ -317,7 +358,7 @@ def _host_ops(events: list[dict]) -> list[dict]:
             e["parent"] = stack[-1]["name"] if stack else None
             e["bwd"] = (e["name"].startswith(BACKWARD_RANGE)
                         or any(s["bwd"] for s in stack[-1:]))
-            e["fwd"] = e["name"] == FORWARD_RANGE or any(s["fwd"] for s in stack[-1:])
+            e["fwd"] = e["name"].startswith(MODEL) or any(s["fwd"] for s in stack[-1:])
             stack.append(e)
             out.append(e)
     return out
@@ -334,14 +375,12 @@ def _section(name: str, host) -> str:
 def op_stats(source, top: int = 20) -> list[dict]:
     """Per-op time of a :func:`trace` directory (its newest trace) or of a
     ``torch.profiler`` profile: the ``top`` rows by total self time, as dicts
-    with the JAX function's keys ``name``, ``type``, ``self_ms``,
-    ``flop_rate_gs``, ``bw_gbs``, ``bound_by``, plus ``launches`` and
-    ``section`` (``fwd``, ``bwd`` or ``other``, as :func:`_print_op_table`
-    sums them). Rows are the card's kernels by name (the lead-in left out;
-    ``type`` their layer, :func:`_kind`) when the trace holds any, else the
-    host's ops by self time (``type`` ``"cpu op"``). torch.profiler gives
-    no rate and no bound of a kernel, so those keys are None. A directory
-    without a trace raises ``FileNotFoundError``."""
+    with the JAX function's keys ``name``, ``type``, ``self_ms``, plus
+    ``launches`` and ``section`` (``fwd``, ``bwd`` or ``other``, as
+    :func:`_print_op_table` sums them). Rows are the card's kernels by name
+    (the lead-in left out; ``type`` their layer, :func:`_kind`) when the
+    trace holds any, else the host's ops by self time (``type`` ``"cpu
+    op"``). A directory without a trace raises ``FileNotFoundError``."""
     events = _trace_events(source)
     host = _host_ops(events)
     kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
@@ -350,8 +389,7 @@ def op_stats(source, top: int = 20) -> list[dict]:
 
     def add(name, kind, us, section):
         r = rows.setdefault((name, section), {
-            "name": name, "type": kind, "self_ms": 0.0, "flop_rate_gs": None, "bw_gbs": None,
-            "bound_by": None, "launches": 0, "section": section})
+            "name": name, "type": kind, "self_ms": 0.0, "launches": 0, "section": section})
         r["self_ms"] += us / 1e3
         r["launches"] += 1
 
@@ -510,14 +548,13 @@ def main(argv=None, config=None) -> dict:
             params = [q for q in model.parameters() if q.requires_grad]
 
             def call():
-                with torch.profiler.record_function(FORWARD_RANGE):
-                    out = model(*args)
+                out = model(*args)
                 loss = torch.sum(out.float() ** 2)
                 grads = torch.autograd.grad(loss, params, allow_unused=True)
                 return [g.float().sum() for g in grads if g is not None]
         else:
             def call():
-                with torch.no_grad(), torch.profiler.record_function(FORWARD_RANGE):
+                with torch.no_grad():
                     return model(*args)
         what = "fwd+bwd" if opt.grad else "forward"
 
