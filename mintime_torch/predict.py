@@ -50,7 +50,7 @@ from mintime_torch.preprocessing.detect_faces import _validate_channel_order
 from mintime_torch.preprocessing.extract_crops import pick_detection_frame, square_crop
 from mintime_torch.preprocessing.mtcnn import one_ahead
 from mintime_torch.utils import profiling
-from mintime_torch.utils.attention_viz import aggregate_attentions, draw_border
+from mintime_torch.utils.attention_viz import aggregate_attentions_batch, draw_border
 from mintime_torch.utils.profiling import span
 
 _INPUT_KEYS = ("frames", "mask", "identities_mask", "size_embedding", "positions")
@@ -377,13 +377,11 @@ def forward_batch(model, state: Mapping[str, torch.Tensor] | None, batch: Mappin
         return logits.float().cpu().numpy().reshape(-1), [a.float().cpu().numpy() for a in attns]
 
 
-def _result(logit, attns, heads, cfg, plan, crop_store) -> PredictionResult:
-    fpi = [int(t / cfg.model.num_patches) for _, t in plan.tokens_per_identity]
-    agg, id_attn = aggregate_attentions(attns, heads, cfg.model.num_frames, fpi)
+def _result(logit, agg, id_attn, fpi, plan, crop_store) -> PredictionResult:
     return PredictionResult(
         probability=float(1.0 / (1.0 + np.exp(-float(logit)))),
         identity_attentions=id_attn,
-        aggregated_attentions=agg,
+        aggregated_attentions=list(agg),
         identities={k: crop_store[k] for k in plan.identity_keys},
         frames_per_identity=fpi,
         plan=plan,
@@ -394,17 +392,18 @@ def predict_assembled(staged: Sequence, model, state, cfg: MintimeConfig,
                       pad_to: int = 0) -> list[PredictionResult]:
     """One forward over assembled videos ``[(batch, plan, crop_store), ...]``
     (as :func:`assemble_inputs` returns them), padded to ``pad_to`` rows by
-    repeating the first; pad outputs are discarded. Attention maps are
-    sliced per video, ``heads`` rows each."""
+    repeating the first; pad outputs are discarded. The videos' attention
+    maps, ``heads`` rows each, are aggregated in one pass."""
     heads, pad = cfg.model.heads, max(pad_to - len(staged), 0)
     with span(profiling.SERVE_CALL, call=next(_calls), videos=len(staged), padded=pad):
         logits, attns = forward_batch(model, state, stack_inputs(staged, pad))
-        with span(profiling.SERVE_AGGREGATE):
-            return [
-                _result(logits[b], [a[b * heads:(b + 1) * heads] for a in attns], heads, cfg,
-                        plan, crop_store)
-                for b, (_, plan, crop_store) in enumerate(staged)
-            ]
+        with span(profiling.SERVE_AGGREGATE, videos=len(staged)):
+            fpis = [[int(t / cfg.model.num_patches) for _, t in plan.tokens_per_identity]
+                    for _, plan, _ in staged]
+            agg, id_attn = aggregate_attentions_batch([a[:len(staged) * heads] for a in attns],
+                                                      heads, cfg.model.num_frames, fpis)
+            return [_result(logits[b], agg[b], id_attn[b], fpis[b], plan, crop_store)
+                    for b, (_, plan, crop_store) in enumerate(staged)]
 
 
 def predict_video(video_path: str, model, state, cfg: MintimeConfig, detector, embedder,

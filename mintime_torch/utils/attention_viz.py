@@ -1,6 +1,7 @@
-"""Attention-map aggregation, bar plots and the face-box overlay (copy of
-``mintime_tpu/utils/attention_viz.py:18-127``). The plots and the overlay run
-on the host and import matplotlib and cv2 only when called."""
+"""Attention-map aggregation, bar plots and the face-box overlay (counterpart
+of ``mintime_tpu/utils/attention_viz.py:18-127``; the aggregation takes a
+whole batch of videos in one pass, with the same arithmetic). The plots and
+the overlay run on the host and import matplotlib and cv2 only when called."""
 
 from __future__ import annotations
 
@@ -12,11 +13,48 @@ import numpy as np
 PLOTS_NAMES = ["space", "time", "combined"]
 
 
-def _softmax(x):
-    x = np.asarray(x, dtype=np.float64)
-    x = x - x.max()
-    e = np.exp(x)
-    return e / e.sum()
+def _frame_means(vecs: np.ndarray, num_frames: int) -> np.ndarray:
+    """Means of ``vecs``' last axis over ``np.array_split``'s ``num_frames``
+    groups (the first ``N % F`` one token longer), each a row reduction, so
+    each keeps ``np.mean``'s float32 pairwise sum of its group alone."""
+    n = vecs.shape[-1]
+    q, r = divmod(n, num_frames)
+    lead = vecs[..., :r * (q + 1)].reshape(*vecs.shape[:-1], r, q + 1)
+    rest = vecs[..., r * (q + 1):].reshape(*vecs.shape[:-1], num_frames - r, q)
+    return np.concatenate([lead.mean(-1), rest.mean(-1)], axis=-1)
+
+
+def aggregate_attentions_batch(
+    attentions: Sequence[np.ndarray],
+    heads: int,
+    num_frames: int,
+    frames_per_identity: Sequence[Sequence[int]],
+    scale_factor: float = 50000,
+):
+    """Collapse [space, time] CLS attentions of ``B`` videos into per-frame
+    and per-identity saliency in one pass: per-token max over each video's
+    ``heads`` rows, space+time sum, per-frame mean, scaled softmax, then
+    per-identity sums (with the reference's frame-range arithmetic).
+
+    ``attentions``: two arrays shaped ``(B*heads, 1, 1+F*n)``.
+    ``frames_per_identity``: a video's cumulative frame counts per identity,
+    one list a video. Returns ``(aggregated (B, 3, F) float64 softmaxes of
+    [space, time, combined], identity_attentions: a list of floats a
+    video)``.
+    """
+    space, time = (np.asarray(a)[:, 0, :] for a in attentions)  # (B*heads, N)
+    peaks = [a.reshape(-1, heads, a.shape[-1]).max(axis=1) for a in (space, time)]
+    vecs = np.stack([*peaks, peaks[0] + peaks[1]], axis=1)  # (B, 3, N)
+
+    x = _frame_means(vecs, num_frames).astype(np.float64) * scale_factor
+    e = np.exp(x - x.max(axis=-1, keepdims=True))
+    out = e / e.sum(axis=-1, keepdims=True)
+
+    identity_attentions = []
+    for combined, fpi in zip(out[:, -1], frames_per_identity):
+        starts = [0] + [prev - 1 for prev in fpi[:-1]]
+        identity_attentions.append([float(combined[s:f - 1].sum()) for s, f in zip(starts, fpi)])
+    return out, identity_attentions
 
 
 def aggregate_attentions(
@@ -26,36 +64,13 @@ def aggregate_attentions(
     frames_per_identity: Sequence[int],
     scale_factor: float = 50000,
 ):
-    """Collapse [space, time] CLS attentions into per-frame and per-identity
-    saliency: per-token max over rows, space+time sum, per-frame mean,
-    scaled softmax, per-identity sums (with the reference's frame-range
-    arithmetic).
-
-    ``attentions``: two arrays shaped ``(B*heads, 1, 1+F*n)``.
-    ``frames_per_identity``: cumulative frame counts per identity.
-    Returns ``(aggregated [space, time, combined], identity_attentions)``.
-    """
-    aggregated = []
-    for attention in attentions:
-        a = np.asarray(attention)[:, 0, :]  # (B*H, N)
-        aggregated.append(a.max(axis=0))
-    combined = np.sum(aggregated, axis=0)
-    aggregated.append(combined)
-
-    out = []
-    for vec in aggregated:
-        groups = np.array_split(np.asarray(vec), num_frames)
-        out.append(_softmax([float(np.mean(g)) * scale_factor for g in groups]))
-
-    identity_attentions = []
-    for index, identity_frames in enumerate(frames_per_identity):
-        if index == 0:
-            identity_attention = float(np.sum(out[-1][: identity_frames - 1]))
-        else:
-            prev = frames_per_identity[index - 1]
-            identity_attention = float(np.sum(out[-1][prev - 1 : identity_frames - 1]))
-        identity_attentions.append(identity_attention)
-    return out, identity_attentions
+    """:func:`aggregate_attentions_batch` for one video, its maxes over every
+    row given (``heads`` or more). Returns ``(aggregated [space, time,
+    combined], identity_attentions)``."""
+    rows = len(attentions[0])
+    out, identity_attentions = aggregate_attentions_batch(attentions, rows, num_frames,
+                                                          [frames_per_identity], scale_factor)
+    return list(out[0]), identity_attentions[0]
 
 
 def save_attention_plots(aggregated_attentions, identity_names, frames_per_identity, num_frames,

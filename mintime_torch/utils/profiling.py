@@ -62,7 +62,8 @@ SERVE_STACK = "serve.stack"
 SERVE_UPLOAD = "serve.upload"
 #: ``predict.forward_batch``: logits and maps to host arrays (waits on the card)
 SERVE_FETCH = "serve.fetch"
-#: ``predict.predict_assembled``: ``aggregate_attentions`` for every video
+#: ``predict.predict_assembled``: ``aggregate_attentions_batch``, one pass over
+#: the call's videos (arg: videos)
 SERVE_AGGREGATE = "serve.aggregate"
 #: ``CastModel._in_compute_dtype``: ``MODEL + child`` is a child's call
 #: (``model.extractor``, ``model.head``, ``model.blocks``); every op under a

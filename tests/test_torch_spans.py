@@ -92,6 +92,26 @@ def test_served_call_nests_its_spans_in_order():
     assert calls[0][2] <= calls[1][1]
 
 
+def test_aggregate_span_once_a_call_with_its_videos(monkeypatch):
+    """One ``serve.aggregate`` a served call, its arg the number of videos
+    the one pass aggregated (pad rows not counted)."""
+    model, staged = _model(require_attention=True), _staged(3)
+    record, args = torch.profiler.record_function, []
+
+    def recording(name, arg=None):
+        args.append((name, arg))
+        return record(name, arg)
+
+    monkeypatch.setattr(torch.profiler, "record_function", recording)
+    spans = _profiled(lambda: [predict.predict_assembled(staged[:n], model, None, CFG, pad_to=4)
+                               for n in (3, 1)])
+    calls = [s for s in spans if s[0] == profiling.SERVE_CALL]
+    assert len(calls) == 2
+    for call in calls:
+        assert [s[0] for s in _inside(spans, call)].count(profiling.SERVE_AGGREGATE) == 1
+    assert [a for n, a in args if n == profiling.SERVE_AGGREGATE] == ["videos=3", "videos=1"]
+
+
 def test_train_step_nests_forward_backward_optimizer():
     model = train.training_model(SMALL, device="cpu")
     state = train.create_train_state(model, CFG)
