@@ -24,6 +24,7 @@ projection, the baseline head) and stay in the parameter dtype.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -113,16 +114,20 @@ class CastModel(nn.Module):
         ``_cast_names`` cast to the compute dtype; a plain call when
         parameters and compute share a dtype. The cast is the span
         ``model.cast``, the call ``model.<child>``; the extractor's rows
-        count as ``faces_run``."""
+        count as ``faces_run``, and under a profile on the card its call's
+        device time as ``extractor_device_us`` (:func:`profiling.device_timer`)."""
         module, names = getattr(self, child), self._cast_names[child]
+        timer = contextlib.nullcontext()
         if child == "extractor":
             profiling.count(profiling.FACES_RUN, args[0].shape[0])
+            timer = profiling.device_timer(profiling.EXTRACTOR_DEVICE_US,
+                                           profiling.EXTRACTOR_TIMED, args[0].device)
         if self.dtype == self.compute_dtype or not names:
-            with span(profiling.MODEL + child):
+            with span(profiling.MODEL + child), timer:
                 return module(*args, **kwargs)
         with span(profiling.MODEL_CAST):
             cast = {n: module.get_parameter(n).to(self.compute_dtype) for n in names}
-        with span(profiling.MODEL + child):
+        with span(profiling.MODEL + child), timer:
             return torch.func.functional_call(module, cast, args, kwargs)
 
 

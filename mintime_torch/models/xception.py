@@ -11,7 +11,8 @@ the reference's (``conv1``, ``bn1``, ``block{i}.rep.{j}``, ``.skip``,
 ``mintime_tpu.utils.torch_convert.xception_params_to_torch`` and
 :func:`mintime_torch.convert.xception_state_dict` emit. The public boundary
 is NHWC like the JAX package's; the convolutions run through cuDNN (the JAX
-package has no kernel of its own here).
+package has no kernel of its own here). The flows are the spans
+``xception.entry``, ``xception.middle`` and ``xception.exit``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from mintime_torch.models.efficientnet import BatchNorm
+from mintime_torch.utils import profiling
+from mintime_torch.utils.profiling import span
 
 
 class XceptionBatchNorm(BatchNorm):
@@ -79,6 +82,8 @@ BLOCK_SPECS: tuple[tuple, ...] = (
     *[(728, 728, 3, 1, True, True)] * 8,
     (728, 1024, 2, 2, True, False),
 )
+#: blocks 1-3 are the entry flow, 4-11 the middle, 12 opens the exit
+ENTRY_BLOCKS = 3
 
 
 class Xception(nn.Module):
@@ -103,10 +108,16 @@ class Xception(nn.Module):
         """``generator`` is accepted for the classifier's call and unused
         (Xception has no drop-connect)."""
         x = x.permute(0, 3, 1, 2)  # NHWC data seen as NCHW: channels-last memory
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        for i in range(len(BLOCK_SPECS)):
-            x = getattr(self, f"block{i + 1}")(x)
-        x = F.relu(self.bn3(self.conv3(x)))
-        x = self.bn4(self.conv4(x))
+        with span(profiling.XCEPTION_ENTRY):
+            x = F.relu(self.bn1(self.conv1(x)))
+            x = F.relu(self.bn2(self.conv2(x)))
+            for i in range(ENTRY_BLOCKS):
+                x = getattr(self, f"block{i + 1}")(x)
+        with span(profiling.XCEPTION_MIDDLE):
+            for i in range(ENTRY_BLOCKS, len(BLOCK_SPECS) - 1):
+                x = getattr(self, f"block{i + 1}")(x)
+        with span(profiling.XCEPTION_EXIT):
+            x = getattr(self, f"block{len(BLOCK_SPECS)}")(x)
+            x = F.relu(self.bn3(self.conv3(x)))
+            x = self.bn4(self.conv4(x))
         return x.permute(0, 2, 3, 1)

@@ -361,7 +361,8 @@ def forward_batch(model, state: Mapping[str, torch.Tensor] | None, batch: Mappin
     """Run the classifier on one stacked batch (numpy arrays, or tensors
     already on the model's device, which are not copied again); returns
     ``(logits (B,) numpy, [space, time] maps numpy)``. A host mask counts
-    its faces (``faces_valid``)."""
+    its faces (``faces_valid``); after the fetch's wait the device timers
+    are resolved (``profiling.resolve_timers``)."""
     dev = model.device
     if isinstance(batch["mask"], np.ndarray):
         profiling.count(profiling.FACES_VALID, np.count_nonzero(batch["mask"]))
@@ -374,7 +375,9 @@ def forward_batch(model, state: Mapping[str, torch.Tensor] | None, batch: Mappin
     else:
         logits, attns = torch.func.functional_call(model, dict(state), tuple(args))
     with span(profiling.SERVE_FETCH):
-        return logits.float().cpu().numpy().reshape(-1), [a.float().cpu().numpy() for a in attns]
+        out = logits.float().cpu().numpy().reshape(-1), [a.float().cpu().numpy() for a in attns]
+    profiling.resolve_timers()
+    return out
 
 
 def _result(logit, agg, id_attn, fpi, plan, crop_store) -> PredictionResult:

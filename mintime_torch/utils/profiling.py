@@ -81,15 +81,26 @@ STEP_FORWARD = "step.forward"
 STEP_BACKWARD = "step.backward"
 #: the step's zero_grad, zero gradients, learning rate and ``opt.step()``
 STEP_OPTIMIZER = "step.optimizer"
+#: ``models/xception.py``: the backbone's flows, entry (``conv1`` to block 3),
+#: middle (blocks 4-11) and exit (block 12 to ``bn4``)
+XCEPTION_ENTRY = "xception.entry"
+XCEPTION_MIDDLE = "xception.middle"
+XCEPTION_EXIT = "xception.exit"
 
 # Counters (:func:`count`).
 #: rows (faces) the extractor ran, padded slots included
 FACES_RUN = "faces_run"
 #: slots of the batches' masks that hold a face (counted from host masks only)
 FACES_VALID = "faces_valid"
+#: device microseconds of the extractor's calls timed under a profile
+#: (:func:`device_timer`), and how many calls those are
+EXTRACTOR_DEVICE_US = "extractor_device_us"
+EXTRACTOR_TIMED = "extractor_timed"
 
 _counts: collections.Counter = collections.Counter()
 _OFF = contextlib.nullcontext()
+#: :func:`device_timer`'s event pairs not yet resolved: (start, end, counter, calls)
+_pending: list = []
 
 
 def _lead_in() -> None:
@@ -269,15 +280,20 @@ def trace(log_dir: str = "outputs/trace", cuda: bool | None = None):
             time.sleep(PAD_S)
 
 
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` profile is active: one check of the
+    profiler's flag (torch is not even imported where none can be)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
 def span(name: str, **args):
     """A context manager over one of the program's spans: while a
     ``torch.profiler`` profile is active, ``record_function(name)`` with
     ``args`` as its argument string, so that the span lies among the
     profile's host records on their clock and its exporter writes it;
-    otherwise a shared no-op, after one check of the profiler's flag (torch
-    is not even imported where no profile can be active)."""
-    prof = sys.modules.get("torch.autograd.profiler")
-    if prof is None or not prof._is_profiler_enabled:
+    otherwise a shared no-op, after :func:`_profiling`'s one check."""
+    if not _profiling():
         return _OFF
     import torch
 
@@ -293,6 +309,45 @@ def count(name: str, n: int) -> None:
 def counters() -> dict[str, int]:
     """A copy of the counters as they stand (since the process started)."""
     return dict(_counts)
+
+
+@contextlib.contextmanager
+def _timed(counter: str, calls: str):
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    _pending.append((start, end, counter, calls))
+
+
+def device_timer(counter: str, calls: str, device):
+    """A context manager that, while a profile is active and ``device`` is a
+    card, records a CUDA event pair on the current stream around its body;
+    :func:`resolve_timers` (here first, and after a served call's fetch)
+    adds the stream's microseconds between them to ``counter`` and one to
+    ``calls`` once the device has passed both, so no synchronise is added.
+    Otherwise the shared no-op."""
+    if getattr(device, "type", None) != "cuda" or not _profiling():
+        return _OFF
+    resolve_timers()
+    return _timed(counter, calls)
+
+
+def resolve_timers() -> None:
+    """Count every :func:`device_timer` pair whose end the device has passed
+    (``Event.query``, which does not wait); the others stay pending."""
+    if not _pending:
+        return
+    left = []
+    for start, end, counter, calls in _pending:
+        if end.query():
+            count(counter, round(1e3 * start.elapsed_time(end)))
+            count(calls, 1)
+        else:
+            left.append((start, end, counter, calls))
+    _pending[:] = left
 
 
 def _leaves(x):

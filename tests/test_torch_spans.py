@@ -190,3 +190,57 @@ def test_op_stats_sorts_model_spans_into_fwd(tmp_path):
     assert any("conv" in n for n, s in rows)
     assert not any("conv" in n and s != "fwd" for n, s in rows)
     assert ("aten::mm", "other") in rows
+
+
+XC_SMALL = ModelConfig(image_size=32, num_frames=8, num_patches=1, channels=2048, dim=32, depth=1,
+                       heads=2, dim_head=16, max_identities=2)
+XC_FLOWS = [profiling.XCEPTION_ENTRY, profiling.XCEPTION_MIDDLE, profiling.XCEPTION_EXIT]
+
+
+def _xc_serve():
+    model = MintimeVideoClassifier(XC_SMALL, backbone="xception", require_attention=True,
+                                   device="cpu", dtype=torch.bfloat16, param_dtype=torch.float32)
+    staged = _staged(2)
+    return lambda: predict.predict_assembled(staged, model, None, MintimeConfig(model=XC_SMALL))
+
+
+def test_xception_flows_once_each_a_forward_in_order():
+    serve = _xc_serve()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        serve()
+        serve()
+    names = (profiling.MODEL + "extractor", *XC_FLOWS)
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.name in names), key=lambda s: s[1])
+    calls = [s for s in spans if s[0] == profiling.MODEL + "extractor"]
+    assert len(calls) == 2
+    for call in calls:
+        assert [n for n, _, _ in _inside(spans, call)] == XC_FLOWS
+    assert len(spans) == 2 * (1 + len(XC_FLOWS))
+
+
+def test_xception_flows_off_call_nothing_in_torch(monkeypatch):
+    serve = _xc_serve()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function called with no profile active")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    serve()
+
+
+@pytest.mark.parametrize("profiled", [False, True], ids=["off_profile", "cpu_profile"])
+def test_extractor_device_counters_stay_off_the_cpu(profiled):
+    """The extractor's device timers run only under a profile on the card:
+    off a profile, and under one on the CPU, the counters do not move and
+    nothing is left pending."""
+    serve = _xc_serve()
+    keys = (profiling.EXTRACTOR_DEVICE_US, profiling.EXTRACTOR_TIMED)
+    before = {k: profiling.counters().get(k, 0) for k in keys}
+    if profiled:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            serve()
+    else:
+        serve()
+    assert {k: profiling.counters().get(k, 0) for k in keys} == before
+    assert profiling._pending == []
