@@ -18,7 +18,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    and the CLS row's three launches) and at its edges (``CHUNKED_EDGES``;
    rows with no calls; within 2e-2 * max(1, max |plain|)), two reruns
    bitwise equal; the depthwise forward and weight gradient at the dw probes' 512
-   images and geometries; forward attentions: max abs error <= 2e-2; the
+   images and geometries; Xception's depthwise 3 x 3 kernel at each of
+   Xception's 9 depthwise shapes at 224 px, ReLU on and off, 256 images,
+   within one bf16 rounding of the largest plain output, reruns bitwise
+   equal; forward attentions: max abs error <= 2e-2; the
    depthwise forward <= 2e-2 * max(1, max |plain|), its weight gradient
    <= 2e-2 * max |plain|; backward, with unit-scale cotangents: per gradient
    <= 2e-2 * max(1, max |plain|), each gradient's error and max printed),
@@ -105,8 +108,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``predict.stage_decoded`` (detection with phase 3b's options, crops,
    identities, the evaluation transform on the card, assembly) and
    ``predict.predict_assembled`` at batch 8. Checks per backbone: 16
-   attention and 18 FFN launches for the run (one forward); kernel-mode
-   logits against plain mode within 2e-2, the first video's against a CPU
+   attention and 18 FFN launches for the run (one forward), and for
+   MINTIME-XC 34 of Xception's depthwise kernel; kernel-mode logits against
+   plain mode (no hand-written kernel launched, Xception's depthwise layers
+   on cuDNN) within 2e-2, the first video's against a CPU
    fp32 run within 5e-2; the card's evaluation transform against the CPU's
    on every crop of the run (all under 224 px: the cubic path) and on five
    larger crops of a frame (the area path; at most one level, on at most
@@ -119,7 +124,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (paths ``predict_ef_pipelined``, ``predict_xc_pipelined``): the same
    videos through ``predict.stage_decoded_pipelined`` (video i+1's stage 1
    enqueued before video i's host stages) and ``predict.predict_staged``
-   (``predict_videos``' batch logic) at batch 8, counted (16 / 18 launches),
+   (``predict_videos``' batch logic) at batch 8, counted (16 / 18 launches,
+   and 34 depthwise for MINTIME-XC),
    its probabilities within 1e-6 of the sequential run's and its
    identities equal; then sequential, pipelined, pipelined, sequential by
    host clock, with each turn's host ms in ``_dispatch_stage1`` and, within
@@ -208,7 +214,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    validation list, batch 8, 4 spawned workers, 2 epochs, then an automatic
    resumption that runs one more epoch from the last checkpoint. Each train
    step must launch 18 / 18 attention / FFN kernels forward and 18 / 17
-   backward and none of the others, each validation forward 18 / 18; the
+   backward and none of the others, each validation forward 18 / 18 and
+   Xception's 34 depthwise launches (no gradient there); the
    losses finite, ``Validation/Loss`` logged every epoch, a checkpoint
    written, and the resumed run starting at that checkpoint's epoch + 1 and
    step. Printed: each epoch's steps/s and videos/s, its validation pass and
@@ -511,6 +518,7 @@ def phase_kernels(smi):
     _divided_fwd_rerun_and_launches(smi)
 
     rows["token_rows_attention"] = _token_rows_rows(smi, gen)
+    rows["conv3x3"] = _xc_dw_rows()
     rows.update(_probe_kernel_rows(gen))
     for name, shapes in rows.items():
         for s in shapes:
@@ -932,6 +940,54 @@ def _chunked_row(case):
     del args, qkv, qkvc, sb, rb, plain, got, lq, lk, lv, lmask
     torch.cuda.empty_cache()
     return row
+
+
+#: images a row of Xception's depthwise kernel takes (the predict phase's
+#: forward holds about as many faces; the probe times 1,536)
+XC_DW_IMAGES = 256
+
+
+def _xc_dw_rows():
+    """Xception's depthwise 3 x 3 kernel against its plain version at each
+    depthwise shape of Xception at 224 px (the probe's ``GEOMS``), ReLU on
+    and off, at ``XC_DW_IMAGES`` images: within one bf16 rounding of the
+    largest output (the kernel and the plain version each round one fp32
+    sum), reruns bitwise equal, with its time, its bound and cuDNN's (after
+    the ReLU's pass where the layer has one). ``calls`` is the shape's count
+    in one Xception forward for the ReLU the layer has, 0 for the other."""
+    import torch
+
+    from mintime_torch.experiments import dw_conv3x3_cuda_vs_cudnn as xc_probe
+    from mintime_torch.ops import dw_conv
+
+    rows = []
+    for H_, W_, C, count, has_relu in xc_probe.GEOMS:
+        x, w = xc_probe.make_inputs(H_, W_, C, n=XC_DW_IMAGES)
+        b_ms, b_by = xc_probe.bound(x)
+        for relu in (has_relu, not has_relu):
+            got = dw_conv.dw_conv3x3_cuda(x, w, relu=relu)
+            plain = dw_conv.dw_conv3x3_plain(x, w, relu=relu)
+            top = float(plain.float().abs().max())
+            rows.append({
+                "shape": f"N={XC_DW_IMAGES} {H_}x{W_} C={C} relu={int(relu)}",
+                "calls": count if relu == has_relu else 0,
+                "plan": dw_conv.plan(H_, W_, C, 3),
+                "max_abs_err": max_err(got, plain), "max_plain": top, "limit": 2 ** -7 * top,
+                "bitwise_reruns": all(torch.equal(dw_conv.dw_conv3x3_cuda(x, w, relu=relu), got)
+                                      for _ in range(2)),
+                "ms": time_ms(lambda: dw_conv.dw_conv3x3_cuda(x, w, relu=relu)),
+                "plain_ms": time_ms(lambda: dw_conv.dw_conv3x3_plain(x, w, relu=relu), iters=5),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lambda: xc_probe.cudnn_dwconv(x, w, relu)),
+                "library": "cuDNN F.conv2d(groups=C), channels-last, after F.relu where relu",
+                "library_max_abs_err": max_err(xc_probe.cudnn_dwconv(x, w, relu), plain),
+            })
+            if not rows[-1]["bitwise_reruns"]:
+                raise AssertionError(f"conv3x3 gave other bits on a rerun at {rows[-1]['shape']}")
+            del got, plain
+        del x, w
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _probe_kernel_rows(gen):
@@ -1455,10 +1511,10 @@ def phase_slice(smi):
     t0 = time.perf_counter()
     results, counts = _step_launches(lambda: predict.predict_assembled(staged, model, None, cfg))
     first_s = time.perf_counter() - t0
-    launches = {k: counts[k] for k in ("divided_attention", "geglu_ffn", "token_rows_attention",
-                                       *PROBE_KERNELS)}
-    if launches != {"divided_attention": 16, "geglu_ffn": 18, "token_rows_attention": 0,
-                    **NO_PROBE_LAUNCHES}:
+    want = {"divided_attention": 16, "geglu_ffn": 18, "token_rows_attention": 0,
+            **NO_OTHER_LAUNCHES}
+    launches = {k: counts[k] for k in want}
+    if launches != want:
         raise AssertionError(f"launches per forward {launches}, want 16 attention (whole-slice),"
                              " 18 FFN, 0 token rows and none of the probes' kernels")
 
@@ -1972,7 +2028,8 @@ def phase_predict(smi, detect_members):
             first_s = time.perf_counter() - t0
             paths[path] = launches
             want = {"divided_attention": 16, "geglu_ffn": 18, "token_rows_attention": 0,
-                    **NO_PROBE_LAUNCHES}
+                    **NO_OTHER_LAUNCHES,
+                    "conv3x3": XC_DW_LAUNCHES if backbone == "xception" else 0}
             got = {k: launches[k] for k in want}
             if got != want:
                 raise AssertionError(f"{path}: launches per forward {got}, want {want}")
@@ -1995,8 +2052,11 @@ def phase_predict(smi, detect_members):
             stacked = predict.stack_inputs(staged)
             logits_k, maps_k = predict.forward_batch(model, None, stacked)
             set_use_kernels(model, False)
-            logits_p, _ = predict.forward_batch(model, None, stacked)
+            (logits_p, _), plain_launches = _step_launches(
+                lambda: predict.forward_batch(model, None, stacked))
             set_use_kernels(model, True)
+            if any(plain_launches.values()):
+                raise AssertionError(f"{path}: plain mode launched kernels {plain_launches}")
             fwd_ms = time_ms(lambda: predict.forward_batch(model, None, stacked), iters=5,
                              warmup=1)
             cpu = MintimeVideoClassifier(cfg.model, backbone=backbone, require_attention=True,
@@ -2104,7 +2164,8 @@ def _predict_pipelined(smi, path, model, det, emb, cfg, videos, sequential_resul
     # the main path: counters at 0 just before, read just after
     results, launches = _step_launches(pipelined)
     want = {"divided_attention": 16, "geglu_ffn": 18, "token_rows_attention": 0,
-            **NO_PROBE_LAUNCHES}
+            **NO_OTHER_LAUNCHES,
+            "conv3x3": XC_DW_LAUNCHES if model.backbone == "xception" else 0}
     got = {k: launches[k] for k in want}
     prob_err = max(abs(r.probability - s.probability)
                    for r, s in zip(results, sequential_results))
@@ -2405,7 +2466,7 @@ def phase_evaluate(smi):
     _, model_id, backbone, channels = PREDICT_MODELS[0]
     cfg = _predict_config(channels)
     want_forward = {"divided_attention": 18, "geglu_ffn": 18, "token_rows_attention": 0,
-                    **NO_PROBE_LAUNCHES}
+                    **NO_OTHER_LAUNCHES}
     with tempfile.TemporaryDirectory(prefix=".evaluate_split_",
                                      dir=os.path.dirname(os.path.abspath(__file__))) as d:
         t0 = time.perf_counter()
@@ -2562,11 +2623,16 @@ def phase_profile(smi, model, stacked):
 
 #: the kernels that only the probes' paths launch: none of them in a model phase
 PROBE_KERNELS = ("grouped_attention", "chunked_attention", "dw_conv", "dw_conv_wgrad")
-NO_PROBE_LAUNCHES = {k: 0 for k in PROBE_KERNELS}
+#: Xception's depthwise 3 x 3 kernel (``conv3x3``): one launch a depthwise
+#: layer, 34 an Xception forward in inference (every shape passes the rule)
+XC_DW_LAUNCHES = 34
+#: a path's launches of the probes' kernels and, unless it is an Xception
+#: forward in inference, of Xception's depthwise kernel: none
+NO_OTHER_LAUNCHES = {k: 0 for k in PROBE_KERNELS} | {"conv3x3": 0}
 
 
 def _launch_counts() -> dict:
-    """The ten wrappers' launch counters as they stand."""
+    """The wrappers' eleven launch counters as they stand."""
     from mintime_torch.ops import chunked_attention as ca
     from mintime_torch.ops import divided_attention as da
     from mintime_torch.ops import dw_conv
@@ -2579,11 +2645,12 @@ def _launch_counts() -> dict:
             "divided_attention_bwd": da.bwd_launches, "geglu_ffn_bwd": ffn.bwd_launches,
             "token_rows_attention_bwd": tr.bwd_launches,
             "grouped_attention": ga.launches, "chunked_attention": ca.launches,
-            "dw_conv": dw_conv.launches, "dw_conv_wgrad": dw_conv.wgrad_launches}
+            "dw_conv": dw_conv.launches, "dw_conv_wgrad": dw_conv.wgrad_launches,
+            "conv3x3": dw_conv.conv3x3_launches}
 
 
 def _step_launches(fn) -> tuple:
-    """Kernel launches of the ten wrappers during ``fn()``, counted from 0."""
+    """Kernel launches of the wrappers during ``fn()``, counted from 0."""
     import torch
 
     from mintime_torch.ops import chunked_attention as ca
@@ -2789,7 +2856,7 @@ def phase_train(smi):
     # the logits, so that output gets no gradient and autograd skips it
     want = {"divided_attention": 18, "geglu_ffn": 18, "token_rows_attention": 0,
             "divided_attention_bwd": 18, "geglu_ffn_bwd": 17, "token_rows_attention_bwd": 0,
-            **NO_PROBE_LAUNCHES}
+            **NO_OTHER_LAUNCHES}
     if any(c != want for c in launches):
         raise AssertionError(f"launches per train step {launches}, want {want}")
     with torch.no_grad():  # the loss of step 0's forward (same drop-connect masks), now
@@ -2956,7 +3023,7 @@ def phase_train_disk(smi, cfg, man, faces):
     step = train.make_train_step(model, pos_weight)
     want = {"divided_attention": 18, "geglu_ffn": 18, "token_rows_attention": 0,
             "divided_attention_bwd": 18, "geglu_ffn_bwd": 17, "token_rows_attention_bwd": 0,
-            **NO_PROBE_LAUNCHES}
+            **NO_OTHER_LAUNCHES}
 
     stats = collections.defaultdict(float)
     untime = _time_loader(loader_mod, stats, [(augment, "resize_chain", "resize_chain_s"),
@@ -3179,8 +3246,10 @@ def phase_train_main(smi, d, faces, split):
     argv = _main_argv(d, split, val, "--extractor_model", "1", "--patience", "5")
     step = {"divided_attention": 18, "geglu_ffn": 18, "token_rows_attention": 0,
             "divided_attention_bwd": 18, "geglu_ffn_bwd": 17, "token_rows_attention_bwd": 0,
-            **NO_PROBE_LAUNCHES}
-    forward = {**{k: 0 for k in step}, "divided_attention": 18, "geglu_ffn": 18}
+            **NO_OTHER_LAUNCHES}
+    # a validation forward runs Xception without gradients: its depthwise kernel
+    forward = {**{k: 0 for k in step}, "divided_attention": 18, "geglu_ffn": 18,
+               "conv3x3": XC_DW_LAUNCHES}
     runs, launches = [], {}
     for name, epochs in (("first", MAIN_EPOCHS - 1), ("resumed", MAIN_EPOCHS)):
         rec = _watch_main()
@@ -4067,7 +4136,7 @@ def phase_conv(smi, tap: int = 20):
     t0 = time.perf_counter()
     out, counts = _step_launches(lambda: eval_step(None, batch))
     first_s = time.perf_counter() - t0
-    want = {**fwd_want, **{k: 0 for k in bwd_want}, **NO_PROBE_LAUNCHES}
+    want = {**fwd_want, **{k: 0 for k in bwd_want}, **NO_OTHER_LAUNCHES}
     if counts != want:
         raise AssertionError(f"{phase} launches per forward {counts}, want {want}")
     logits_k = out["logits"].float().cpu().numpy()
@@ -4159,7 +4228,7 @@ def phase_conv_train(smi, tap: int = 20):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         launches.append(counts)
-    want = {**CONV_LAUNCHES[tap][0], **CONV_LAUNCHES[tap][1], **NO_PROBE_LAUNCHES}
+    want = {**CONV_LAUNCHES[tap][0], **CONV_LAUNCHES[tap][1], **NO_OTHER_LAUNCHES}
     if any(c != want for c in launches):
         raise AssertionError(f"{phase} launches per train step {launches}, want {want}")
     with torch.no_grad():
@@ -4346,6 +4415,8 @@ def main() -> int:
         "chunked_attention": ("mintime_torch/csrc/chunked_attention.cu",
                               "experiments/attn_kernel_variants.py:173"),
         "dw_conv": ("mintime_torch/csrc/dw_conv.cu", "experiments/dw_conv_pallas_vs_xla.py:24"),
+        "conv3x3": ("mintime_torch/csrc/dw_conv.cu",
+                    "none: the JAX package leaves Xception's depthwise 3 x 3 to XLA"),
         "dw_conv_wgrad": ("mintime_torch/csrc/dw_conv_wgrad.cu",
                           "experiments/dw_conv_bwd_pallas_vs_xla.py:128, :188, :231"),
     }

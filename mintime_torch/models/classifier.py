@@ -36,6 +36,7 @@ from mintime_torch.models.baseline import Baseline, video_logits
 from mintime_torch.models.efficientnet import EfficientNet
 from mintime_torch.models.timesformer import SizeInvariantTimeSformer
 from mintime_torch.models.xception import Xception
+from mintime_torch.ops import dw_conv
 from mintime_torch.utils import profiling
 from mintime_torch.utils.profiling import span
 
@@ -136,7 +137,8 @@ class MintimeVideoClassifier(CastModel):
     Size-Invariant TimeSformer (or the baseline MLP head) per video.
 
     ``use_kernels`` routes the TimeSformer's FFNs and divided attentions
-    through the CUDA kernels on the card (their plain versions on the CPU).
+    through the CUDA kernels on the card (their plain versions on the CPU),
+    and Xception's depthwise layers in inference (``F.conv2d`` elsewhere).
     ``freeze_backbone`` detaches the feature maps and keeps the backbone in
     eval mode.
     """
@@ -159,12 +161,14 @@ class MintimeVideoClassifier(CastModel):
         if backbone == "efficientnet-b0":
             self.extractor = EfficientNet("efficientnet-b0")
         elif backbone == "xception":
-            self.extractor = Xception()
+            self.extractor = Xception(use_kernels)
         if head == "timesformer":
             self.head = SizeInvariantTimeSformer(config, require_attention, use_kernels)
         else:
             self.head = Baseline(config)
         self._place(dev, dtype, param_dtype, seed)
+        if use_kernels and backbone == "xception" and dev.type == "cuda":
+            dw_conv.load()  # Xception's depthwise kernel, built now rather than in the first call
 
     def forward(self, frames, mask=None, identities_mask=None, size_embedding=None,
                 positions=None, *, train: bool = False, generator: torch.Generator | None = None):

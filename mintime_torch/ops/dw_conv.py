@@ -1,5 +1,6 @@
 """Depthwise convolution at stride 1 with SAME padding: the forward fused
-with bias and SiLU, and the weight gradient (counterparts of the probes
+with bias and SiLU, Xception's plain 3 x 3 forward with an optional ReLU
+prologue, and the weight gradient (counterparts of the probes
 ``experiments/dw_conv_pallas_vs_xla.py``: ``dw_kernel`` at ``:24-35`` through
 ``pallas_dwconv`` at ``:38-59``, and ``experiments/dw_conv_bwd_pallas_vs_xla.py``:
 ``_flat_kernel`` ``:128-153``, ``_chan_kernel`` ``:188-203`` and
@@ -13,16 +14,25 @@ fp32 (HWIO with one input channel per group).
     y[n, h, w, c] = silu(Σ_{kh, kw} x_pad[n, h+kh, w+kw, c] · w[kh, kw, c] + b[c])
     dW[kh, kw, 0, c] = Σ_{n, oh, ow} x_pad[n, oh+kh, ow+kw, c] · dy[n, oh, ow, c]
 
-``x_pad`` is x with ``K // 2`` zeros on each side of H and W. The three TPU
-weight-gradient kernels compute one function in three lane layouts, so one
-kernel is their counterpart; ``_roll_kernel`` returns it with its taps
-flipped, a fault of that probe (``tests/test_torch_dw_conv.py`` shows it).
+``x_pad`` is x with ``K // 2`` zeros on each side of H and W. Xception's
+variant (:func:`dw_conv3x3_cuda`, no TPU counterpart: the JAX package leaves
+it to XLA) takes the layout of the model that calls it, ``F.conv2d``'s: x
+``(N, C, H, W)`` in channels-last memory and the module's ``(C, 1, 3, 3)``
+weights in x's dtype, no bias:
+
+    y[n, c, h, w] = Σ_{kh, kw} relu?(x)_pad[n, c, h+kh, w+kw] · w[c, 0, kh, kw]
+
+The three TPU weight-gradient kernels compute one function in three lane
+layouts, so one kernel is their counterpart; ``_roll_kernel`` returns it with
+its taps flipped, a fault of that probe (``tests/test_torch_dw_conv.py``
+shows it).
 
 The plain versions accumulate in fp32 with the weights in fp32, as the Pallas
 kernel does (``xla_dwconv`` casts the weights to x's dtype first). For CUDA
 tensors :func:`dw_conv_bias_silu` and :func:`dw_conv_wgrad` launch
 ``csrc/dw_conv.cu`` and ``csrc/dw_conv_wgrad.cu`` or raise; neither has a
 VJP, so the kernel paths raise on inputs that require grad.
+:func:`on_kernel` says where Xception's layers take the kernel.
 """
 
 from __future__ import annotations
@@ -38,31 +48,43 @@ from mintime_torch.ops import _build
 launches = 0
 #: weight-gradient kernel launches since the last reset (one per :func:`dw_conv_wgrad_cuda` call)
 wgrad_launches = 0
+#: plain 3 x 3 kernel launches since the last reset (one per :func:`dw_conv3x3_cuda` call)
+conv3x3_launches = 0
 
 _KERNEL_K = (3, 5)  # the kernel sizes the kernels are instantiated for (EfficientNet's)
-_MAX_CT = 128  # channels of a forward block's tile, at most
-_MAX_THREADS = 512
+_MAX_CT = 64  # channels of a forward block's tile, at most
+_MAX_THREADS = 256  # threads of a forward block, at most
 _RING_BYTES = 200 * 1024  # the forward's row ring, at most (the card gives a block 227 KB)
 _COLS = 7  # output columns a forward thread slides over (R in csrc/dw_conv.cu)
 
 
 def reset_launches() -> None:
-    global launches, wgrad_launches
-    launches = wgrad_launches = 0
+    global launches, wgrad_launches, conv3x3_launches
+    launches = wgrad_launches = conv3x3_launches = 0
+
+
+def load() -> None:
+    """Build and load the forward kernels' library now (a model that will
+    call them does so when it is built, not in its first call)."""
+    _build.load("dw_conv")
 
 
 def plan(H: int, W: int, C: int, K: int) -> tuple[int, int]:
-    """The forward kernel's launch plan, ``(ct, threads)``.
+    """The forward kernel's launch plan, ``(ct, threads)``, for both its
+    variants.
 
     A block owns ``ct`` channels of one image and a ring of K + 1 padded rows
     of them; a thread owns a channel pair and 7 consecutive output columns
     (the last group of a row masked where 7 does not divide W), so a row is
-    ``ceil(W / 7) * ct / 2`` items. When C is a multiple of 8 (16-byte
-    staging), ``ct`` is the divisor of C, a multiple of 8 and at most 128,
-    whose items fill whole warps best, the larger on a tie; otherwise C
-    rounded up to even (at most 128), the last tile masked. ``threads`` is
-    the row's items rounded up to a warp, at most 512 (threads then take
-    several items a row). ``ct`` halves while the ring would pass 200 KB.
+    ``ceil(W / 7) * ct / 2`` items. With one row in flight a block, what
+    hides the loads' latency on the card is several blocks an SM (measured
+    at Xception's and EfficientNet-B0's shapes, PERF.md §6), so tiles stay
+    small. When C is a multiple of 8 (16-byte staging), ``ct`` is the
+    divisor of C, a multiple of 8 and at most 64, whose items fill whole
+    warps best, the larger on a tie; otherwise C rounded up to even (at most
+    64), the last tile masked. ``ct`` halves while the ring would pass
+    200 KB. ``threads`` is half the row's items where that fills whole warps
+    (two items a thread), else the items rounded up to a warp, at most 256.
     """
     groups = -(-W // _COLS)
 
@@ -78,7 +100,8 @@ def plan(H: int, W: int, C: int, K: int) -> tuple[int, int]:
     while ct > 8 and (K + 1) * (groups * _COLS + K - 1) * ct * 2 > _RING_BYTES:
         ct = ct // 2 + (ct // 2) % (8 if C % 8 == 0 else 2)
     items = groups * ct // 2
-    return ct, min(_MAX_THREADS, 32 * -(-items // 32))
+    threads = items // 2 if items % 64 == 0 else 32 * -(-items // 32)
+    return ct, min(_MAX_THREADS, threads)
 
 
 def _pad(x, K):
@@ -104,6 +127,26 @@ def dw_conv_bias_silu_plain(x, w, b, *, K: int):
             acc += xp[:, kh:kh + H, kw:kw + W] * w[kh, kw]
     y = acc + b.float()
     return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+def dw_conv3x3_plain(x, w, *, relu: bool):
+    """Plain PyTorch version of the plain 3 x 3 kernel.
+
+    Args:
+      x: (N, C, H, W) activations.
+      w: (C, 1, 3, 3) weights (used in fp32).
+      relu: apply max(x, 0) first.
+    Returns the depthwise conv, (N, C, H, W) in x's dtype.
+    """
+    H, W = x.shape[2:]
+    xf = F.relu(x.float()) if relu else x.float()
+    xp = F.pad(xf, (1, 1, 1, 1))
+    w = w.float()
+    acc = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    for kh in range(3):
+        for kw in range(3):
+            acc += xp[:, :, kh:kh + H, kw:kw + W] * w[:, 0, kh, kw, None, None]
+    return acc.to(x.dtype)
 
 
 def dw_conv_wgrad_plain(x, dy, *, K: int):
@@ -191,6 +234,69 @@ def dw_conv_wgrad_cuda(x, dy, *, K: int):
     return out
 
 
+def _refusal(x, w) -> str | None:
+    """Why Xception's depthwise layer (``x`` (N, C, H, W), ``w`` its
+    (C, 1, 3, 3) weight) cannot run on the plain 3 x 3 kernel, or None
+    where it can: on the card, bf16, x in channels-last memory, the weight
+    dense as (C, 9) (a module's is, in either memory format), no gradient
+    wanted (the kernel has no backward) and a shape the shape rule admits.
+    The rule: alone on the card at 1,536 images the kernel (with the ReLU it
+    absorbs) beat cuDNN (plus the ReLU's pass) at every depthwise shape of
+    Xception at 224 px, 7 to 109 columns and 64 to 1,536 channels (PERF.md
+    §6). Narrower maps, whose 7-column groups are mostly masked, and channel
+    counts that 16-byte copies cannot stage were not measured."""
+    if x.dim() != 4 or w.dim() != 4:
+        return f"x {tuple(x.shape)} and w {tuple(w.shape)} must be (N, C, H, W) and (C, 1, 3, 3)"
+    N, C, H, W = x.shape
+    if w.shape != (C, 1, 3, 3):
+        return f"w {tuple(w.shape)} is not {(C, 1, 3, 3)}"
+    if W < _COLS or C % 8:
+        return f"the shape rule keeps W={W} C={C} on cuDNN (it takes W >= {_COLS}, C % 8 == 0)"
+    if N > 65535:
+        return f"N={N} passes the grid's 65,535 images"
+    if not x.is_cuda or w.device != x.device:
+        return "x and w are not on the card together"
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return f"the kernel takes bf16 x and w, got {x.dtype} and {w.dtype}"
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return "the kernel has no backward: x or w requires grad"
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        return "the kernel needs x in channels-last memory"
+    if w.stride()[0::2] != (9, 3) or w.stride(3) != 1:
+        return f"w strides {w.stride()} are not those of a dense (C, 1, 3, 3)"
+    return None
+
+
+def on_kernel(x, w) -> bool:
+    """Whether Xception's depthwise layer runs on :func:`dw_conv3x3_cuda`
+    (see :func:`_refusal`); otherwise the module's own ``F.conv2d`` (cuDNN
+    on the card)."""
+    return _refusal(x, w) is None
+
+
+def dw_conv3x3_cuda(x, w, *, relu: bool):
+    """Launch the plain 3 x 3 kernel; same result as :func:`dw_conv3x3_plain`,
+    x bf16 (N, C, H, W) in channels-last memory, w bf16 (C, 1, 3, 3). Raises
+    where :func:`on_kernel` is false."""
+    global conv3x3_launches
+    why = _refusal(x, w)
+    if why is not None:
+        raise ValueError(f"dw_conv3x3: {why}")
+    N, C, H, W = x.shape
+    out = torch.empty_like(x)
+    ct, threads = plan(H, W, C, 3)
+    fn = _build.load("dw_conv").dw_conv3x3_fwd
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr] * 3 + [ctypes.c_int] * 7 + [ptr]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        status = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C, int(relu), ct,
+                    threads, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "dw_conv3x3")
+    conv3x3_launches += 1
+    return out
+
+
 def dw_conv_bias_silu(x, w, b, *, K: int):
     """Depthwise conv (stride 1, SAME) + bias + SiLU, NHWC. CPU tensors take
     the plain version; CUDA tensors take the kernel or raise."""
@@ -203,3 +309,4 @@ def dw_conv_wgrad(x, dy, *, K: int):
     CPU tensors take the plain version; CUDA tensors take the kernel or raise."""
     fn = dw_conv_wgrad_cuda if x.is_cuda else dw_conv_wgrad_plain
     return fn(x, dy, K=K)
+

@@ -96,6 +96,10 @@ FACES_VALID = "faces_valid"
 #: (:func:`device_timer`), and how many calls those are
 EXTRACTOR_DEVICE_US = "extractor_device_us"
 EXTRACTOR_TIMED = "extractor_timed"
+#: ``models/xception.py``: depthwise 3 x 3 layers run, and those the port's
+#: kernel ran (the rest ran on cuDNN)
+DW_LAYERS = "dw_layers"
+DW_KERNEL_LAYERS = "dw_kernel_layers"
 
 _counts: collections.Counter = collections.Counter()
 _OFF = contextlib.nullcontext()

@@ -174,10 +174,11 @@ def test_probe_dense_variant_matches_divided_attention():
 def test_probes_refuse_the_cpu():
     """The probes time CUDA kernels: without a card, or asked for the CPU,
     they raise instead of timing something else."""
-    from mintime_torch.experiments import (attn_kernel_variants, dw_conv_bwd_cuda_vs_cudnn,
-                                           dw_conv_cuda_vs_cudnn, token_rows_phases)
+    from mintime_torch.experiments import (attn_kernel_variants, dw_conv3x3_cuda_vs_cudnn,
+                                           dw_conv_bwd_cuda_vs_cudnn, dw_conv_cuda_vs_cudnn,
+                                           token_rows_phases)
 
     for mod in (attn_kernel_variants, dw_conv_cuda_vs_cudnn, dw_conv_bwd_cuda_vs_cudnn,
-                token_rows_phases):
+                token_rows_phases, dw_conv3x3_cuda_vs_cudnn):
         with pytest.raises(RuntimeError, match="card"):
             mod.run(device="cpu")

@@ -11,7 +11,11 @@ no ``interpret=``). Tolerance 1e-5 of max |ref|.
 ``p - kh`` (``dw_conv_bwd_pallas_vs_xla.py:239-245``), which under
 ``jnp.roll``'s convention pairs x with tap ``2p - kh``. The last test holds it
 against the port's result with both tap axes reversed, and shows that the
-unflipped result is far off."""
+unflipped result is far off.
+
+Xception's plain 3 x 3 variant has no JAX probe: its plain version is held
+against ``F.conv2d`` in fp32 at every depthwise shape of Xception at 224 px
+(the probe ``dw_conv3x3_cuda_vs_cudnn``'s ``GEOMS``), ReLU on and off."""
 
 import functools
 import importlib.util
@@ -24,6 +28,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from mintime_torch.experiments.dw_conv3x3_cuda_vs_cudnn import GEOMS as XC_GEOMS
 from mintime_torch.ops import dw_conv as port
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -106,3 +111,25 @@ def test_kernel_paths_refuse_cpu_even_k_and_stride():
         port.dw_conv_wgrad_cuda(x, x, K=4)
     with pytest.raises(ValueError, match="stride 1"):
         port.dw_conv_wgrad_cuda(x, x[:, ::2, ::2].contiguous(), K=3)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("H,W,C", [g[:3] for g in XC_GEOMS])
+def test_conv3x3_plain_matches_conv2d(H, W, C, relu):
+    """The plain version of Xception's variant: F.conv2d(relu?(x), w,
+    padding=1, groups=C) in fp32, on (C, 1, 3, 3) weights."""
+    g = torch.Generator().manual_seed(H * C + relu)
+    x = torch.randn(2, C, H, W, generator=g).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(C, 1, 3, 3, generator=g) * 0.3
+    got = port.dw_conv3x3_plain(x, w, relu=relu)
+    want = torch.nn.functional.conv2d(torch.relu(x) if relu else x, w, padding=1, groups=C)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    _close(got.numpy(), want.numpy())
+
+
+def test_conv3x3_kernel_path_refuses_the_cpu():
+    x = torch.zeros(1, 8, 8, 8, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.zeros(8, 1, 3, 3, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="card"):
+        port.dw_conv3x3_cuda(x, w, relu=True)
+    assert not port.on_kernel(x, w)  # the CPU keeps F.conv2d

@@ -2,8 +2,8 @@
 the FFN forward's tiles and k slices (``ops/geglu_ffn.py::fwd_plan``), the
 FFN backward's split-K planner (``ops/geglu_ffn.py::product_splits``),
 the depthwise forward's channel tile and row ring (``ops/dw_conv.py::
-plan``), the attention backward's group packs, row chunks and CLS-row
-chunks (``ops/divided_attention.py::bwd_plan``) and the token-row kernels'
+plan``, for both its variants, and the shape rule of Xception's), the
+attention backward's group packs, row chunks and CLS-row chunks (``ops/divided_attention.py::bwd_plan``) and the token-row kernels'
 tiles of whole groups, blocks and scratch (``ops/token_rows.py::plan``).
 The kernels take these plans as they are, so what is checked here is what
 runs on the card."""
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from mintime_torch.experiments.dw_conv3x3_cuda_vs_cudnn import GEOMS as XC_GEOMS
 from mintime_torch.experiments.dw_conv_cuda_vs_cudnn import GEOMS
 from mintime_torch.ops import divided_attention as da
 from mintime_torch.ops import dw_conv
@@ -143,11 +144,12 @@ def test_split_k_at_the_main_path_shapes():
 COLS = 7  # output columns a depthwise forward thread owns
 
 #: (H, W, C, K) -> (ct, threads) at the depthwise probe's geometries:
-#: channel tiles that divide C and fill whole warps
-GEOM_PLANS = {(112, 112, 32, 3): (32, 256), (56, 56, 144, 3): (72, 288),
-              (28, 28, 240, 5): (80, 160), (14, 14, 480, 3): (96, 96),
-              (14, 14, 480, 5): (96, 96), (14, 14, 672, 5): (96, 96),
-              (7, 7, 1152, 5): (128, 64), (7, 7, 1152, 3): (128, 64)}
+#: channel tiles of at most 64 that divide C and fill whole warps, two row
+#: items a thread where that fills whole warps
+GEOM_PLANS = {(112, 112, 32, 3): (32, 128), (56, 56, 144, 3): (48, 96),
+              (28, 28, 240, 5): (48, 96), (14, 14, 480, 3): (32, 32),
+              (14, 14, 480, 5): (32, 32), (14, 14, 672, 5): (32, 32),
+              (7, 7, 1152, 5): (64, 32), (7, 7, 1152, 3): (64, 32)}
 
 
 def test_dw_plan_covers_every_probe_geometry():
@@ -160,7 +162,9 @@ def test_dw_plan_at_the_probe_geometries(geom, want):
     ct, threads = dw_conv.plan(H, W, C, K)
     assert (ct, threads) == want
     assert C % ct == 0 and ct % 8 == 0 and W % COLS == 0
-    assert threads == W // COLS * ct // 2  # one item a thread, whole warps
+    items = W // COLS * ct // 2
+    # two items a thread where that fills whole warps, else one
+    assert threads == (items // 2 if items % 64 == 0 else 32 * -(-items // 32))
 
 
 @pytest.mark.parametrize("H,W,C,K", [(9, 7, 17, 3), (5, 9, 13, 5), (6, 6, 3, 3), (1, 1, 1, 5),
@@ -168,16 +172,55 @@ def test_dw_plan_at_the_probe_geometries(geom, want):
                                      (8, 10, 130, 3)])
 def test_dw_plan_invariants(H, W, C, K):
     ct, threads = dw_conv.plan(H, W, C, K)
-    assert ct % 2 == 0 and 2 <= ct <= 128
+    assert ct % 2 == 0 and 2 <= ct <= 64
     if C % 8 == 0:
         assert ct % 8 == 0  # 16-byte staging
     else:
-        assert ct >= min(C, 128)  # one masked tile where C allows
+        assert ct >= min(C, 64)  # one masked tile where C allows
     groups = -(-W // COLS)  # the last group masked where 7 does not divide W
-    assert threads % 32 == 0 and 32 <= threads <= 512
-    assert threads >= min(512, groups * ct // 2)
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    assert threads >= min(256, groups * ct // 4)  # at most two items a thread
     ring = (K + 1) * (groups * COLS + K - 1) * ct * 2
     assert ring <= 200 * 1024, ring
+
+
+#: (H, W, C) -> (ct, threads) of the 3 x 3 plan at Xception's depthwise
+#: shapes (224 px): the plans that measured fastest, or within 2% of it, on
+#: the card (PERF.md §6)
+XC_PLANS = {(109, 109, 64): (64, 256), (109, 109, 128): (64, 256), (55, 55, 128): (64, 128),
+            (55, 55, 256): (64, 128), (28, 28, 256): (64, 64), (28, 28, 728): (56, 128),
+            (14, 14, 728): (56, 64), (7, 7, 1024): (64, 32), (7, 7, 1536): (64, 32)}
+
+
+def test_dw_plan3x3_covers_every_xception_shape():
+    assert sorted(XC_PLANS) == sorted(g[:3] for g in XC_GEOMS)
+
+
+@pytest.mark.parametrize("shape,want", sorted(XC_PLANS.items()) + [
+    ((9, 7, 17), None), ((5, 9, 13), None), ((147, 147, 128), None), ((600, 600, 64), None),
+    ((10, 10, 2048), None), ((1, 1, 2), None)])
+def test_dw_plan3x3_fits_the_card(shape, want):
+    """The 3 x 3 plan: the ring within a block's 227 KB, whole warps up to
+    512 threads, the channel tiles covering C, 16-byte staging where C
+    allows, every thread of the block with a row item, and the measured
+    plans at Xception's shapes, which the shape rule sends to the kernel
+    (only the CPU refuses them here: ragged shapes the rule refuses)."""
+    H, W, C = shape
+    ct, threads = dw_conv.plan(H, W, C, 3)
+    groups = -(-W // COLS)
+    assert (4 * (groups * COLS + 2) * ct * 2) <= 227 * 1024
+    assert threads % 32 == 0 and 32 <= threads <= 512
+    assert ct % 2 == 0 and -(-C // ct) * ct >= C and ct <= 64
+    if C % 8 == 0:
+        assert ct % 8 == 0
+    assert threads <= 32 * -(-groups * ct // 2 // 32)
+    x = torch.zeros(1, C, H, W, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.zeros(C, 1, 3, 3, dtype=torch.bfloat16)
+    admitted = W >= COLS and C % 8 == 0
+    with pytest.raises(ValueError, match="card" if admitted else "shape rule"):
+        dw_conv.dw_conv3x3_cuda(x, w, relu=True)
+    if want is not None:
+        assert (ct, threads) == want and C % ct == 0 and admitted
 
 
 #: (B, G, L) of the attention backward on the main paths: the flagship's

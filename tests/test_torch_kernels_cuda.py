@@ -1,7 +1,8 @@
 """CUDA kernels against their plain versions on the card, in bf16 at the
 flagship shapes and at the Convolutional TimeSformer's (the FFN at width 256,
-the token rows), max abs error 2e-2, and the probes' kernels (grouped and
-chunked attention, depthwise conv forward and weight gradient). These need an NVIDIA GPU (a CUDA kernel
+the token rows), max abs error 2e-2, the probes' kernels (grouped and
+chunked attention, depthwise conv forward and weight gradient), and
+Xception's depthwise 3 x 3 kernel with its dispatch and counters. These need an NVIDIA GPU (a CUDA kernel
 has no CPU mode) and skip without one; on a machine with a card run
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``. The file
 imports no JAX, so it runs where JAX is not installed.
@@ -16,6 +17,7 @@ from mintime_torch.ops import dw_conv as port_dw
 from mintime_torch.ops import geglu_ffn as port
 from mintime_torch.ops import grouped_attention as port_grouped
 from mintime_torch.ops import token_rows as port_rows
+from mintime_torch.utils import profiling
 
 
 @pytest.mark.cuda
@@ -289,6 +291,111 @@ def test_dw_conv_kernels_on_card(H, W, C, K):
     assert got.shape == (K, K, 1, C) and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
     assert torch.equal(port_dw.dw_conv_wgrad_cuda(x, dy, K=K), got)
+
+
+#: Xception's depthwise shapes at 224 px (the probe ``dw_conv3x3_cuda_vs_cudnn``'s
+#: GEOMS, repeated here: this file imports no experiment), and ragged ones
+#: that the shape rule admits (7 columns or more, C a multiple of 8)
+XC_DW_SHAPES = [(109, 109, 64), (109, 109, 128), (55, 55, 128), (55, 55, 256), (28, 28, 256),
+                (28, 28, 728), (14, 14, 728), (7, 7, 1024), (7, 7, 1536), (9, 10, 16), (6, 8, 48)]
+
+
+def _xc_dw_inputs(H, W, C, n=3, seed=11):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, H, W, C, generator=gen).cuda().bfloat16().permute(0, 3, 1, 2)
+    w = (torch.randn(C, 1, 3, 3, generator=gen) * 0.3).cuda().bfloat16()
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("H,W,C", XC_DW_SHAPES)
+def test_dw_conv3x3_kernel_on_card(H, W, C, relu):
+    """Xception's plain 3 x 3 kernel against its plain version, every output
+    within one bf16 rounding of the fp32 sum (the kernel rounds once), reruns
+    bitwise equal, the output channels-last like x (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, w = _xc_dw_inputs(H, W, C)
+    got = port_dw.dw_conv3x3_cuda(x, w, relu=relu)
+    want = port_dw.dw_conv3x3_plain(x.float(), w, relu=relu)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=torch.channels_last)
+    err = (got.float() - want).abs()
+    assert bool((err <= want.abs() * 2 ** -7 + 1e-5 * float(want.abs().max())).all()), \
+        float(err.max())
+    for _ in range(2):
+        assert torch.equal(port_dw.dw_conv3x3_cuda(x, w, relu=relu), got)
+
+
+@pytest.mark.cuda
+def test_dw_conv3x3_dispatch_on_card():
+    """The kernel path in inference (grad off, or nothing requires grad),
+    cuDNN when a gradient is wanted, when the module's ``use_kernels`` is off
+    or the shape rule refuses the shape, with the same result; the counters
+    count both (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from mintime_torch.models.xception import SeparableConv
+
+    sep = SeparableConv(128, 128, use_kernels=True).cuda().bfloat16()
+    sep = sep.to(memory_format=torch.channels_last)
+    x, _ = _xc_dw_inputs(55, 55, 128)
+    w = sep.conv1.weight
+    with torch.inference_mode():
+        assert port_dw.on_kernel(x, w)
+    with torch.no_grad():
+        assert port_dw.on_kernel(x, w)
+    assert not port_dw.on_kernel(x, w)  # the weight requires grad
+    assert port_dw.on_kernel(x, w.detach())
+    assert not port_dw.on_kernel(x.float(), w.detach().float())  # bf16 only
+    assert not port_dw.on_kernel(x.contiguous(), w.detach())  # channels-last only
+    for H, W, C in ((9, 10, 13), (6, 5, 48)):  # the shape rule keeps these on cuDNN
+        xr, wr = _xc_dw_inputs(H, W, C)
+        assert not port_dw.on_kernel(xr, wr)
+        with pytest.raises(ValueError, match="shape rule"):
+            port_dw.dw_conv3x3_cuda(xr, wr, relu=True)
+    before = profiling.counters()
+    with torch.inference_mode():
+        fast = sep(x, relu=True)
+        sep.use_kernels = False
+        plain = sep(x, relu=True)  # the port's kernel switch off: cuDNN
+        sep.use_kernels = True
+    slow = sep(x, relu=True)
+    after = profiling.counters()
+    slow.float().sum().backward()
+    assert sep.conv1.weight.grad is not None
+    assert after[profiling.DW_LAYERS] - before.get(profiling.DW_LAYERS, 0) == 3
+    assert after[profiling.DW_KERNEL_LAYERS] - before.get(profiling.DW_KERNEL_LAYERS, 0) == 1
+    want = slow.detach().float()
+    for got in (fast, plain):
+        assert float((got.float() - want).abs().max()) <= 2e-2 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_xception_forward_on_card_counts_its_kernel_layers():
+    """One 224 px forward in bf16 under inference mode runs all 34 depthwise
+    layers, each on the kernel (every shape passes the shape rule), and its
+    map is the cuDNN path's within bf16's drift over 36 convolutions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from mintime_torch.models.classifier import init_weights
+    from mintime_torch.models.xception import Xception
+
+    model = Xception(use_kernels=True).eval()
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.cuda().bfloat16().to(memory_format=torch.channels_last)
+    frames = torch.rand(4, 224, 224, 3, generator=torch.Generator().manual_seed(1)).cuda()
+    frames = frames.bfloat16()
+    before = profiling.counters()
+    with torch.inference_mode():
+        got = model(frames).float()
+    after = profiling.counters()
+    for key in (profiling.DW_LAYERS, profiling.DW_KERNEL_LAYERS):
+        assert after[key] - before.get(key, 0) == 34
+    want = model(frames).detach().float()  # parameters require grad: cuDNN throughout
+    assert profiling.counters()[profiling.DW_KERNEL_LAYERS] == after[profiling.DW_KERNEL_LAYERS]
+    assert got.shape == (4, 7, 7, 2048)
+    assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
 
 
 def _ffn_bwd_args(dim, hidden, m, seed):
