@@ -33,7 +33,7 @@
 //     warps looping over the 16-row tiles, reads K and V once and was as
 //     fast as a block per four tiles at L = 80-256; at L <= 64 it took half
 //     to a third of the time of the scalar kernel it replaced (a warp per
-//     query row, a lane per key; H100, device time by chip_smoke.device_ms);
+//     query row, a lane per key; H100, device time by utils.profiling.device_ms);
 //   * CLS row, in three launches over cls_chunks chunks of the G*L keys
 //     (fp32 scratch (B, H, G*L + chunks * (dh + 2)) from the wrapper;
 //     csrc/cls_row_fwd.cuh, which the chunked attention shares):

@@ -20,7 +20,7 @@
 // per 16 query rows: one warp on the time axis (L = 16, 3136 blocks at the
 // flagship's B = 8), four on the space axis (L = 49, 1024 blocks). Blocks
 // of 2, 4 or 8 warps carrying several groups were no faster on an H100
-// (device time, chip_smoke.device_ms). The block stages its group's K and
+// (device time, utils.profiling.device_ms). The block stages its group's K and
 // V (the CLS pair as row 0) in shared memory as swizzled bf16 rows of 64
 // (narrower heads padded with zeros; 16-byte cp.async when D = 64, 4-byte
 // loads otherwise); each warp loads its q rows into A fragments and runs

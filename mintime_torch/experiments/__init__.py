@@ -1,12 +1,19 @@
 """The port's probes: the JAX package's ``experiments/`` measurements that
 hold a TPU kernel, rerun on the card with the port's kernels beside a
 library call and the plain version (``attn_kernel_variants``,
-``dw_conv_cuda_vs_cudnn``, ``dw_conv_bwd_cuda_vs_cudnn``), and the port's own
-measurements (``kernel_turns``: two checkouts in turns;
-``token_rows_phases``: the token-row launches with phases cut). Each probe has
-``run(device="cuda") -> list[dict]`` and a ``main()`` that prints a table:
-``python -m mintime_torch.experiments.<name>``. Times are device times by
-CUDA events; there is no CPU mode.
+``dw_conv_cuda_vs_cudnn``, ``dw_conv_bwd_cuda_vs_cudnn``,
+``dw_conv3x3_cuda_vs_cudnn``), and the port's own measurements
+(``kernel_turns``: every kernel at the main paths' shapes, two checkouts in
+turns; ``token_rows_phases``: the token-row launches with phases cut). Each
+probe has ``run(device="cuda") -> list[dict]`` and a ``main()`` that prints a
+table: ``python -m mintime_torch.experiments.<name>``. There is no CPU mode.
+
+Kernel timing has one timer a clock and one bound: :func:`time_ms` (one
+call's time by CUDA events over back-to-back calls, which reads the host
+where the kernels finish sooner than Python issues them),
+``utils.profiling.device_ms`` (the kernels' own durations under
+``torch.profiler``) and :func:`bound_ms` (the card's least time for the
+work at its published peaks).
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ statements guarded off (``CUTS``), compiled with the port's nvcc flags into
 and is not checked. A phase alone, against the whole launch, says how far
 the phases overlap: the whole takes their sum where they do not.
 
-Times are ``chip_smoke.device_ms`` (the kernels' durations under
+Times are ``utils.profiling.device_ms`` (the kernels' durations under
 ``torch.profiler``), so the host's issue rate does not enter.
 
 Run on a machine with a card, from the root of a checkout:
@@ -28,9 +28,10 @@ import subprocess
 import torch
 
 from mintime_torch.experiments import card, require_card
-from mintime_torch.experiments.kernel_turns import _chip_smoke
+from mintime_torch.experiments.kernel_turns import TOKEN_ROWS_CASES, token_rows_bwd_inputs
 from mintime_torch.ops import _build
 from mintime_torch.ops import token_rows as tr
+from mintime_torch.utils.profiling import device_ms
 
 SOURCES = ("token_rows_attention", "token_rows_attention_bwd")
 #: phase -> (file, statement as it stands, the same statement guarded off)
@@ -82,10 +83,9 @@ def _build_variants() -> dict:
 def run(device="cuda") -> list[dict]:
     """One row a variant: the forward's and the backward's device ms a call."""
     require_card(device)
-    cs = _chip_smoke()
     libs = _build_variants()
     gen = torch.Generator().manual_seed(0)
-    qkv, qkvc, sb, d_tok = cs._token_rows_bwd_inputs(gen, cs.TOKEN_ROWS_CASES[0])
+    qkv, qkvc, sb, d_tok = token_rows_bwd_inputs(gen, TOKEN_ROWS_CASES[0])
     kw = dict(heads=6, dim_head=64)
     launches = tr.plan(*qkv.shape[:3], 6)
     rows = []
@@ -95,9 +95,9 @@ def run(device="cuda") -> list[dict]:
             _build._LIBS.update(libs[variant])
             rows.append({
                 "variant": variant, "cuts": list(VARIANTS[variant]),
-                "fwd_ms": cs.device_ms(lambda: tr.token_rows_attention_cuda(qkv, qkvc, sb, **kw),
-                                       launches=launches["fwd_launches"]),
-                "bwd_ms": cs.device_ms(
+                "fwd_ms": device_ms(lambda: tr.token_rows_attention_cuda(qkv, qkvc, sb, **kw),
+                                    launches=launches["fwd_launches"]),
+                "bwd_ms": device_ms(
                     lambda: tr.token_rows_attention_bwd_cuda(qkv, qkvc, sb, d_tok, **kw),
                     launches=launches["bwd_launches"])})
     finally:

@@ -16,9 +16,7 @@ separable convolution: with ``use_kernels``, in inference on the card, it
 takes the port's kernel (:func:`mintime_torch.ops.dw_conv.on_kernel` says
 where) with the ReLU in front of it as its prologue. The ``nn.ReLU`` of a
 block's ``rep`` and the one before ``conv4`` are applied by the separable
-convolution that follows them, 32 of the 34. The counters ``dw_layers`` and
-``dw_kernel_layers`` count the depthwise layers run and those the kernel
-ran. The flows are the spans
+convolution that follows them, 32 of the 34. The flows are the spans
 ``xception.entry``, ``xception.middle`` and ``xception.exit``.
 """
 
@@ -56,9 +54,7 @@ class SeparableConv(nn.Module):
     def forward(self, x, relu: bool = False):
         """``relu``: apply the ReLU in front of the layer first (the kernel's
         prologue where the depthwise layer takes the kernel)."""
-        profiling.count(profiling.DW_LAYERS, 1)
         if self.use_kernels and dw_conv.on_kernel(x, self.conv1.weight):
-            profiling.count(profiling.DW_KERNEL_LAYERS, 1)
             x = dw_conv.dw_conv3x3_cuda(x, self.conv1.weight, relu=relu)
         else:
             x = self.conv1(F.relu(x) if relu else x)

@@ -26,8 +26,7 @@ host's clock. :func:`_window_kernels` ties each host launch to its kernel
 record by correlation id, so a window that lost a kernel is seen.
 
 The module imports torch inside its functions only, so that a script that
-imports it at its top (``chip_smoke.py``) still starts a spawned loader
-worker without torch.
+imports it at its top still starts a spawned loader worker without torch.
 """
 
 from __future__ import annotations
@@ -96,10 +95,6 @@ FACES_VALID = "faces_valid"
 #: (:func:`device_timer`), and how many calls those are
 EXTRACTOR_DEVICE_US = "extractor_device_us"
 EXTRACTOR_TIMED = "extractor_timed"
-#: ``models/xception.py``: depthwise 3 x 3 layers run, and those the port's
-#: kernel ran (the rest ran on cuDNN)
-DW_LAYERS = "dw_layers"
-DW_KERNEL_LAYERS = "dw_kernel_layers"
 
 _counts: collections.Counter = collections.Counter()
 _OFF = contextlib.nullcontext()

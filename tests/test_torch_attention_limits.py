@@ -11,10 +11,11 @@ wrapper's ``check_kernel_shape``, which raises where the kernels would.
 
 import dataclasses
 import functools
+from pathlib import Path
 
 import pytest
 
-from mintime_torch.config import VALID_NUM_FRAMES
+from mintime_torch.config import VALID_NUM_FRAMES, load_config
 from mintime_torch.models.efficientnet import EfficientNet
 from mintime_torch.models.timesformer import KERNEL_MAX_AXIS
 from mintime_torch.ops import divided_attention as da
@@ -27,11 +28,14 @@ def channels(block: int) -> int:
     return EfficientNet("efficientnet-b0", tap_block=block).feature_dim
 
 
-def conv_config(block: int, frames: int):
-    import chip_smoke
+@functools.lru_cache(maxsize=None)
+def conv_preset():
+    return load_config(str(Path(__file__).resolve().parent.parent / "configs"
+                           / "convolutional_timesformer.yaml")).model
 
-    return dataclasses.replace(chip_smoke.conv_model_config(), efficient_net_block=block,
-                               num_frames=frames)
+
+def conv_config(block: int, frames: int):
+    return dataclasses.replace(conv_preset(), efficient_net_block=block, num_frames=frames)
 
 
 def whole_slice_axes(G_time: int, L_time: int, heads: int, dim_head: int):

@@ -158,11 +158,11 @@ def test_state_dict_loads_strictly_with_the_flagship_head_keys():
         model.load_state_dict(sd, strict=True)
 
 
-def test_chip_smoke_runs_the_preset():
-    """``chip_smoke.py`` builds the conv model from its own copy of the
-    preset (the card's machine has no yaml); the copy is the yaml's."""
-    import chip_smoke
+def test_card_inputs_conv_preset_is_the_yaml():
+    """The card tests build the conv model from their own copy of the preset
+    (the card's machine has no yaml); the copy is the yaml's."""
+    import card_inputs
     from mintime_torch.config import load_config
 
     yaml = Path(__file__).resolve().parent.parent / "configs" / "convolutional_timesformer.yaml"
-    assert chip_smoke.conv_model_config() == load_config(str(yaml)).model
+    assert card_inputs.conv_model_config() == load_config(str(yaml)).model

@@ -384,21 +384,21 @@ def test_entry_point_defaults_to_the_card(files):
         port_eval.main(_argv(files))
 
 
-def test_chip_smoke_split_and_config(tmp_path):
-    """``chip_smoke.py`` phase ``evaluate``'s data and model: the yaml's
-    config built in code, and a split of 48 videos, 32 of them with two or
-    more identities, frame sizes from pack headers and sidecars, loose crops
-    merged into identity 0, block noise in a band of levels a video."""
-    import chip_smoke
+def test_card_inputs_split_and_config(tmp_path):
+    """The card tests' evaluation data and model: the yaml's config built in
+    code, and a split of 48 videos, 32 of them with two or more identities,
+    frame sizes from pack headers and sidecars, loose crops merged into
+    identity 0, block noise in a band of levels a video."""
+    import card_inputs
     from mintime_torch.data.dataset import DeepfakesDataset
 
     yaml = load_config(os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs",
                                     "size_invariant_timesformer.yaml"))
-    cfg = chip_smoke._predict_config(2048)
+    cfg = card_inputs.flagship_config(2048)
     assert (cfg.model, cfg.test) == (yaml.model, yaml.test) and cfg.test.bs == 1
-    faces, split, n_crops = chip_smoke._write_test_split(str(tmp_path))
+    faces, split, n_crops = card_inputs.write_split(str(tmp_path))
     man = load_manifest(split, faces)
-    assert len(man) == chip_smoke.EVAL_VIDEOS == 48 and sum(man.labels) == 24
+    assert len(man) == card_inputs.SPLIT_VIDEOS == 48 and sum(man.labels) == 24
     assert sorted({m for m in man.multiclass if not math.isnan(m)}) == [1.0, 2.0, 3.0, 4.0]
     assert len(port_eval.filter_multi_identity(man.videos, faces)) == 32
     ds = DeepfakesDataset(man.videos, man.labels, data_path=faces, device="cpu")
@@ -412,6 +412,6 @@ def test_chip_smoke_split_and_config(tmp_path):
     assert n_crops == len(sides) + 3 * 8 and min(sides) >= 64 and max(sides) <= 320
     crops = [[vi.pack.read(i) for i in range(len(vi.pack.entries))] for vi in index]
     lo = [min(int(c.min()) for c in cs) for cs in crops]
-    assert all(max(int(c.max()) for c in cs) - low < chip_smoke.EVAL_BAND
+    assert all(max(int(c.max()) for c in cs) - low < card_inputs.SPLIT_BAND
                for cs, low in zip(crops, lo))  # each video's noise in its band
     assert max(lo) - min(lo) > 128  # the bands spread over the levels

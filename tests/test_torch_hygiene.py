@@ -17,7 +17,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "mintime_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "mintime_torch").rglob("*.py")) + [
+    ROOT / "tests" / "test_torch_paths_cuda.py", ROOT / "tests" / "card_inputs.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "mintime_tpu", "PIL")
 LAZY_ONLY = ("cv2", "yaml", "matplotlib", "pandas")
 

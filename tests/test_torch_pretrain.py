@@ -232,13 +232,13 @@ def test_the_loaders_workers_import_no_torch():
                    env={**os.environ, "PYTHONPATH": root})
 
 
-def test_chip_smoke_pretrain_config_is_the_yaml():
-    """``chip_smoke.py`` phase ``pretrain`` builds the config in code (the
-    card's machine has no yaml): ``configs/extractor_pretraining.yaml``."""
-    import chip_smoke
+def test_card_inputs_pretrain_config_is_the_yaml():
+    """The card tests build the pretraining config in code (the card's
+    machine has no yaml): ``configs/extractor_pretraining.yaml``."""
+    import card_inputs
 
     from mintime_torch.config import load_config
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    assert chip_smoke.pretrain_config() == \
+    assert card_inputs.pretrain_config() == \
         load_config(os.path.join(root, "configs", "extractor_pretraining.yaml"))

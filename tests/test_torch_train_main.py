@@ -308,13 +308,13 @@ def test_flags_are_the_jax_mains(capsys):
     assert port["device"] == "cuda"
 
 
-def test_chip_smoke_configs_are_the_yamls():
-    """``chip_smoke.py`` phases ``train_main`` and ``slowfast`` build their
-    configs in code (the card's machine has no yaml): the repo's yamls."""
-    import chip_smoke
+def test_card_inputs_configs_are_the_yamls():
+    """The card tests of the training CLI and SlowFast build their configs
+    in code (the card's machine has no yaml): the repo's yamls."""
+    import card_inputs
     from mintime_torch.config import load_config
 
     root = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs")
-    assert chip_smoke.train_main_config() == \
+    assert card_inputs.train_main_config() == \
         load_config(os.path.join(root, "size_invariant_timesformer.yaml"))
-    assert chip_smoke.slowfast_config() == load_config(os.path.join(root, "slowfast.yaml"))
+    assert card_inputs.slowfast_config() == load_config(os.path.join(root, "slowfast.yaml"))

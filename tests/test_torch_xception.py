@@ -23,7 +23,7 @@ from mintime_torch.convert import load_jax_variables, xception_state_dict
 from mintime_torch.models.classifier import MintimeVideoClassifier
 from mintime_torch.experiments.dw_conv3x3_cuda_vs_cudnn import GEOMS
 from mintime_torch.models.xception import SeparableConv, Xception
-from mintime_torch.utils import profiling
+from mintime_torch.ops import dw_conv
 from test_torch_efficientnet import random_variables
 
 #: 64 px through Xception gives a 2 x 2 map: num_patches 4
@@ -107,8 +107,8 @@ def test_relus_become_the_separable_convs_prologues():
     """The walkers of ``XceptionBlock.forward`` and ``Xception.forward`` hand
     32 of the 34 depthwise layers their ReLU as a prologue (31 in the
     blocks, 1 before ``conv4``) and run no ``nn.ReLU`` module; the layers'
-    shapes are the probe's ``GEOMS``; the counters count every layer, none
-    on the kernel on the CPU."""
+    shapes are the probe's ``GEOMS``; none of them runs on the kernel on
+    the CPU (its launch counter stays)."""
     model = Xception().to("meta").eval()
     seen, relu_modules = [], []
     for name, m in model.named_modules():
@@ -119,9 +119,8 @@ def test_relus_become_the_separable_convs_prologues():
                 with_kwargs=True)
         elif isinstance(m, torch.nn.ReLU):
             m.register_forward_hook(lambda *a: relu_modules.append(a))
-    before = profiling.counters()
+    launches = dw_conv.conv3x3_launches
     model(torch.empty(2, 224, 224, 3, device="meta"))
-    after = profiling.counters()
     assert len(seen) == 34 and relu_modules == []
     fused = [name for name, _, relu in seen if relu]
     assert len(fused) == 32 and sum(n.startswith("block") for n in fused) == 31
@@ -130,5 +129,4 @@ def test_relus_become_the_separable_convs_prologues():
     for _, (C, H, W), relu in seen:
         shapes[H, W, C, relu] = shapes.get((H, W, C, relu), 0) + 1
     assert shapes == {(H, W, C, relu): n for H, W, C, n, relu in GEOMS}
-    for key, n in ((profiling.DW_LAYERS, 34), (profiling.DW_KERNEL_LAYERS, 0)):
-        assert after.get(key, 0) - before.get(key, 0) == n
+    assert dw_conv.conv3x3_launches == launches
